@@ -1,0 +1,57 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--out report.json] [--profile profile.json]
+
+Builds every CUDA kernel of the port with nvcc, holds each against its
+plain torch version on the card, then drives the port's main path once at
+full width: the 50^3 Octet compliance step with the multigrid
+preconditioner, bench.py's protocol (pylatticedso_tpu_torch/smoke.py).
+Prints the card's name and power limit, one JSON line listing the kernels,
+and as the last line {"ok": true, "device": {...}}.  Exits non-zero, with
+no result, when there is no card or the port cannot be imported.
+"""
+
+import argparse
+import json
+import sys
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="write the full report (JSON) here")
+    ap.add_argument("--profile", help="after the run, profile two warm "
+                    "steps with torch.profiler and write the table here")
+    args = ap.parse_args()
+    try:
+        import torch
+        from pylatticedso_tpu_torch import smoke
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    report = smoke.run(device="cuda", n=50,
+                       log=lambda s: print(s, flush=True))
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(report, fh, indent=1, default=str)
+    if args.profile:
+        prof = smoke.profile_phase(torch.device("cuda"), 50)
+        with open(args.profile, "w") as fh:
+            json.dump(prof, fh, indent=1)
+        print(f"profile: {prof['wall_ms']:.1f} ms wall, device busy "
+              f"{prof['device_busy_ms']:.1f} ms (idle share "
+              f"{prof['idle_share']:.3f}), iterations {prof['iterations']}")
+    print(f"wall: {report['wall_s']:.1f} s")
+    print(report["device"]["nvidia_smi"])
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

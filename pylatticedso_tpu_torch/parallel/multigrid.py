@@ -1,0 +1,325 @@
+"""Geometric multigrid preconditioner for the structured stencil operator
+(PyTorch, unfused f32 smoothers).
+
+Mirrors ``pylatticedso_tpu.parallel.multigrid``: a hierarchy of coarse
+lattices with 2x cells and 2x radii, per-class trilinear transfers with
+restriction as the exact transpose of prolongation, and a Chebyshev
+smoother with Jacobi scaling whose lmax comes from a fixed-length power
+iteration.  Every level's matvec is the B1 stencil kernel (through
+``StructuredLattice.make_matvec``).
+
+Not ported yet (ROADMAP.md queue B): the fused V-cycle (``fused=True``,
+kernels B3-B5) and the bf16-I/O smoother (``lo_smoother=True``, kernel B2).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
+           "make_transfers", "make_radius_restrictor"]
+
+
+# ---------------------------------------------------------------- transfers
+def _interp_matrix(X: int, C: int, frac: float) -> np.ndarray:
+    """[X, C] 1-D linear interpolation matrix coarse->fine (factor 2),
+    offset-aware: a class with fractional template coordinate ``frac`` has
+    its fine node p at (p + frac) h and its coarse node i at (2i + 2 frac) h,
+    so the fine sample interpolates the coarse field at t = (p - frac) / 2.
+    Out-of-hull samples extrapolate linearly."""
+    P = np.zeros((X, C))
+    if C == 1:
+        P[:, 0] = 1.0
+        return P
+    pos = (np.arange(X) - frac) / 2.0
+    i0 = np.clip(np.floor(pos).astype(int), 0, C - 2)
+    w1 = pos - i0
+    P[np.arange(X), i0] += 1.0 - w1
+    P[np.arange(X), i0 + 1] += w1
+    return P
+
+
+def make_transfers(fine_grid: Tuple[int, int, int],
+                   coarse_grid: Tuple[int, int, int],
+                   class_keys: np.ndarray, dtype=torch.float64,
+                   device="cpu"):
+    """(prolong, restrict) for [nc, 6, X, Y, Z] class fields.
+
+    Three per-axis batched contractions with stacked per-class [X, C]
+    interpolation matrices.  ``restrict`` is the same chain transposed
+    (axes in reverse order, each matrix transposed), so
+    <prolong(c), f> == <c, restrict(f)> up to rounding — the symmetry of
+    the V-cycle depends on it.  The contractions run in full precision:
+    TF32 is switched off for them (it is off by default in PyTorch).
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    keys = np.asarray(class_keys, dtype=float)
+    nc = len(keys)
+    Ps = []
+    for a in range(3):
+        P = np.stack([_interp_matrix(fine_grid[a], coarse_grid[a],
+                                     float(keys[ci][a])) for ci in range(nc)])
+        Ps.append(torch.as_tensor(P, dtype=dtype, device=device))
+
+    def _mats(x):
+        return [P if P.dtype == x.dtype else P.to(x.dtype) for P in Ps]
+
+    def prolong(c):
+        P0, P1, P2 = _mats(c)
+        f = torch.einsum("cdqyz,cxq->cdxyz", c, P0)
+        f = torch.einsum("cdxqz,cyq->cdxyz", f, P1)
+        return torch.einsum("cdxyq,czq->cdxyz", f, P2)
+
+    def restrict(f):
+        P0, P1, P2 = _mats(f)
+        c = torch.einsum("cdxyz,czq->cdxyq", f, P2)
+        c = torch.einsum("cdxyq,cyp->cdxpq", c, P1)
+        return torch.einsum("cdxpq,cxo->cdopq", c, P0)
+
+    return prolong, restrict
+
+
+def _coarsen_cells(n: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    return tuple(max(1, -(-ni // 2)) for ni in n)
+
+
+def _coarse_cell_valid(valid: np.ndarray) -> np.ndarray:
+    nx, ny, nz = valid.shape
+    cx, cy, cz = _coarsen_cells((nx, ny, nz))
+    pad = np.zeros((2 * cx, 2 * cy, 2 * cz), dtype=bool)
+    pad[:nx, :ny, :nz] = valid
+    return (pad.reshape(cx, 2, cy, 2, cz, 2).sum(axis=(1, 3, 5)) > 0)
+
+
+def make_radius_restrictor(valid: np.ndarray, dtype=torch.float64,
+                           device="cpu"):
+    """Coarse per-cell radii: validity-weighted 2x2x2 mean, doubled (keeps
+    r/L, hence relative density and homogenized moduli, across levels)."""
+    nx, ny, nz = valid.shape
+    cx, cy, cz = _coarsen_cells((nx, ny, nz))
+    w = np.zeros((2 * cx, 2 * cy, 2 * cz))
+    w[:nx, :ny, :nz] = valid.astype(float)
+    cnt = w.reshape(cx, 2, cy, 2, cz, 2).sum(axis=(1, 3, 5))
+    cnt = np.maximum(cnt, 1.0)
+    w_t = torch.as_tensor(w, dtype=dtype, device=device)
+    cnt_t = torch.as_tensor(cnt, dtype=dtype, device=device)
+
+    def _restrict3(r):
+        p = torch.zeros((2 * cx, 2 * cy, 2 * cz), dtype=r.dtype,
+                        device=r.device)
+        p[:nx, :ny, :nz] = r
+        p = p * w_t.to(r.dtype)
+        s = p.reshape(cx, 2, cy, 2, cz, 2).sum(dim=(1, 3, 5))
+        return 2.0 * s / cnt_t.to(r.dtype)
+
+    def restrict_radius(r):
+        # hybrid lattices carry one radius field per superposed geometry
+        if r.ndim == 4:
+            return torch.stack([_restrict3(rg) for rg in r])
+        return _restrict3(r)
+
+    return restrict_radius
+
+
+# ---------------------------------------------------------------- hierarchy
+class MGLevel:
+    def __init__(self, slat, free_field: np.ndarray):
+        self.slat = slat
+        self.matvec, self.diag_fn = slat.make_matvec()
+        fm = np.asarray(free_field)
+        if fm.ndim == 4:
+            fm = np.broadcast_to(fm[:, None], (slat.nc, 6) + slat.grid)
+        self.free = torch.as_tensor(np.ascontiguousarray(fm, np.float64),
+                                    dtype=slat.dtype,
+                                    device=torch.device(slat.device))
+
+    def A(self, u, radius):
+        f = self.free
+        return f * self.matvec(f * u, radius) + (1.0 - f) * u
+
+    def prepare(self, radius):
+        """Loop-invariant matvec operands (padded r^2 fields) for a fixed
+        radius."""
+        return self.matvec.prepare(radius)
+
+    def A_aux(self, u, radius, aux):
+        if aux is None:
+            return self.A(u, radius)
+        f = self.free
+        return f * self.matvec.apply(f * u, aux) + (1.0 - f) * u
+
+    def D(self, radius):
+        f = self.free
+        d = f * self.diag_fn(radius) + (1.0 - f)
+        return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def build_mg_hierarchy(slat, free_field: np.ndarray, min_cells: int = 3,
+                       max_levels: int = 10) -> dict:
+    """Static multilevel structure for a StructuredLattice.
+
+    Coarse Dirichlet/validity masks are the even-index subsample of the fine
+    ones (coarse class node (i,j,k) corresponds to fine (2i,2j,2k)), ANDed
+    with the coarse lattice's own node validity.
+    """
+    from .structured import StructuredLattice
+
+    dev = torch.device(slat.device)
+    levels: List[MGLevel] = [MGLevel(slat, free_field)]
+    prolongs: List[Callable] = []
+    restricts: List[Callable] = []
+    rad_restrictors: List[Callable] = []
+
+    cur, cur_free = slat, np.asarray(free_field)
+    if cur_free.ndim == 4:
+        cur_free = np.broadcast_to(cur_free[:, None],
+                                   (slat.nc, 6) + slat.grid).copy()
+    while max(cur.num_cells) > min_cells and len(levels) < max_levels:
+        n_c = _coarsen_cells(cur.num_cells)
+        cv_c = _coarse_cell_valid(np.asarray(cur.cell_valid))
+        coarse = StructuredLattice(
+            cur.geom, n_c, tuple(2.0 * np.asarray(cur.cell_size)),
+            cur.E_mod, cur.nu, kappa=cur.kappa, dtype=cur.dtype,
+            cell_valid=cv_c, node_transform=cur.node_transform,
+            device=cur.device)
+        # even-index subsample, clamped to the coarse grid extent
+        cx, cy, cz = coarse.grid
+        sub = cur_free[:, :, 0::2, 0::2, 0::2][:, :, :cx, :cy, :cz]
+        if sub.shape[2:] != coarse.grid:
+            padded = np.zeros((cur.nc, 6) + coarse.grid, dtype=bool)
+            padded[:, :, :sub.shape[2], :sub.shape[3], :sub.shape[4]] = sub
+            sub = padded
+        free_c = sub & np.broadcast_to(coarse.node_valid[:, None], sub.shape)
+
+        rad_restrictors.append(make_radius_restrictor(
+            np.asarray(cur.cell_valid), dtype=slat.dtype, device=dev))
+        p, r = make_transfers(cur.grid, coarse.grid, cur.class_keys,
+                              dtype=slat.dtype, device=dev)
+        prolongs.append(p)
+        restricts.append(r)
+        levels.append(MGLevel(coarse, free_c))
+        cur, cur_free = coarse, free_c
+
+    return {"levels": levels, "prolong": prolongs, "restrict": restricts,
+            "restrict_radius": rad_restrictors}
+
+
+# ------------------------------------------------------------- smoothing
+def _estimate_lmax(A: Callable, D: torch.Tensor, shape, dtype,
+                   iters: int = 10) -> torch.Tensor:
+    """lmax(D^-1 A) via power iteration with a deterministic start."""
+    n = int(np.prod(shape))
+    v = 1.0 + 0.5 * torch.sin(torch.arange(n, dtype=dtype, device=D.device)
+                              * 0.7)
+    v = v.reshape(shape)
+    v = v / torch.linalg.vector_norm(v.reshape(-1))
+    for _ in range(iters):
+        w = A(v) / D
+        v = w / torch.clamp_min(torch.linalg.vector_norm(w.reshape(-1)),
+                                1e-30)
+    w = A(v) / D
+    lam = torch.dot(v.reshape(-1), w.reshape(-1)) \
+        / torch.dot(v.reshape(-1), v.reshape(-1))
+    return 1.1 * lam
+
+
+def _chebyshev(A: Callable, D: torch.Tensor, b: torch.Tensor,
+               x0: Optional[torch.Tensor], lmax, lmin_frac: float,
+               degree: int) -> torch.Tensor:
+    """Chebyshev semi-iteration for A x = b, Jacobi-scaled, on
+    [lmax * lmin_frac, lmax]: a polynomial in D^-1 A applied to D^-1 r,
+    symmetric positive as an operator, hence V-cycle-safe."""
+    lmin = lmax * lmin_frac
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x) if x0 is not None else b
+    d = (r / D) / theta
+    rho = 1.0 / sigma
+    for _ in range(degree):
+        x = x + d
+        r = r - A(d)
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * (r / D)
+        rho = rho_new
+    return x + d
+
+
+# ------------------------------------------------------------- V-cycle
+def mg_precond_state(h: dict, radius_field: torch.Tensor,
+                     power_iters: int = 10,
+                     fused: Optional[bool] = None) -> dict:
+    """Radius-derived V-cycle state: per-level radii, hoisted matvec
+    operands, Jacobi diagonals and lmax estimates.  A descent loop whose
+    radii move slowly can FREEZE it and skip the per-solve power
+    iterations and per-level operand rebuilds."""
+    if fused:
+        raise NotImplementedError(
+            "the fused V-cycle state is not ported yet: ROADMAP.md queue B "
+            "(kernels B3-B5)")
+    levels: List[MGLevel] = h["levels"]
+    dt = levels[0].slat.dtype
+    radii = [torch.as_tensor(radius_field, dtype=dt,
+                             device=levels[0].free.device)]
+    for rr in h["restrict_radius"]:
+        radii.append(rr(radii[-1]))
+
+    auxs = [lvl.prepare(rad) for lvl, rad in zip(levels, radii)]
+    lmaxs = []
+    for lvl, rad, aux in zip(levels, radii, auxs):
+        D = lvl.D(rad)
+        Af = lambda u, _l=lvl, _r=rad, _a=aux: _l.A_aux(u, _r, _a)
+        lmaxs.append(_estimate_lmax(Af, D, D.shape, dt, iters=power_iters))
+    Ds = [lvl.D(rad) for lvl, rad in zip(levels, radii)]
+    return {"radii": radii, "auxs": auxs, "Ds": Ds, "lmaxs": lmaxs}
+
+
+def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
+             smooth_frac: float = 0.25,
+             lo_smoother: Optional[bool] = None,
+             fused: Optional[bool] = None) -> Callable:
+    """V(nu,nu)-cycle application M(r) from a precomputed state.
+
+    ``nu`` may be a single degree or a per-level schedule (clamped to its
+    last entry for deeper levels).  The cycle stays symmetric (pre == post
+    at every level), so it remains a valid SPD preconditioner for plain
+    CG.  The smoothers run unfused in the working dtype.
+    """
+    if lo_smoother:
+        raise NotImplementedError(
+            "the bf16-I/O smoother is not ported yet: ROADMAP.md queue B "
+            "(kernel B2)")
+    if fused:
+        raise NotImplementedError(
+            "the fused V-cycle is not ported yet: ROADMAP.md queue B "
+            "(kernels B3-B5)")
+    nus = ([int(v) for v in nu] if isinstance(nu, (tuple, list))
+           else [int(nu)])
+    nu_at = lambda lvl: nus[min(lvl, len(nus) - 1)]
+    levels: List[MGLevel] = h["levels"]
+    nL = len(levels)
+    radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
+                              state["lmaxs"])
+
+    def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
+        lvl, rad, D, lmax = levels[level], radii[level], Ds[level], lmaxs[level]
+        Af = lambda u: lvl.A_aux(u, rad, auxs[level])
+        if level == nL - 1:
+            # coarsest: aggressive Chebyshev over (almost) the full spectrum
+            return _chebyshev(Af, D, b, None, lmax, 1.0 / 64.0, coarse_degree)
+        nu_l = nu_at(level)
+        x = _chebyshev(Af, D, b, None, lmax, smooth_frac, nu_l)     # pre
+        r = b - Af(x)
+        rc = levels[level + 1].free * h["restrict"][level](r)
+        ec = vcycle(level + 1, rc)
+        x = x + lvl.free * h["prolong"][level](levels[level + 1].free * ec)
+        return _chebyshev(Af, D, b, x, lmax, smooth_frac, nu_l)     # post
+
+    def M(r):
+        return vcycle(0, r)
+
+    return M

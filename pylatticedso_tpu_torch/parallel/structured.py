@@ -1,0 +1,674 @@
+"""Structured stencil operator for uniform periodic lattices (PyTorch).
+
+A uniform lattice (one unit-cell template tiled on a regular grid) is not an
+unstructured graph: its nodes decompose into a few CLASSES — the unique
+template-node positions modulo the cell — each living on a regular
+(Nx+1, Ny+1, Nz+1) grid, and its beams into a few TEMPLATE EDGES, each
+connecting class A at cell g to class B at cell g + d for a constant integer
+offset d and a constant local frame.
+
+K.u then becomes, per template edge, dense shifted-slice arithmetic over
+[6, X, Y, Z] class fields.  The host build (class decomposition, creator
+priority, validity masks) is numpy and mirrors
+``pylatticedso_tpu.parallel.structured`` line for line; the operator is
+plain torch (the gather form, the oracle of the B1 stencil kernel), and
+``make_matvec`` routes every K.u application through the kernel wrapper
+``kernels.stencil.StencilMatvec`` — the hand-written CUDA kernel on a
+CUDA tensor, the gather form on a CPU tensor.
+
+Scope of this module: uniform cell size, no penalization; single-geometry
+and hybrid (superposed multi-geometry) templates, erased cells and
+node-granular trimming.  Warped lattices (``node_transform``), the scatter
+matvec, a custom objective, imposed displacements, the implicit-gradient
+path and the batched step raise ``NotImplementedError`` (ROADMAP.md, queue A
+"deferred features").
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..catalog import get_beam_structure
+from ..kernels.stencil import StencilMatvec, edge_sides
+
+__all__ = ["StructuredLattice", "make_structured_compliance_step"]
+
+
+def _split_template_collisions(templates, tol: float = 1e-9):
+    """Split template beams at other template points lying strictly inside
+    them (colinear, 0 < t < 1) — design/lattice.py's hybrid collision rule
+    applied once at TEMPLATE level.  Superposition is identical in every
+    cell, so one template split reproduces the per-cell splitting globally;
+    split points are other geometries' nodes, so the class set is
+    unchanged."""
+    pts = np.unique(np.round(np.concatenate(
+        [t.reshape(-1, 3) for t in templates]), 9), axis=0)
+    out = []
+    for tpl in templates:
+        segs = []
+        for beam in tpl:
+            p1, p2 = beam[:3], beam[3:]
+            v = p2 - p1
+            L2 = float(v @ v)
+            w = pts - p1
+            cr = np.cross(np.broadcast_to(v, pts.shape), w)
+            colinear = (cr * cr).sum(1) <= (tol * np.sqrt(max(L2, 1e-300))) ** 2
+            t = (w @ v) / max(L2, 1e-300)
+            interior = colinear & (t > 1e-12) & (t < 1.0 - 1e-12)
+            chain = ([p1] + [p1 + tt * v for tt in np.sort(t[interior])]
+                     + [p2])
+            for a, b in zip(chain[:-1], chain[1:]):
+                segs.append(np.concatenate([a, b]))
+        out.append(np.asarray(segs))
+    return out
+
+
+def _class_decomposition(templates):
+    """Template beams -> node classes + normalized template edges.
+
+    ``templates``: one [n_beams, 2, 3] array per geometry.  Hybrid lattices
+    SUPERPOSE every geometry's beams in every cell, each geometry carrying
+    its own per-cell radius; classes are merged across geometries by their
+    9-digit fractional key and template edges by their canonical
+    (class, offset) form, with each creator tagged by its source geometry.
+
+    Returns (class_keys [nc,3], edges: list of dicts with class ids, offset,
+    endpoint fractional positions, creator (shift, geometry) pairs).
+    """
+    pts_all, geom_of_beam = [], []
+    for gi, template in enumerate(templates):
+        pts_all.append(template.reshape(-1, 3))
+        geom_of_beam.extend([gi] * len(template))
+    pts = np.concatenate(pts_all)
+    offs = np.floor(pts + 1e-12).astype(np.int64)          # 1.0 -> next cell
+    keys = np.round(pts - offs, 9)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = np.asarray(inv).reshape(-1)
+
+    # pre-dedup per-class cell offsets: class-c node at grid q exists iff a
+    # cell q - o exists for some original template offset o of that class
+    class_offsets = [set() for _ in range(len(uniq))]
+    for i in range(len(pts)):
+        class_offsets[int(inv[i])].add(tuple(offs[i].tolist()))
+
+    edges = {}
+    for b in range(len(pts) // 2):
+        ia, ib = 2 * b, 2 * b + 1
+        gi = geom_of_beam[b]
+        ca, cb = int(inv[ia]), int(inv[ib])
+        oa, ob = offs[ia], offs[ib]
+        # canonical form: shift both offsets by their componentwise min (the
+        # same physical stencil created by neighboring cells differs only by
+        # a uniform shift) and order the endpoints deterministically
+        s = np.minimum(oa, ob)
+        oa2, ob2 = tuple((oa - s).tolist()), tuple((ob - s).tolist())
+        ka, kb = keys[ia], keys[ib]
+        if ((cb,) + ob2) < ((ca,) + oa2):
+            oa2, ob2, ca, cb, ka, kb = ob2, oa2, cb, ca, kb, ka
+        canon = ((ca,) + oa2, (cb,) + ob2)
+        if canon not in edges:
+            edges[canon] = {
+                "ca": ca, "cb": cb, "oa": oa2, "ob": ob2,
+                "fa": np.asarray(oa2) + ka,   # A position rel. anchor cell
+                "fb": np.asarray(ob2) + kb,
+                "shifts": set(),
+            }
+        # an instance at anchor g is created by cell g - s (of geometry gi)
+        edges[canon]["shifts"].add(tuple(s.tolist()) + (gi,))
+    return uniq, list(edges.values()), class_offsets
+
+
+def _check_device(device) -> torch.device:
+    """The port runs on the card unless the caller asks for the CPU; a CUDA
+    request with no card fails here instead of falling back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain torch operator")
+    return dev
+
+
+@dataclass
+class StructuredLattice:
+    """Class-grid representation of a uniform lattice.
+
+    ``geom`` may be one geometry name or a sequence of names: a HYBRID
+    lattice superposes every geometry's beams in every cell, and the radius
+    argument of the operators then accepts an extra leading geometry axis
+    ([n_geom, Nx, Ny, Nz]; lower-rank radii broadcast to all geometries).
+    ``dtype`` is a torch dtype and ``device`` the torch device the
+    operators build their tensors on (the host build is numpy).
+    """
+
+    geom: object                               # str | Sequence[str]
+    num_cells: Tuple[int, int, int]
+    cell_size: Tuple[float, float, float]
+    E_mod: float
+    nu: float
+    kappa: float = 0.9
+    dtype: torch.dtype = torch.float32
+    cell_valid: Optional[np.ndarray] = None   # [Nx,Ny,Nz] bool (erasure)
+    node_keep: Optional[object] = None        # [nc,X,Y,Z] bool or p(x,y,z)
+    # warped lattices: kept in the host build; the operator declines them
+    # (make_matvec raises NotImplementedError)
+    node_transform: Optional[object] = None   # f(x, y, z) -> (x', y', z')
+    device: object = "cuda"
+
+    def __post_init__(self):
+        self.geoms = ([self.geom] if isinstance(self.geom, str)
+                      else list(self.geom))
+        self.n_geom = len(self.geoms)
+        tpls = [get_beam_structure(g) for g in self.geoms]
+        if self.n_geom > 1:
+            tpls = _split_template_collisions(tpls)
+        self.class_keys, self.edges, class_offsets = _class_decomposition(tpls)
+        self.nc = len(self.class_keys)
+        nx, ny, nz = self.num_cells
+        self.grid = (nx + 1, ny + 1, nz + 1)
+        csz = np.asarray(self.cell_size)
+        if self.cell_valid is None:
+            self.cell_valid = np.ones(self.num_cells, dtype=bool)
+        # cell validity padded by one ghost layer on every side, so creator
+        # lookups g - s index with non-negative slices
+        cvp = np.zeros((nx + 2, ny + 2, nz + 2), dtype=bool)
+        cvp[1:nx + 1, 1:ny + 1, 1:nz + 1] = self.cell_valid
+
+        # per-edge constants: frame, length, instance extent, creator masks
+        for e in self.edges:
+            vec = (np.asarray(e["fb"]) - np.asarray(e["fa"])) * csz
+            L = float(np.linalg.norm(vec))
+            t = vec / L
+            ref = np.array([1.0, 0, 0]) if abs(t[2]) > 0.99 else np.array([0, 0, 1.0])
+            a1 = np.cross(ref, t); a1 /= np.linalg.norm(a1)
+            a2 = np.cross(t, a1)
+            e["L"], e["t"], e["a1"], e["a2"] = L, t, a1, a2
+            m = np.maximum(e["oa"], e["ob"])
+            ext = (nx + 1 - m[0], ny + 1 - m[1], nz + 1 - m[2])
+            e["ext"] = ext
+            # creator priority: the reference's first-wins dedup keeps the
+            # earliest-generated creating cell = smallest index = largest s;
+            # within one cell, geometries generate in geom_types order, so
+            # the SMALLEST geometry index wins.  Iteration order below is
+            # lowest-priority FIRST (later entries overwrite).
+            shifts = sorted(e["shifts"],
+                            key=lambda p: (p[:3], -p[3]))
+            e["creators"] = shifts                 # (sx, sy, sz, gi) tuples
+            inst = np.zeros(ext, dtype=bool)
+            for s in shifts:
+                sl = tuple(slice(1 - s[ax], 1 - s[ax] + ext[ax]) for ax in range(3))
+                inst |= cvp[sl]
+            e["inst_valid"] = inst
+
+        # node-class validity from the pre-dedup template offsets
+        X, Y, Z = self.grid
+        gx, gy, gz = np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z),
+                                 indexing="ij")
+        self.node_valid = np.zeros((self.nc,) + self.grid, dtype=bool)
+        for c in range(self.nc):
+            ok = np.zeros(self.grid, dtype=bool)
+            for o in class_offsets[c]:
+                sl = tuple(slice(1 - o[ax], 1 - o[ax] + self.grid[ax])
+                           for ax in range(3))
+                ok |= cvp[sl]
+            self.node_valid[c] = ok
+
+        # node world positions (for BC selection)
+        self.class_pos = {}
+        for c, key in enumerate(self.class_keys):
+            px = (gx + key[0]) * csz[0]
+            py = (gy + key[1]) * csz[1]
+            pz = (gz + key[2]) * csz[2]
+            self.class_pos[c] = np.stack([px, py, pz])
+
+        if self.node_transform is not None:
+            for c in range(self.nc):
+                x, y, z = self.class_pos[c]
+                self.class_pos[c] = np.stack(self.node_transform(x, y, z))
+
+        # node-granular trimming: drop nodes outside ``node_keep``, remove
+        # every beam instance touching a dropped endpoint, then prune
+        # orphaned nodes (design/mesh_trimmer.py's pass at class-grid level)
+        if self.node_keep is not None:
+            keep = self.node_keep
+            if callable(keep):
+                k = np.zeros((self.nc,) + self.grid, dtype=bool)
+                for c in range(self.nc):
+                    x, y, z = self.class_pos[c]
+                    k[c] = keep(x, y, z)
+                keep = k
+            self.node_valid &= np.asarray(keep, dtype=bool)
+            used = np.zeros_like(self.node_valid)
+            for e in self.edges:
+                ext, oa, ob = e["ext"], e["oa"], e["ob"]
+                sa = tuple(slice(oa[ax], oa[ax] + ext[ax]) for ax in range(3))
+                sb = tuple(slice(ob[ax], ob[ax] + ext[ax]) for ax in range(3))
+                ka = self.node_valid[e["ca"]][sa]
+                kb = self.node_valid[e["cb"]][sb]
+                e["inst_valid"] = e["inst_valid"] & ka & kb
+                used[e["ca"]][sa] |= e["inst_valid"]
+                used[e["cb"]][sb] |= e["inst_valid"]
+            self.node_valid &= used
+
+    # ------------------------------------------------------------------
+    @property
+    def n_nodes(self) -> int:
+        return int(self.node_valid.sum())
+
+    @property
+    def n_edges(self) -> int:
+        return len(self.edges) * int(np.prod(self.num_cells))
+
+    def node_field(self, fill: float = 0.0) -> np.ndarray:
+        """Fresh [nc, 6, X, Y, Z] nodal field."""
+        return np.full((self.nc, 6) + self.grid, fill, dtype=np.float32)
+
+    def select_nodes(self, predicate) -> np.ndarray:
+        """Boolean [nc, X, Y, Z] mask from a coordinate predicate p(x,y,z)."""
+        out = np.zeros((self.nc,) + self.grid, dtype=bool)
+        for c in range(self.nc):
+            x, y, z = self.class_pos[c]
+            out[c] = predicate(x, y, z) & self.node_valid[c]
+        return out
+
+    # ------------------------------------------------------------------
+    def make_matvec(self):
+        """Dense stencil K.u over [nc, 6, X, Y, Z] fields.
+
+        Returns (matvec, diag).  ``matvec(u, radius)`` =
+        ``matvec.apply(u, matvec.prepare(radius))``, where ``apply`` is the
+        B1 kernel wrapper (kernel on CUDA, gather form on CPU);
+        ``matvec.apply_gather`` is the plain gather form itself, and
+        ``matvec.sections`` / ``matvec.energy_dr2`` serve the analytic
+        gradient.  ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom, Nx, Ny,
+        Nz] (hybrid) or a scalar.
+        """
+        if self.node_transform is not None:
+            raise NotImplementedError(
+                "warped lattices (node_transform) are not ported yet: "
+                "ROADMAP.md queue A, deferred feature 'warped lattices'")
+        dev = _check_device(self.device)
+        nx, ny, nz = self.num_cells
+        E_mod, nu, kappa = self.E_mod, self.nu, self.kappa
+        G_mod = E_mod / (2.0 * (1.0 + nu))
+        dt = self.dtype
+        tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        consts = []
+        for e in self.edges:
+            # instance-validity masks carry information only under node_keep
+            # trimming (every stiffness term is proportional to r^2, which
+            # is already zero on invalid cells)
+            inst_c = tens(e["inst_valid"]) if self.node_keep is not None \
+                else None
+            consts.append((
+                tens(e["t"]), tens(e["a1"]), tens(e["a2"]), float(e["L"]),
+                e["ca"], e["cb"], e["oa"], e["ob"], e["ext"], e["creators"],
+                inst_c))
+        valid = tens(self.cell_valid)
+
+        def _b(w):
+            """Frame-vector broadcast: [3] constants multiply [*, ext]."""
+            return w[:, None, None, None]
+
+        def _padded_r2(radius):
+            """Per-geometry squared radii, ghost-padded: [n_geom] of
+            [nx+2, ny+2, nz+2] (differentiable in ``radius``)."""
+            r = torch.as_tensor(radius, dtype=dt, device=dev)
+            r = torch.broadcast_to(r, (self.n_geom, nx, ny, nz))
+            out = []
+            for g in range(self.n_geom):
+                rv = r[g] * valid
+                out.append(F.pad(rv * rv, (1, 1, 1, 1, 1, 1)))
+            return out
+
+        def _sections(radius):
+            """Per-edge per-instance r^2 from the padded per-cell field,
+            first-creating cell winning for shared beams."""
+            rps2 = _padded_r2(radius)
+            out = []
+            for (*_frame, ca, cb, oa, ob, ext, creators, inst) in consts:
+                r2_inst = None
+                for s in creators:  # low->high priority; later overwrites
+                    sl = tuple(slice(1 - s[ax], 1 - s[ax] + ext[ax])
+                               for ax in range(3))
+                    cand = rps2[s[3]][sl]
+                    r2_inst = cand if r2_inst is None \
+                        else torch.where(cand > 0, cand, r2_inst)
+                if r2_inst is None:
+                    r2_inst = torch.zeros(ext, dtype=dt, device=dev)
+                out.append(r2_inst if inst is None else r2_inst * inst)
+            return out
+
+        def _slices(oa, ob, ext):
+            sxa = (slice(None),) + tuple(
+                slice(oa[ax], oa[ax] + ext[ax]) for ax in range(3))
+            sxb = (slice(None),) + tuple(
+                slice(ob[ax], ob[ax] + ext[ax]) for ax in range(3))
+            return sxa, sxb
+
+        # every per-edge padded r^2 field is a pure 3-D SHIFT of one
+        # per-geometry squared base grid: the creator shift s in {0,1}^3
+        # and the placement offset (1,1,1) compose into q -> q - s
+        _Xp, _Yp, _Zp = (g + 2 for g in self.grid)
+        _F2 = _Xp * _Yp * _Zp
+        _strides = (_Yp * _Zp, _Zp, 1)
+        _prep_mask = None
+        if self.node_keep is not None:
+            _mask_np = np.zeros((len(consts), _Xp, _Yp, _Zp), np.float64)
+            for _e, e in enumerate(self.edges):
+                ext = e["ext"]
+                _mask_np[_e, 1:1 + ext[0], 1:1 + ext[1], 1:1 + ext[2]] = \
+                    e["inst_valid"]
+            _prep_mask = tens(_mask_np)
+        _maxsh = sum(_strides)                  # covers any s in {0,1}^3
+
+        def prepare_gather(radius):
+            """Radius field -> per-edge padded r^2 fields [n_edges, Xp, Yp,
+            Zp].  Loop-invariant inside a solve: compute ONCE per radius and
+            reuse across every CG/smoother matvec."""
+            r = torch.as_tensor(radius, dtype=dt, device=dev)
+            r = torch.broadcast_to(r, (self.n_geom, nx, ny, nz))
+            flats = []
+            for g in range(self.n_geom):
+                rv = r[g] * valid
+                # cells [1, n] of the padded node grid [n + 3]
+                B = F.pad(rv * rv, (1, 2, 1, 2, 1, 2))
+                flats.append(F.pad(B.reshape(-1), (_maxsh, _maxsh)))
+
+            def row(s):                          # B[q - s], zeros outside
+                sh = sum(int(s[ax]) * _strides[ax] for ax in range(3))
+                return flats[s[3]][_maxsh - sh:_maxsh - sh + _F2]
+
+            rows = []
+            for (*_f, ext, creators, _iv) in consts:
+                cand = None
+                for s in creators:   # low->high priority; later overwrites
+                    c = row(s)
+                    cand = c if cand is None else torch.where(c > 0, c, cand)
+                if cand is None:     # creator-less edge (mirrors _sections)
+                    cand = torch.zeros(_F2, dtype=dt, device=dev)
+                rows.append(cand)
+            stacked = torch.stack(rows).reshape(len(consts), _Xp, _Yp, _Zp)
+            return stacked if _prep_mask is None else stacked * _prep_mask
+
+        # edge sides (the B1 kernel's table, in the same order): self and
+        # other class, flat shifts of the other endpoint and of the
+        # instance anchor on the padded grid, frame, length
+        recs = edge_sides(self, _Yp, _Zp)
+        n_s = len(recs)
+        X, Y, Z = self.grid
+        N = X * Y * Z
+        gx, gy, gz = torch.meshgrid(
+            *(torch.arange(1, g + 1, device=dev) for g in self.grid),
+            indexing="ij")
+        q = ((gx * _Yp + gy) * _Zp + gz).reshape(1, 1, N)   # interior points
+        it = lambda key: torch.tensor([r[key] for r in recs], device=dev)
+        k6 = torch.arange(6, device=dev).reshape(1, 6, 1)
+        rows_s = it("cs").reshape(n_s, 1, 1) * 6 + k6
+        rows_o = it("co").reshape(n_s, 1, 1) * 6 + k6
+        pos_o = q + it("du").reshape(n_s, 1, 1)
+        ei_s = it("ei").reshape(n_s, 1)
+        pos_r = q[0] + it("dr").reshape(n_s, 1)
+        # side A: uB - uA = other - self, force row [-fu, msh - mdf];
+        # side B: uB - uA = self - other, force row [fu, msh + mdf]
+        sgn = tens([-1.0 if r["side"] else 1.0 for r in recs]).reshape(
+            n_s, 1, 1)
+        sgf = -sgn
+        fr = tens(np.stack([np.stack([r["t"], r["a1"], r["a2"]])
+                            for r in recs])).reshape(n_s, 3, 3, 1)
+        Ls = np.array([r["L"] for r in recs])
+        invL_s = tens(1.0 / Ls).reshape(n_s, 1)
+        halfL_s = tens(0.5 * Ls).reshape(n_s, 1, 1)
+        class_sides = [[i for i, r in enumerate(recs) if r["cs"] == c]
+                       for c in range(self.nc)]
+
+        def apply_gather(u, r2ps):
+            """Gather-form K.u: every output point SUMS shifted reads.
+
+            For template edge e with cell offsets (oa, ob): the instance
+            anchored at g contributes fA at node (g + oa) of class ca and fB
+            at (g + ob) of class cb.  Re-indexed by output point p:
+              out[ca](p) += fA(uA = u[ca](p), uB = u[cb](p + d), r2(p - oa))
+              out[cb](p) += fB(uA = u[ca](p - d), uB = u[cb](p), r2(p - ob))
+            with d = ob - oa in {-1,0,1}^3.  One-cell zero padding on both
+            sides keeps every read in bounds; out-of-range contributions
+            vanish because the padded r2 is zero there.  All edge sides are
+            evaluated as one batch; each class then sums its sides in edge
+            order, side A before side B — the order the B1 kernel keeps.
+            """
+            up = F.pad(u, (1, 1, 1, 1, 1, 1)).reshape(self.nc * 6, -1)
+            uS = up[rows_s, q]                           # [n_s, 6, N]
+            uO = up[rows_o, pos_o]
+            r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]   # [n_s, N]
+            d = sgn * (uO - uS)                          # uB - uA
+            du, dth = d[:, :3], d[:, 3:]
+            ths = uS[:, 3:] + uO[:, 3:]
+            t, a1, a2 = fr[:, 0], fr[:, 1], fr[:, 2]     # [n_s, 3, 1]
+            dot = lambda V, w: (V * w).sum(1)
+            invL = invL_s
+            S = np.pi * r2
+            I = np.pi * r2 * r2 / 4.0
+            ES, kGS = E_mod * S, kappa * G_mod * S
+            GJ, EI = 2.0 * G_mod * I, E_mod * I
+            e0 = dot(du, t) * invL
+            e1 = dot(du, a1) * invL - dot(ths, a2) * 0.5
+            e2 = dot(du, a2) * invL + dot(ths, a1) * 0.5
+            e3 = dot(dth, t) * invL
+            e4 = dot(dth, a1) * invL
+            e5 = dot(dth, a2) * invL
+            s0, s1, s2 = ES * e0, kGS * e1, kGS * e2
+            s3, s4, s5 = GJ * e3, EI * e4, EI * e5
+            o = lambda s, w: s[:, None] * w
+            fu = o(s0, t) + o(s1, a1) + o(s2, a2)
+            msh = halfL_s * (o(s2, a1) - o(s1, a2))
+            mdf = o(s3, t) + o(s4, a1) + o(s5, a2)
+            f_side = torch.cat([sgf * fu, msh + sgf * mdf], dim=1)
+            acc = []
+            for sides in class_sides:
+                a = torch.zeros_like(f_side[0])
+                for i in sides:
+                    a = a + f_side[i]
+                acc.append(a)
+            return torch.stack(acc).reshape((self.nc, 6) + self.grid)
+
+        def diag(radius):
+            r2s = _sections(radius)
+            out = torch.zeros((self.nc, 6) + self.grid, dtype=dt, device=dev)
+            for (t, a1, a2, L, ca, cb, oa, ob, ext, _cr, _iv), r2 in zip(
+                    consts, r2s):
+                S = np.pi * r2
+                I = np.pi * r2 * r2 / 4.0
+                ES, kGS = E_mod * S, kappa * G_mod * S
+                GJ, EI = 2.0 * G_mod * I, E_mod * I
+                invL = 1.0 / L
+                t2 = _b(t * t)
+                a12 = _b(a1 * a1)
+                a22 = _b(a2 * a2)
+                d_u = (ES * t2 + kGS * (a12 + a22)) * invL
+                d_th = kGS * (a22 + a12) * (L * 0.25) \
+                    + (GJ * t2 + EI * (a12 + a22)) * invL
+                dvec = torch.cat([d_u, d_th])
+                sxa, sxb = _slices(oa, ob, ext)
+                out[(ca,) + sxa] += dvec
+                out[(cb,) + sxb] += dvec
+            return out
+
+        def energy_dr2(uf, r2s):
+            """Analytic d(u^T K u)/d(r^2) per edge-template instance:
+              dq/dr2 = pi L [E e0^2 + kG (e1^2+e2^2) + G r2 e3^2
+                             + E r2 / 2 (e4^2+e5^2)]
+            — one elementwise stencil pass over the strains."""
+            out = []
+            dot = lambda V, w: (V * _b(w)).sum(0)
+            for (t, a1, a2, L, ca, cb, oa, ob, ext, _cr, _iv), r2 in zip(
+                    consts, r2s):
+                invL = 1.0 / L
+                sxa, sxb = _slices(oa, ob, ext)
+                uA = uf[ca][sxa]
+                uB = uf[cb][sxb]
+                du = uB[:3] - uA[:3]
+                ths = uA[3:] + uB[3:]
+                dth = uB[3:] - uA[3:]
+                e0 = dot(du, t) * invL
+                e1 = dot(du, a1) * invL - dot(ths, a2) * 0.5
+                e2 = dot(du, a2) * invL + dot(ths, a1) * 0.5
+                e3 = dot(dth, t) * invL
+                e4 = dot(dth, a1) * invL
+                e5 = dot(dth, a2) * invL
+                out.append((np.pi * L) * (
+                    E_mod * e0 * e0 + kappa * G_mod * (e1 * e1 + e2 * e2)
+                    + G_mod * r2 * e3 * e3
+                    + (0.5 * E_mod) * r2 * (e4 * e4 + e5 * e5)))
+            return out
+
+        apply = StencilMatvec(self, apply_gather)
+
+        def matvec(u, radius):
+            return apply(u, prepare_gather(radius))
+
+        matvec.prepare = prepare_gather
+        matvec.apply = apply
+        matvec.apply_gather = apply_gather
+        matvec.sections = _sections
+        matvec.energy_dr2 = energy_dr2
+        return matvec, diag
+
+
+def make_structured_compliance_step(slat: StructuredLattice,
+                                    free_mask: np.ndarray, f_ext: np.ndarray,
+                                    u_imposed: Optional[np.ndarray] = None,
+                                    objective=None,
+                                    tol: float = 1e-6, maxiter: int = 4000,
+                                    precond: str = "jacobi",
+                                    mg_opts: Optional[dict] = None):
+    """Compliance and its gradient w.r.t. the per-cell radius field.
+
+    ``free_mask``: [nc, X, Y, Z] bool (free nodes) or [nc, 6, X, Y, Z]
+    bool (free DOFs); ``f_ext``: [nc, 6, X, Y, Z] applied forces;
+    ``precond``: "jacobi" or "mg" (geometric multigrid V-cycle).  The
+    tensors live on ``slat.device`` in ``slat.dtype``.
+
+    Returns ``step(radius_field, u0=None, precond_state=None) -> (c, g, u)``
+    with the analytic self-adjoint gradient (no adjoint solve), and
+    ``step.precond_state(r)`` for a frozen multigrid state.  After each
+    call ``step.last_solve`` holds the CG iteration count, the recurrence
+    residual norm and the convergence flag.
+    """
+    from ..fem.solve import pcg
+
+    if u_imposed is not None:
+        raise NotImplementedError(
+            "u_imposed is not ported yet: ROADMAP.md queue A, deferred "
+            "feature 'u_imposed/objective'")
+    if objective is not None:
+        raise NotImplementedError(
+            "a custom objective is not ported yet: ROADMAP.md queue A, "
+            "deferred feature 'u_imposed/objective'")
+    if os.environ.get("PLDSO_GRAD", "analytic") != "analytic" \
+            or os.environ.get("PLDSO_SELFADJOINT") == "1":
+        raise NotImplementedError(
+            "only the analytic self-adjoint gradient is ported: "
+            "ROADMAP.md queue A, deferred feature 'implicit gradient'")
+    if precond not in ("jacobi", "mg"):
+        raise ValueError(f"unknown precond {precond!r}: use 'jacobi' or 'mg'")
+
+    matvec, diag_fn = slat.make_matvec()
+    dev = torch.device(slat.device)
+    dt = slat.dtype
+    free_mask = np.asarray(free_mask)
+    if free_mask.ndim == 4:            # per-node -> per-DOF
+        free_mask = free_mask[:, None]
+    f_shape = np.shape(f_ext)
+    free = torch.as_tensor(
+        np.ascontiguousarray(np.broadcast_to(free_mask, f_shape), np.float64),
+        dtype=dt, device=dev)
+    f = torch.as_tensor(np.asarray(f_ext), dtype=dt, device=dev)
+
+    opts = dict(mg_opts or {})
+    power = opts.pop("power_iters", 10)
+    mg_hier = None
+    if precond == "mg":
+        from .multigrid import build_mg_hierarchy
+        mg_hier = build_mg_hierarchy(slat, np.broadcast_to(free_mask, f_shape))
+
+    def _solve(radius_field, u0, pstate):
+        aux = matvec.prepare(radius_field)
+        K = lambda u: matvec.apply(u, aux)
+
+        def A(u):
+            return free * K(free * u) + (1.0 - free) * u
+
+        b = free * f
+        if mg_hier is not None:
+            from .multigrid import mg_apply, mg_precond_state
+            # ``pstate`` may carry a FROZEN earlier design's state; the
+            # preconditioner only moves convergence, never the fixed point
+            if pstate is None:
+                pstate = mg_precond_state(mg_hier, radius_field,
+                                          power_iters=power,
+                                          fused=opts.get("fused"))
+            M = mg_apply(mg_hier, pstate, **opts)
+        else:
+            dg = free * diag_fn(radius_field) + (1.0 - free)
+            dg = torch.where(dg == 0, torch.ones_like(dg), dg)
+            M = lambda r_: r_ / dg
+        res = pcg(A, b, M=M, x0=u0 * free, maxiter=maxiter, tol=tol)
+        step.last_solve = {"iterations": res.iterations,
+                           "residual_norm": res.residual_norm,
+                           "converged": res.converged}
+        return free * res.x
+
+    def _analytic_grad(radius_field, uf):
+        with torch.no_grad():
+            dq = matvec.energy_dr2(uf, matvec.sections(radius_field))
+        rf = radius_field.detach().requires_grad_(True)
+        with torch.enable_grad():
+            tot = None
+            for d_, r2 in zip(dq, matvec.sections(rf)):
+                s = torch.sum(d_ * r2)
+                tot = s if tot is None else tot + s
+            (g,) = torch.autograd.grad(tot, rf)
+        return -g
+
+    def step(radius_field, u0=None, precond_state=None):
+        """Returns (compliance, grad, u); pass the previous step's u as
+        ``u0`` to warm-start the solve, and ``precond_state`` (from
+        ``step.precond_state(r)``) to freeze the multigrid state across
+        steps — the solve fixed point is unaffected."""
+        r = torch.as_tensor(radius_field, dtype=dt, device=dev)
+        with torch.no_grad():
+            u0 = torch.zeros_like(f) if u0 is None \
+                else torch.as_tensor(u0, dtype=dt, device=dev)
+            ps = precond_state if mg_hier is not None else None
+            u = _solve(r, u0, ps)
+            c = torch.sum(f * u)
+        g = _analytic_grad(r, free * u)
+        return c, g, u
+
+    if mg_hier is not None:
+        from .multigrid import mg_precond_state as _mps
+
+        def precond_state(r):
+            with torch.no_grad():
+                return _mps(mg_hier, torch.as_tensor(r, dtype=dt, device=dev),
+                            power_iters=power, fused=opts.get("fused"))
+
+        step.precond_state = precond_state
+
+    def step_batch(radius_fields):
+        raise NotImplementedError(
+            "step.batch is not ported yet: ROADMAP.md queue A, deferred "
+            "feature 'step.batch'")
+
+    step.batch = step_batch
+    step.operands = (free, f)
+    step.matvec = matvec
+    step.hierarchy = mg_hier
+    step.last_solve = None
+    return step
