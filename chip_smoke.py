@@ -4,11 +4,13 @@
 
 Builds every CUDA kernel of the port with nvcc, holds each against its
 plain torch version on the card, then drives the port's main path once at
-full width: the 50^3 Octet compliance step with the multigrid
-preconditioner, bench.py's protocol (pylatticedso_tpu_torch/smoke.py).
-Prints the card's name and power limit, one JSON line listing the kernels,
-and as the last line {"ok": true, "device": {...}}.  Exits non-zero, with
-no result, when there is no card or the port cannot be imported.
+full width on each of its routes: the 50^3 Octet compliance step with the
+multigrid preconditioner, bench.py's protocol, with the fused bf16 V-cycle
+(bench.py's default), the unfused bf16-I/O smoother (BENCH_MG_FUSED=0) and
+the unfused f32 V-cycle (pylatticedso_tpu_torch/smoke.py).  Prints the
+card's name and power limit, one JSON line listing the kernels, and as the
+last line {"ok": true, "device": {...}}.  Exits non-zero, with no result,
+when there is no card or the port cannot be imported.
 """
 
 import argparse
@@ -20,7 +22,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
     ap.add_argument("--profile", help="after the run, profile two warm "
-                    "steps with torch.profiler and write the table here")
+                    "steps of each route with torch.profiler and write the "
+                    "tables here")
     args = ap.parse_args()
     try:
         import torch
@@ -38,13 +41,19 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1, default=str)
     if args.profile:
-        prof = smoke.profile_phase(torch.device("cuda"), 50)
+        profs = {route: smoke.profile_phase(torch.device("cuda"), 50, route)
+                 for route in smoke.ROUTES}
         with open(args.profile, "w") as fh:
-            json.dump(prof, fh, indent=1)
-        print(f"profile: {prof['wall_ms']:.1f} ms wall, device busy "
-              f"{prof['device_busy_ms']:.1f} ms (idle share "
-              f"{prof['idle_share']:.3f}), iterations {prof['iterations']}")
-    print(f"wall: {report['wall_s']:.1f} s")
+            json.dump(profs, fh, indent=1)
+        for route, prof in profs.items():
+            print(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device "
+                  f"busy {prof['device_busy_ms']:.1f} ms (idle share "
+                  f"{prof['idle_share']:.3f}), iterations "
+                  f"{prof['iterations']}, device events per CG iteration "
+                  f"{prof['events_per_iteration']:.0f} "
+                  f"[{report['device']['nvidia_smi']}]")
+    print(f"wall: {report['wall_s']:.1f} s "
+          f"[{report['device']['nvidia_smi']}]")
     print(report["device"]["nvidia_smi"])
     print(json.dumps({"kernels": report["kernels"]}))
     print(json.dumps({"ok": True, "device": {

@@ -18,27 +18,73 @@ def _t(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def _storage(a, device):
+    """A float32 or bfloat16 numpy array (ml_dtypes' bfloat16 for a JAX
+    bf16 value) -> a tensor of the same dtype; bf16 goes through float32,
+    which holds every bf16 value exactly."""
+    a = np.asarray(a)
+    dt = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+    return torch.tensor(a.astype(np.float32), device=device).to(dt)
+
+
+def _field(a, lead: int, padded) -> np.ndarray:
+    """A padded field in the port's layout [lead, Xp, Yp, Zp] from a JAX
+    gather-layout field (the same shape) or a Pallas flat [lead, Fp]."""
+    a = np.asarray(a)
+    if a.ndim == 4:
+        return a
+    F = int(np.prod(padded))
+    return a[:, :F].reshape((lead,) + tuple(padded))
+
+
+def _vector(a, nc: int, padded) -> np.ndarray:
+    """A fused-smoother flat [nc * rows, Fp_f] (rows 8 with align8, else
+    6) -> the port's ghost-padded [nc, 6, Xp, Yp, Zp]: take [:, :F], split
+    the rows per class, drop the align8 rows."""
+    a = np.asarray(a)
+    F = int(np.prod(padded))
+    rows = a.shape[0] // nc
+    return a[:, :F].reshape((nc, rows) + tuple(padded))[:, :6]
+
+
 def precond_state_from_jax(tree_of_numpy: dict, dtype=torch.float64,
                            device="cuda") -> dict:
     """A JAX ``mg_precond_state`` (leaves as numpy) -> the port's state.
 
-    Keeps ``radii``, ``auxs`` (gather-layout padded r^2 fields, [n_e, Xp,
-    Yp, Zp] per level), ``Ds`` and ``lmaxs``.  The JAX state's bf16 and
-    fused entries must be empty: the port has no such smoother yet.
+    Takes the gather-layout state (``PLDSO_MATVEC=gather``: ``auxs`` are
+    [n_e, Xp, Yp, Zp] fields) and the Pallas-layout one
+    (``PLDSO_MATVEC=pallas``: ``auxs`` and ``auxs_lo`` are [n_e, Fp] flats,
+    the ``fused`` operands [rows, Fp_f] flats with align8 rows).  ``radii``,
+    ``auxs``, ``Ds`` and ``lmaxs`` come in ``dtype``; ``auxs_lo`` (bf16)
+    and the per-level ``fused`` operands ``fdinv``, ``fm`` and ``r2`` keep
+    their storage dtype and move to the port's ghost-padded layout.  A
+    level's grid is read off its ``Ds`` entry [nc, 6, X, Y, Z].
     """
     st = tree_of_numpy
-    for key in ("auxs_lo", "fused"):
-        if any(x is not None for x in st.get(key) or []):
-            raise NotImplementedError(
-                f"JAX state carries '{key}' operands; the bf16 and fused "
-                "smoothers are ROADMAP.md queue B")
-    for aux in st["auxs"]:
-        if np.ndim(aux) != 4:
-            raise ValueError("auxs must be gather-layout [n_e, Xp, Yp, Zp] "
-                             f"fields (got ndim {np.ndim(aux)}); build the "
-                             "JAX state with PLDSO_MATVEC=gather")
-    return {k: [_t(x, dtype, device) for x in st[k]]
-            for k in ("radii", "auxs", "Ds", "lmaxs")}
+    n_lev = len(st["Ds"])
+    shapes = [np.shape(D) for D in st["Ds"]]
+    pads = [tuple(g + 2 for g in s[2:]) for s in shapes]
+    n_e = [np.shape(a)[0] for a in st["auxs"]]
+    out = {k: [_t(x, dtype, device) for x in st[k]]
+           for k in ("radii", "Ds", "lmaxs")}
+    out["auxs"] = [_t(_field(a, n_e[i], pads[i]), dtype, device)
+                   for i, a in enumerate(st["auxs"])]
+    lo = st.get("auxs_lo") or [None] * n_lev
+    out["auxs_lo"] = [None if a is None else _storage(
+        _field(a, n_e[i], pads[i]), device) for i, a in enumerate(lo)]
+    fused = st.get("fused") or [None] * n_lev
+    out["fused"] = []
+    for i, fo in enumerate(fused):
+        if fo is None:
+            out["fused"].append(None)
+            continue
+        nc = shapes[i][0]
+        out["fused"].append({
+            "fdinv": _storage(_vector(fo["fdinv"], nc, pads[i]), device),
+            "fm": _storage(_vector(fo["fm"], nc, pads[i]), device),
+            "r2": _storage(_field(fo["r2"], n_e[i], pads[i]), device),
+        })
+    return out
 
 
 def step_inputs_from_jax(radius, free, f, dtype=torch.float64,

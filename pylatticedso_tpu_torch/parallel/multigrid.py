@@ -1,26 +1,44 @@
 """Geometric multigrid preconditioner for the structured stencil operator
-(PyTorch, unfused f32 smoothers).
+(PyTorch).
 
 Mirrors ``pylatticedso_tpu.parallel.multigrid``: a hierarchy of coarse
 lattices with 2x cells and 2x radii, per-class trilinear transfers with
 restriction as the exact transpose of prolongation, and a Chebyshev
 smoother with Jacobi scaling whose lmax comes from a fixed-length power
-iteration.  Every level's matvec is the B1 stencil kernel (through
-``StructuredLattice.make_matvec``).
+iteration.  Three V-cycles, selected by the JAX package's switches with the
+same names and defaults:
 
-Not ported yet (ROADMAP.md queue B): the fused V-cycle (``fused=True``,
-kernels B3-B5) and the bf16-I/O smoother (``lo_smoother=True``, kernel B2).
+* unfused, working dtype: every smoother matvec is B1 (the stencil kernel);
+* ``lo_smoother`` (``PLDSO_MG_BF16=1``): unfused, every smoother matvec is
+  B2, the bf16-I/O stencil kernel (f32 vectors outside it);
+* ``fused`` (``mg_opts["fused"]`` or ``PLDSO_MG_FUSED=1``/``force``): the
+  fused V-cycle of kernels B3 (residual), B4 (one Chebyshev step) and B5
+  (a whole smoother in one launch), with smoother vectors stored in
+  ``PLDSO_MG_FUSED_DTYPE`` (bf16 by default, or f32) between launches.
+
+Where the JAX package warns and falls back to the unfused V-cycle, the port
+raises: a fused request it cannot meet never runs another path.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..kernels.fused import check_compute, cheb_static, storage_dtype
 
 __all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
            "make_transfers", "make_radius_restrictor"]
+
+PAD = (1, 1, 1, 1, 1, 1)        # one ghost cell on every side of X, Y, Z
+
+
+def _unpad(v: torch.Tensor) -> torch.Tensor:
+    return v[..., 1:-1, 1:-1, 1:-1]
 
 
 # ---------------------------------------------------------------- transfers
@@ -56,6 +74,8 @@ def make_transfers(fine_grid: Tuple[int, int, int],
     TF32 is switched off for them (it is off by default in PyTorch).
     """
     torch.backends.cuda.matmul.allow_tf32 = False
+    # bf16 transfers (fused V-cycle) accumulate in float32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     keys = np.asarray(class_keys, dtype=float)
     nc = len(keys)
     Ps = []
@@ -64,8 +84,12 @@ def make_transfers(fine_grid: Tuple[int, int, int],
                                      float(keys[ci][a])) for ci in range(nc)])
         Ps.append(torch.as_tensor(P, dtype=dtype, device=device))
 
+    by_dtype = {Ps[0].dtype: Ps}
+
     def _mats(x):
-        return [P if P.dtype == x.dtype else P.to(x.dtype) for P in Ps]
+        if x.dtype not in by_dtype:
+            by_dtype[x.dtype] = [P.to(x.dtype) for P in Ps]
+        return by_dtype[x.dtype]
 
     def prolong(c):
         P0, P1, P2 = _mats(c)
@@ -135,6 +159,18 @@ class MGLevel:
         self.free = torch.as_tensor(np.ascontiguousarray(fm, np.float64),
                                     dtype=slat.dtype,
                                     device=torch.device(slat.device))
+        self._free_as = {slat.dtype: self.free}
+
+    @property
+    def fused(self):
+        """The level's fused smoother (kernels B3-B5)."""
+        return self.matvec.apply.fused
+
+    def free_as(self, dtype) -> torch.Tensor:
+        """The free mask in ``dtype`` (0/1: exact in any dtype)."""
+        if dtype not in self._free_as:
+            self._free_as[dtype] = self.free.to(dtype)
+        return self._free_as[dtype]
 
     def A(self, u, radius):
         f = self.free
@@ -150,6 +186,19 @@ class MGLevel:
             return self.A(u, radius)
         f = self.free
         return f * self.matvec.apply(f * u, aux) + (1.0 - f) * u
+
+    def prepare_lo(self, aux):
+        """bf16 copy of the hoisted r^2 operands (B2's second operand)."""
+        return self.matvec.apply.prepare_lo(aux)
+
+    def A_aux_lo(self, u, aux_lo):
+        """Smoother-grade matvec: bf16 kernel I/O (f32 arithmetic inside),
+        vectors of the working dtype outside; only valid inside the
+        preconditioner — the outer CG matvec stays full precision."""
+        f = self.free
+        out = self.matvec.apply.lo((f * u).to(torch.bfloat16),
+                                   aux_lo).to(u.dtype)
+        return f * out + (1.0 - f) * u
 
     def D(self, radius):
         f = self.free
@@ -249,18 +298,87 @@ def _chebyshev(A: Callable, D: torch.Tensor, b: torch.Tensor,
     return x + d
 
 
+def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
+                    coarse_degree: int, smooth_frac: float) -> Callable:
+    """The fused V-cycle (``multigrid._mg_apply_fused`` of the JAX
+    package): each Chebyshev step is one B4 launch, the mid-cycle residual
+    one B3 launch, and a level that the routing marks single runs its whole
+    smoother — the coarsest's degree-``coarse_degree`` sweep included — in
+    one B5 launch.  Smoother vectors stay ghost-padded in the storage dtype
+    between launches, with the JAX package's rounding points: b is rounded
+    to the storage dtype on entry to each level, the first d is computed in
+    f32 and rounded, and the residual field, the transfers, the free masks
+    and x + corr run in the storage dtype.  The result returns in the
+    caller's dtype."""
+    levels: List[MGLevel] = h["levels"]
+    nL = len(levels)
+    fused_ops = state["fused"]
+    fzs = [lvl.fused for lvl in levels]
+    f32 = torch.float32
+    # [inv_theta, inv_delta] per level as device tensors, built once per M:
+    # no launch needs a host sync
+    fracs = [1.0 / 64.0 if lvl == nL - 1 else smooth_frac
+             for lvl in range(nL)]
+    scs = [fz.sc(state["lmaxs"][lvl], fracs[lvl])
+           for lvl, fz in enumerate(fzs)]
+
+    def smooth(level, bp, x0p, deg):
+        fz, st, sc = fzs[level], fused_ops[level], scs[level]
+        frac = fracs[level]
+        if fz.single_ok:
+            return fz.cheb_full(bp, x0p, st["fdinv"], sc, st["r2"], frac,
+                                deg)
+        if x0p is None:
+            x, r = torch.zeros_like(bp), bp
+        else:
+            x = x0p
+            r = fz.residual(bp, x0p, st["fm"], st["r2"])
+        d = (r.to(f32) * st["fdinv"].to(f32) * sc[0]).to(bp.dtype)
+        steps = cheb_static(frac, deg)
+        for k, (c1, c2) in enumerate(steps):
+            final = k == len(steps) - 1
+            out = fz.cheb_run(x, r, d, st["fdinv"], sc, st["r2"], c1, c2,
+                              final)
+            if final:
+                return out
+            x, r, d = out
+
+    def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
+        fz, st = fzs[level], fused_ops[level]
+        io = st["fdinv"].dtype
+        bp = F.pad(b.to(io), PAD)
+        if level == nL - 1:
+            x = smooth(level, bp, None, coarse_degree)
+            return _unpad(x).to(b.dtype)
+        deg = nu_at(level)
+        xp = smooth(level, bp, None, deg)
+        rp = fz.residual(bp, xp, st["fm"], st["r2"])
+        free_c = levels[level + 1].free_as(io)
+        rc = free_c * h["restrict"][level](_unpad(rp))
+        ec = vcycle(level + 1, rc)
+        corr = levels[level].free_as(io) * h["prolong"][level](free_c * ec)
+        x2 = smooth(level, bp, xp + F.pad(corr, PAD), deg)
+        return _unpad(x2).to(b.dtype)
+
+    def M(r):
+        return vcycle(0, r)
+
+    return M
+
+
 # ------------------------------------------------------------- V-cycle
 def mg_precond_state(h: dict, radius_field: torch.Tensor,
                      power_iters: int = 10,
                      fused: Optional[bool] = None) -> dict:
     """Radius-derived V-cycle state: per-level radii, hoisted matvec
-    operands, Jacobi diagonals and lmax estimates.  A descent loop whose
-    radii move slowly can FREEZE it and skip the per-solve power
-    iterations and per-level operand rebuilds."""
-    if fused:
-        raise NotImplementedError(
-            "the fused V-cycle state is not ported yet: ROADMAP.md queue B "
-            "(kernels B3-B5)")
+    operands (and their bf16 copies for B2), Jacobi diagonals and lmax
+    estimates, and — when the fused V-cycle is on (``fused``, default
+    ``PLDSO_MG_FUSED``) — per level the fused smoother's operands
+    ``fdinv = free / D``, ``fm = free`` (ghost-padded) and r^2, in the
+    storage dtype (``PLDSO_MG_FUSED_DTYPE``); None on a level whose routing
+    has no fused smoother.  A descent loop whose radii move slowly can
+    FREEZE it and skip the per-solve power iterations and per-level operand
+    rebuilds."""
     levels: List[MGLevel] = h["levels"]
     dt = levels[0].slat.dtype
     radii = [torch.as_tensor(radius_field, dtype=dt,
@@ -275,7 +393,22 @@ def mg_precond_state(h: dict, radius_field: torch.Tensor,
         Af = lambda u, _l=lvl, _r=rad, _a=aux: _l.A_aux(u, _r, _a)
         lmaxs.append(_estimate_lmax(Af, D, D.shape, dt, iters=power_iters))
     Ds = [lvl.D(rad) for lvl, rad in zip(levels, radii)]
-    return {"radii": radii, "auxs": auxs, "Ds": Ds, "lmaxs": lmaxs}
+    auxs_lo = [lvl.prepare_lo(aux) for lvl, aux in zip(levels, auxs)]
+    if fused is None:
+        fused = os.environ.get("PLDSO_MG_FUSED") in ("1", "force")
+    io = storage_dtype()
+    fused_ops = []
+    for lvl, aux, D in zip(levels, auxs, Ds):
+        if not (fused and lvl.fused.ok):
+            fused_ops.append(None)
+            continue
+        fused_ops.append({
+            "fdinv": F.pad(lvl.free / D, PAD).to(io),
+            "fm": F.pad(lvl.free, PAD).to(io),
+            "r2": aux.to(io),
+        })
+    return {"radii": radii, "auxs": auxs, "Ds": Ds, "lmaxs": lmaxs,
+            "auxs_lo": auxs_lo, "fused": fused_ops}
 
 
 def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
@@ -287,27 +420,47 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     ``nu`` may be a single degree or a per-level schedule (clamped to its
     last entry for deeper levels).  The cycle stays symmetric (pre == post
     at every level), so it remains a valid SPD preconditioner for plain
-    CG.  The smoothers run unfused in the working dtype.
+    CG.  ``fused`` (default ``PLDSO_MG_FUSED`` in ``1``/``force``) runs the
+    fused V-cycle and raises if the state lacks a level's fused operands;
+    otherwise ``lo_smoother`` (default ``PLDSO_MG_BF16=1``) runs every
+    smoother matvec through B2 and raises if the state lacks its bf16
+    operands.
     """
-    if lo_smoother:
-        raise NotImplementedError(
-            "the bf16-I/O smoother is not ported yet: ROADMAP.md queue B "
-            "(kernel B2)")
-    if fused:
-        raise NotImplementedError(
-            "the fused V-cycle is not ported yet: ROADMAP.md queue B "
-            "(kernels B3-B5)")
+    if lo_smoother is None:
+        lo_smoother = os.environ.get("PLDSO_MG_BF16") == "1"
+    if fused is None:
+        fused = os.environ.get("PLDSO_MG_FUSED", "") in ("1", "force")
     nus = ([int(v) for v in nu] if isinstance(nu, (tuple, list))
            else [int(nu)])
     nu_at = lambda lvl: nus[min(lvl, len(nus) - 1)]
     levels: List[MGLevel] = h["levels"]
     nL = len(levels)
+    if fused:
+        check_compute()
+        fused_ops = state.get("fused") or [None] * nL
+        missing = [i for i, f in enumerate(fused_ops) if f is None]
+        if missing:
+            raise RuntimeError(
+                f"fused V-cycle requested but levels {missing} have no fused "
+                "operands (state built without fused=True / PLDSO_MG_FUSED, "
+                "or the routing found no fused smoother there); the port "
+                "does not fall back to the unfused V-cycle")
+        return _mg_apply_fused(h, state, nu_at, coarse_degree, smooth_frac)
     radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
                               state["lmaxs"])
+    if lo_smoother:
+        auxs_lo = state.get("auxs_lo") or [None] * nL
+        if any(a is None for a in auxs_lo):
+            raise RuntimeError(
+                "lo_smoother requested but the state has no bf16 operands "
+                "(auxs_lo) on every level")
 
     def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
         lvl, rad, D, lmax = levels[level], radii[level], Ds[level], lmaxs[level]
-        Af = lambda u: lvl.A_aux(u, rad, auxs[level])
+        if lo_smoother:
+            Af = lambda u: lvl.A_aux_lo(u, auxs_lo[level])
+        else:
+            Af = lambda u: lvl.A_aux(u, rad, auxs[level])
         if level == nL - 1:
             # coarsest: aggressive Chebyshev over (almost) the full spectrum
             return _chebyshev(Af, D, b, None, lmax, 1.0 / 64.0, coarse_degree)

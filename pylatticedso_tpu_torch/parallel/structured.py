@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..catalog import get_beam_structure
+from ..kernels.fused import FusedSmoother
 from ..kernels.stencil import StencilMatvec, edge_sides
 
 __all__ = ["StructuredLattice", "make_structured_compliance_step"]
@@ -283,7 +284,9 @@ class StructuredLattice:
 
         Returns (matvec, diag).  ``matvec(u, radius)`` =
         ``matvec.apply(u, matvec.prepare(radius))``, where ``apply`` is the
-        B1 kernel wrapper (kernel on CUDA, gather form on CPU);
+        B1 kernel wrapper (kernel on CUDA, gather form on CPU), with
+        ``apply.lo`` its bf16-I/O form (B2) and ``apply.fused`` the fused
+        smoother kernels B3-B5 of the multigrid;
         ``matvec.apply_gather`` is the plain gather form itself, and
         ``matvec.sections`` / ``matvec.energy_dr2`` serve the analytic
         gradient.  ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom, Nx, Ny,
@@ -528,6 +531,7 @@ class StructuredLattice:
             return out
 
         apply = StencilMatvec(self, apply_gather)
+        apply.fused = FusedSmoother(self, apply)
 
         def matvec(u, radius):
             return apply(u, prepare_gather(radius))

@@ -122,11 +122,19 @@ def test_vcycle_is_symmetric_positive(bcc4, nu):
     assert float(torch.sum(a * M(a))) > 0
 
 
-def test_unported_smoothers_raise(bcc4):
+def test_unported_smoothers_raise(bcc4, monkeypatch):
+    """The fused V-cycle's bf16 arithmetic is not ported and raises; a
+    fused or bf16-I/O request that the state cannot meet raises instead of
+    running the unfused f32 V-cycle."""
     _js, _ts, _free, _hj, ht, r, _sj = bcc4
     st = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1)
-    for kw in ({"lo_smoother": True}, {"fused": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmg.mg_apply(ht, st, **kw)
+    with pytest.raises(RuntimeError, match="fall back"):
+        tmg.mg_apply(ht, st, fused=True)
+    with pytest.raises(RuntimeError, match="auxs_lo"):
+        tmg.mg_apply(ht, dict(st, auxs_lo=[None] * len(st["Ds"])),
+                     lo_smoother=True)
+    st_f = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1,
+                                fused=True)
+    monkeypatch.setenv("PLDSO_MG_FUSED_COMPUTE", "bf16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmg.mg_precond_state(ht, torch.tensor(r), fused=True)
+        tmg.mg_apply(ht, st_f, fused=True)

@@ -27,19 +27,56 @@ def test_phases_rehearse_on_cpu():
     assert [c["case"].split()[0] for c in rep["cases"]] == \
         ["Octet", "Octet", "BCC+Hybrid1+Hybrid4"]
     assert all(c["max_rel_err"] == 0.0 for c in rep["cases"])
-    main = rep["main"]
-    assert main["levels"] == [[4, 4, 4], [2, 2, 2]]
-    assert main["bitwise"] and main["finite"]
-    assert main["compliance_rel_err"] <= 1e-5
-    assert main["launches_per_level"] == [0, 0]     # no kernel on the CPU
-    (k,) = rep["kernels"]
-    for key in ("name", "route", "source", "replaces", "launches",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
-        assert key in k
-    assert (ROOT / k["source"]).exists()
+    # B2-B5: every grid (the hybrid's coarse level too), both storages
+    fc = rep["fused_cases"]
+    assert {c["kernel"] for c in fc} == {"B2", "B3", "B4", "B5"}
+    assert {c["storage"] for c in fc if c["kernel"] != "B2"} == \
+        {"f32", "bf16"}
+    assert {c["case"] for c in fc if c["kernel"] == "B5"} == \
+        {"Octet 4^3 (MG level 0)", "Octet 2^3 (MG level 1)",
+         "BCC+Hybrid1+Hybrid4 4^3", "BCC+Hybrid1+Hybrid4 2^3"}
+    assert any(c["variant"] == "degree 24" for c in fc)
+    assert {c["variant"] for c in fc if c["kernel"] == "B4"} == \
+        {"step", "final"}
+    assert all(c["max_rel_err"] == 0.0 for c in fc)
+    assert set(rep["mains"]) == {"fused", "lo", "f32"}
+    for route, main in rep["mains"].items():
+        assert main["route"] == route
+        assert main["levels"] == [[4, 4, 4], [2, 2, 2]]
+        assert main["single_levels"] == [True, True]
+        assert main["bitwise"] and main["finite"]
+        assert main["compliance_rel_err"] <= 1e-5
+        # no kernel on the CPU
+        assert main["kernel_launches"] == {k: [0, 0] for k in
+                                           ("B1", "B2", "B3", "B4", "B5")}
+    names = [k["name"] for k in rep["kernels"]]
+    assert names == ["stencil_matvec_f32", "stencil_matvec_bf16",
+                     "mg_residual", "mg_cheb_run", "mg_cheb_full"]
+    for k in rep["kernels"]:
+        for key in ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in k
+        assert (ROOT / k["source"]).exists()
+        assert k["bound_ms"] > 0 and k["library_ms"] is None
     json.dumps(rep["kernels"])
-    assert any(line.startswith("main path 4^3 Octet") for line in lines)
+    for route in ("fused", "lo", "f32"):
+        assert any(line.startswith(f"main path [{route}] 4^3 Octet")
+                   for line in lines)
+    assert all("[CPU rehearsal, host clock]" in line for line in lines
+               if " ms" in line)
+
+
+def test_launch_gates_name_the_missing_kernel():
+    single = [False, True]
+    ok = {"B1": [3, 1], "B2": [0, 0], "B3": [2, 0], "B4": [4, 0],
+          "B5": [0, 3]}
+    smoke._check_launches("fused", ok, single)
+    with pytest.raises(AssertionError, match="B5 launched 0 times"):
+        smoke._check_launches("fused", dict(ok, B5=[0, 0]), single)
+    with pytest.raises(AssertionError, match="B2 launched"):
+        smoke._check_launches("f32", dict(ok, B3=[0, 0], B4=[0, 0],
+                                          B5=[0, 0], B2=[1, 0]), single)
 
 
 def test_level_cells_follow_the_hierarchy():
