@@ -72,27 +72,32 @@ def check_compute() -> None:
 
 
 # ------------------------------------------------------------------ routing
+# The JAX rule's TPU tiling settings, fixed at the JAX package's defaults
+# (``stencil_pallas.py``: align8 rows :184, the compute-once form :196, the
+# hybrid tile cap :225, the scoped-VMEM budget :259).  They mean nothing to
+# the CUDA kernels; fixing them keeps routing equal to JAX's at the bench's
+# settings.
+HYBRID_MAXTILE = 1280
+VMEM_BUDGET = 14e6
+
+
 def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
     """(ok, single_ok) of one level, by the JAX package's rule
-    (``stencil_pallas.make_pallas_matvec`` at its default tile, with the
-    same environment overrides, read now as JAX reads them when the
-    operator is built).  ``ok`` is False where JAX builds no fused smoother
+    (``stencil_pallas.make_pallas_matvec`` at its default tile and default
+    tiling settings).  ``ok`` is False where JAX builds no fused smoother
     (no tile fits its model, so the level has the gather-form matvec)."""
-    env = os.environ.get
-    align8 = env("PLDSO_PALLAS_ALIGN8", "1") == "1"
-    once = env("PLDSO_PALLAS_ONCE", "1") == "1" and align8
     X, Y, Z = slat.grid
     Xp, Yp, Zp = X + 2, Y + 2, Z + 2
     F_ = Xp * Yp * Zp
     nc = slat.nc
     n_e = len(slat.edges)
-    rows_in = nc * (8 if align8 else 6)
+    rows_in = nc * 8                 # align8 rows
     rows_u = nc * 6
     recs = edge_sides(slat, Yp, Zp)
     H = max(max(abs(r["du"]), abs(r["dr"])) for r in recs)
     T = min(int(tile), -(-F_ // 128) * 128)
     if nc > 8:
-        T = min(T, int(env("PLDSO_PALLAS_HYBRID_MAXTILE", "1280")))
+        T = min(T, HYBRID_MAXTILE)
     Tmin = -(-(H + 1) // 128) * 128
     T = max(T, Tmin)
 
@@ -107,16 +112,14 @@ def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
         margin = 1.5 if nc > 8 else 1.0
         return margin * (blocks + 19.0 * 4.0 * w)
 
-    budget = float(env("PLDSO_PALLAS_VMEM_BUDGET", "14e6"))
-
     def best_tile(once_flag):
         for Tc in range(T, Tmin - 1, -128):
-            if vmem_est(Tc, once_flag) <= budget:
+            if vmem_est(Tc, once_flag) <= VMEM_BUDGET:
                 return Tc
         return None
 
     t_two = best_tile(False)
-    t_once = best_tile(True) if once else None
+    t_once = best_tile(True)
     if t_once is not None and (t_two is None or 2 * t_once >= t_two):
         T, once = t_once, True
     elif t_two is not None:
@@ -126,7 +129,8 @@ def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
     io_bytes = 2 if storage_dtype() == torch.bfloat16 else 4
 
     def fits(Tc):
-        return vmem_est(Tc, once) + io_bytes * Tc * 6 * rows_in * 2 <= budget
+        return (vmem_est(Tc, once) + io_bytes * Tc * 6 * rows_in * 2
+                <= VMEM_BUDGET)
 
     T_full = max(-(-F_ // 128) * 128, Tmin)
     tf = T_full if fits(T_full) else None

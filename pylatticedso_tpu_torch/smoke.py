@@ -60,9 +60,11 @@ PEAK_F32_PER_S = 67e12
 KERNEL_REL_TOL = 1e-5        # summation order differs from the plain form
 # kernel vs plain, relative to the plain result's largest value: float32
 # storage as tests/test_stencil_pallas.py (residual 1e-5, Chebyshev 2e-5),
-# bf16 storage 3e-2 (a flipped bf16 rounding is 2^-8 of a value)
+# bf16 storage 1e-2 as the CPU parity tests (both sides take the same bf16
+# inputs; a rounding point out of place moves a value by 2^-8 = 3.9e-3 of
+# itself, and repeated ones add up past the limit)
 STORAGE_TOL = {"f32": {"B3": 1e-5, "B4": 2e-5, "B5": 2e-5},
-               "bf16": {"B2": 3e-2, "B3": 3e-2, "B4": 3e-2, "B5": 3e-2}}
+               "bf16": {"B2": 1e-2, "B3": 1e-2, "B4": 1e-2, "B5": 1e-2}}
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 RESIDUAL_TOL = 1e-5
 ITERATION_RISE = 1.1         # a route's warm CG iterations vs the f32 route
@@ -268,7 +270,10 @@ def fused_kernel_phase(device: torch.device, n: int,
     octet_levels = level_cells(n)
     out = []
 
-    def check(kernel, label, storage, variant, run, plain, work):
+    def check(kernel, label, storage, variant, run, plain, work,
+              timed=None):
+        """``run`` (the wrapper) against ``plain``; on the card ``timed``
+        (default ``run``) is what the times are taken of."""
         got, want = run(), plain()
         _sync(device)
         abs_err, rel_err = _err(got, want)
@@ -281,8 +286,9 @@ def fused_kernel_phase(device: torch.device, n: int,
                "variant": variant, "max_abs_err": abs_err,
                "max_rel_err": rel_err, "tol": tol, **_bound_of(work)}
         if cuda:
-            rec["ms"] = _median_ms(run, device, reps=7, batch=20)
-            rec["ms_cold"] = _median_ms(run, device, reps=11, flush=flush)
+            timed = timed or run
+            rec["ms"] = _median_ms(timed, device, reps=7, batch=20)
+            rec["ms_cold"] = _median_ms(timed, device, reps=11, flush=flush)
             rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=3)
         else:
             rec["ms"] = rec["ms_cold"] = None
@@ -317,10 +323,9 @@ def fused_kernel_phase(device: torch.device, n: int,
 
         u16, r16 = u.to(torch.bfloat16), r2.to(torch.bfloat16)
         u16p = F.pad(u16, PAD)
-        check("B2", label, "bf16", "matvec",
-              (lambda: B.launch(u16p, r16)) if cuda
-              else (lambda: B.lo(u16, r16)),
-              lambda: B.plain_lo(u16, r16), B.work(itemsize=2))
+        check("B2", label, "bf16", "matvec", lambda: B.lo(u16, r16),
+              lambda: B.plain_lo(u16, r16), B.work(itemsize=2),
+              timed=(lambda: B.launch(u16p, r16)) if cuda else None)
         for storage, io in STORAGE.items():
             P = lambda a: F.pad(a, PAD).to(io)
             x, bp, fmp, fdp = P(u * fm), P(b), P(fm), P(fm / D)

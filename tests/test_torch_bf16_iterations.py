@@ -1,6 +1,9 @@
 """CG iterations of a cold solve with each V-cycle route, port against
 the JAX package (kernels in interpret mode), Octet n=4, nu=(1, 1), coarse
 degree 6, tol 1e-8, from one JAX state carried over by the converter.
+At Octet n=4 every level runs its whole smoother in one B5 launch;
+``test_torch_bf16_iterations_hybrid.py`` holds the same counts where the
+fine level runs B3 and a chain of B4.
 
 bf16 smoother storage (the lo and fused routes) makes the preconditioner
 a slightly perturbed operator, and the reference's own CG then needs more
@@ -33,26 +36,30 @@ ROUTES = {"f32": dict(fused=False, lo_smoother=False),
           "fused": dict(fused=True)}
 
 
-@pytest.fixture(scope="module")
-def counts():
+def cold_counts(geom, n, tol=1e-8, routes=tuple(ROUTES)):
+    """{route: (JAX iterations, port iterations)} of a cold solve to
+    ``tol`` on ``geom`` at n cells, clamped at z=0 with a unit load on the
+    top face, for each of ``routes``, plus the port's fused V-cycle with
+    f32 storage and the port's per-level ``single_ok``."""
     mp = pytest.MonkeyPatch()
     mp.setenv("PLDSO_MATVEC", "pallas")
     mp.setenv("PLDSO_PALLAS_INTERPRET", "1")
     mp.setenv("PLDSO_MG_FUSED_DTYPE", "bf16")
     try:
-        js = JSL("Octet", (N,) * 3, (1.0,) * 3, 1013.0, 0.3)
+        js = JSL(geom, (n,) * 3, (1.0,) * 3, 1013.0, 0.3)
         fixed = js.select_nodes(lambda x, y, z: z == 0.0)
-        top = js.select_nodes(lambda x, y, z: z == float(N))
+        top = js.select_nodes(lambda x, y, z: z == float(n))
         free = np.broadcast_to((js.node_valid & ~fixed)[:, None],
                                (js.nc, 6) + js.grid)
         f = np.zeros((js.nc, 6) + js.grid, np.float32)
         for c in range(js.nc):
             f[c, 2][top[c]] = -1.0 / int(top.sum())
-        r0 = np.full((N,) * 3, 0.05, np.float32)
+        rshape = (n,) * 3 if js.n_geom == 1 else (js.n_geom,) + (n,) * 3
+        r0 = np.full(rshape, 0.05, np.float32)
         hj = jmg.build_mg_hierarchy(js, free)
         sj = jmg.mg_precond_state(hj, jnp.asarray(r0), power_iters=5,
                                   fused=True)
-        ts = TSL("Octet", (N,) * 3, (1.0,) * 3, 1013.0, 0.3,
+        ts = TSL(geom, (n,) * 3, (1.0,) * 3, 1013.0, 0.3,
                  dtype=torch.float32, device="cpu")
         ht = tmg.build_mg_hierarchy(ts, free)
         st = convert.precond_state_from_jax(
@@ -68,13 +75,13 @@ def counts():
         A_t = lambda u: fr_t * mt.apply(fr_t * u, aux_t) + (1 - fr_t) * u
         b = free * f
         out = {}
-        for route, kw in ROUTES.items():
-            M_j = jmg.mg_apply(hj, sj, **OPTS, **kw)
-            res = jax.jit(lambda b_: jpcg(A_j, b_, M=M_j, tol=1e-8,
+        for route in routes:
+            M_j = jmg.mg_apply(hj, sj, **OPTS, **ROUTES[route])
+            res = jax.jit(lambda b_: jpcg(A_j, b_, M=M_j, tol=tol,
                                           maxiter=200))(jnp.asarray(b))
-            M_t = tmg.mg_apply(ht, st, **OPTS, **kw)
+            M_t = tmg.mg_apply(ht, st, **OPTS, **ROUTES[route])
             out[route] = (int(res.iterations), tpcg(
-                A_t, torch.tensor(b), M=M_t, tol=1e-8,
+                A_t, torch.tensor(b), M=M_t, tol=tol,
                 maxiter=200).iterations)
         # the port's fused V-cycle in f32 storage, from the same state
         st32 = dict(st, fused=[{k: v.float() for k, v in fo.items()}
@@ -82,11 +89,18 @@ def counts():
         out["fused f32 storage (port)"] = (None, tpcg(
             A_t, torch.tensor(b), M=tmg.mg_apply(ht, st32, fused=True,
                                                  **OPTS),
-            tol=1e-8, maxiter=200).iterations)
+            tol=tol, maxiter=200).iterations)
     finally:
         mp.undo()
-    print("\ncold CG iterations (JAX, port):", out)
+    out["single_ok (port)"] = [lvl.fused.single_ok for lvl in ht["levels"]]
+    print(f"\ncold CG iterations to {tol:g} (JAX, port), {geom} n={n}:",
+          out)
     return out
+
+
+@pytest.fixture(scope="module")
+def counts():
+    return cold_counts("Octet", N)
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
