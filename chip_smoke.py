@@ -3,14 +3,20 @@
     python3 chip_smoke.py [--out report.json] [--profile profile.json]
 
 Builds every CUDA kernel of the port with nvcc, holds each against its
-plain torch version on the card, then drives the port's main path once at
+plain torch version on the card (B1 in float32 and float64 and its VJP,
+B2-B5, the probes P1 and P2), then drives the port's main path once at
 full width on each of its routes: the 50^3 Octet compliance step with the
 multigrid preconditioner, bench.py's protocol, with the fused bf16 V-cycle
 (bench.py's default), the unfused bf16-I/O smoother (BENCH_MG_FUSED=0) and
-the unfused f32 V-cycle (pylatticedso_tpu_torch/smoke.py).  Prints the
-card's name and power limit, one JSON line listing the kernels, and as the
-last line {"ok": true, "device": {...}}.  Exits non-zero, with no result,
-when there is no card or the port cannot be imported.
+the unfused f32 V-cycle; then the design-gradient step (the implicit
+adjoint through B1's VJP) on its three paths: float64 implicit against
+analytic, a float64 displacement objective with an imposed displacement
+against a central difference, and the same problem in float32 on the
+fused bf16 route (pylatticedso_tpu_torch/smoke.py).  Prints the card's
+name and power limit, one JSON line listing the kernels, and as the last
+line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
+there is no card (exit 1) or the port cannot be imported (exit 2: the
+script alone, without the package beside it).
 """
 
 import argparse
@@ -22,8 +28,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
     ap.add_argument("--profile", help="after the run, profile two warm "
-                    "steps of each route with torch.profiler and write the "
-                    "tables here")
+                    "steps of each route and of the design-gradient path (c) "
+                    "with torch.profiler and write the tables here")
     args = ap.parse_args()
     try:
         import torch
@@ -42,7 +48,7 @@ def main() -> int:
             json.dump(report, fh, indent=1, default=str)
     if args.profile:
         profs = {route: smoke.profile_phase(torch.device("cuda"), 50, route)
-                 for route in smoke.ROUTES}
+                 for route in (*smoke.ROUTES, "design")}
         with open(args.profile, "w") as fh:
             json.dump(profs, fh, indent=1)
         for route, prof in profs.items():

@@ -1,9 +1,9 @@
 """Carry the JAX step's inputs and frozen multigrid state into the port.
 
-Both functions take numpy arrays (``np.asarray`` of the JAX values), never
+Every function takes numpy arrays (``np.asarray`` of the JAX values), never
 JAX objects, so this module imports no JAX: a test converts the JAX tree to
 numpy and hands it over, and both packages then run from the same frozen
-preconditioner.
+preconditioner, the same imposed displacements and the same objective.
 """
 
 from __future__ import annotations
@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["precond_state_from_jax", "step_inputs_from_jax"]
+__all__ = ["precond_state_from_jax", "step_inputs_from_jax",
+           "objective_from_jax"]
 
 
 def _t(a, dtype, device):
@@ -87,7 +88,32 @@ def precond_state_from_jax(tree_of_numpy: dict, dtype=torch.float64,
     return out
 
 
-def step_inputs_from_jax(radius, free, f, dtype=torch.float64,
-                         device="cuda"):
-    """(radius, free, f) as numpy -> tensors of the port's dtype/device."""
-    return tuple(_t(a, dtype, device) for a in (radius, free, f))
+def step_inputs_from_jax(radius, free, f, u_imposed=None,
+                         dtype=torch.float64, device="cuda"):
+    """(radius, free, f) as numpy -> tensors of the port's dtype/device;
+    with ``u_imposed`` (the [nc, 6, X, Y, Z] imposed-displacement field
+    the JAX step was built with), (radius, free, f, u_imposed)."""
+    arrays = (radius, free, f) if u_imposed is None \
+        else (radius, free, f, u_imposed)
+    return tuple(_t(a, dtype, device) for a in arrays)
+
+
+def objective_from_jax(objective_type: str, selectors=(),
+                       objective_function: str = "min",
+                       dtype=torch.float64, device="cuda"):
+    """The port's ``objective(u, f)`` for the JAX optimizer's objective
+    (``opti/structured_optimizer.py:95-111``), from its selector fields
+    as numpy [nc, 6, X, Y, Z] arrays: None for ``compliance`` (the step's
+    default); ``displacement``: s * sum(sel * u), s = -1 for ``max``;
+    ``displacement_ratio``: -(sum(so * u) * sum(si * u))."""
+    if objective_type == "compliance":
+        return None
+    sels = [_t(a, dtype, device) for a in selectors]
+    if objective_type == "displacement":
+        sign = -1.0 if objective_function == "max" else 1.0
+        sel = sels[0]
+        return lambda u, f_: sign * torch.sum(sel * u)
+    if objective_type == "displacement_ratio":
+        so, si = sels[0], sels[1]
+        return lambda u, f_: -(torch.sum(so * u) * torch.sum(si * u))
+    raise ValueError(f"unknown objective type {objective_type!r}")

@@ -11,10 +11,13 @@
 //
 // Layout: u is ghost-padded [nc, 6, Xp, Yp, Zp] and r^2 [n_e, Xp, Yp, Zp];
 // q is the flat index of an INTERIOR point of the padded grid, so every
-// shifted read stays in bounds and reads zeros outside the lattice.  Loads
-// of either storage type (float or __nv_bfloat16) are widened to float; all
-// arithmetic is float.  Sides are summed in table order (class_start[c] ..
-// class_start[c + 1]) in registers: no atomics, bitwise-equal repeats.
+// shifted read stays in bounds and reads zeros outside the lattice.
+// stencil_acc_t is a template over the compute type C and its side record
+// (float with Side, double with SideD): loads of the storage type (float,
+// __nv_bfloat16 or double) are widened to C and all arithmetic is C.
+// stencil_acc is the float instance every float kernel uses.  Sides are
+// summed in table order (class_start[c] .. class_start[c + 1]) in
+// registers: no atomics, bitwise-equal repeats.
 
 #pragma once
 
@@ -34,73 +37,85 @@ struct Side {
 
 static_assert(sizeof(Side) == 64, "Side must match the host table layout");
 
+// the float64 instance's record: the same fields with a double frame
+struct SideD {
+  int co, du, dr, ei, side;
+  int pad;
+  double t[3], a1[3], a2[3];
+  double invL, halfL;
+};               // 112 bytes
+
+static_assert(sizeof(SideD) == 112, "SideD must match the host table layout");
+
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ double ld(const double* p) { return *p; }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(double* p, double v) { *p = v; }
 // round to nearest even, as XLA's f32 -> bf16 convert
 __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename TU, typename TR>
-__device__ __forceinline__ void stencil_acc(
+template <typename C, typename SideT, typename TU, typename TR>
+__device__ __forceinline__ void stencil_acc_t(
     const TU* up, const TR* r2p, long long Fp, long long q, int c,
-    const Side* __restrict__ sides, int s_begin, int s_end,
-    float E, float kG, float G2, float acc[6]) {
-  float us[6];
+    const SideT* __restrict__ sides, int s_begin, int s_end,
+    C E, C kG, C G2, C acc[6]) {
+  C us[6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) us[k] = ld(up + ((long long)c * 6 + k) * Fp + q);
 
-  const float pi = 3.14159265358979323846f;
+  const C pi = (C)3.14159265358979323846;
   for (int s = s_begin; s < s_end; ++s) {
-    const Side& sd = sides[s];
+    const SideT& sd = sides[s];
     const TU* uo_base = up + (long long)sd.co * 6 * Fp + q + sd.du;
-    float uo[6];
+    C uo[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) uo[k] = ld(uo_base + k * Fp);
-    const float r2 = ld(r2p + (long long)sd.ei * Fp + q + sd.dr);
+    const C r2 = ld(r2p + (long long)sd.ei * Fp + q + sd.dr);
 
     // uB - uA is (other - self) on side A and (self - other) on side B;
     // negating an IEEE difference is exact, so the sign form matches the
     // gather form bit for bit and keeps u in registers
-    const float sg = sd.side ? -1.f : 1.f;
-    const float t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
-    const float b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
-    const float n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
-    const float invL = sd.invL;
+    const C sg = sd.side ? (C)-1 : (C)1;
+    const C t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
+    const C b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
+    const C n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
+    const C invL = sd.invL;
 
-    const float du0 = sg * (uo[0] - us[0]), du1 = sg * (uo[1] - us[1]),
-                du2 = sg * (uo[2] - us[2]);
-    const float th0 = us[3] + uo[3], th1 = us[4] + uo[4], th2 = us[5] + uo[5];
-    const float dt0 = sg * (uo[3] - us[3]), dt1 = sg * (uo[4] - us[4]),
-                dt2 = sg * (uo[5] - us[5]);
+    const C du0 = sg * (uo[0] - us[0]), du1 = sg * (uo[1] - us[1]),
+            du2 = sg * (uo[2] - us[2]);
+    const C th0 = us[3] + uo[3], th1 = us[4] + uo[4], th2 = us[5] + uo[5];
+    const C dt0 = sg * (uo[3] - us[3]), dt1 = sg * (uo[4] - us[4]),
+            dt2 = sg * (uo[5] - us[5]);
 
-    const float e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
-    const float e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
-                   - (th0 * n0 + th1 * n1 + th2 * n2) * 0.5f;
-    const float e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
-                   + (th0 * b0 + th1 * b1 + th2 * b2) * 0.5f;
-    const float e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
-    const float e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
-    const float e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
+    const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
+    const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
+               - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
+    const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
+               + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
+    const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
+    const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
+    const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
 
-    const float S = pi * r2;
-    const float I = pi * r2 * r2 * 0.25f;
-    const float s0 = (E * S) * e0, s1 = (kG * S) * e1, s2 = (kG * S) * e2;
-    const float s3 = (G2 * I) * e3, s4 = (E * I) * e4, s5 = (E * I) * e5;
+    const C S = pi * r2;
+    const C I = pi * r2 * r2 * (C)0.25;
+    const C s0 = (E * S) * e0, s1 = (kG * S) * e1, s2 = (kG * S) * e2;
+    const C s3 = (G2 * I) * e3, s4 = (E * I) * e4, s5 = (E * I) * e5;
 
-    const float fu0 = s0 * t0 + s1 * b0 + s2 * n0;
-    const float fu1 = s0 * t1 + s1 * b1 + s2 * n1;
-    const float fu2 = s0 * t2 + s1 * b2 + s2 * n2;
-    const float hl = sd.halfL;
-    const float ms0 = hl * (s2 * b0 - s1 * n0);
-    const float ms1 = hl * (s2 * b1 - s1 * n1);
-    const float ms2 = hl * (s2 * b2 - s1 * n2);
-    const float md0 = s3 * t0 + s4 * b0 + s5 * n0;
-    const float md1 = s3 * t1 + s4 * b1 + s5 * n1;
-    const float md2 = s3 * t2 + s4 * b2 + s5 * n2;
+    const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
+    const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
+    const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
+    const C hl = sd.halfL;
+    const C ms0 = hl * (s2 * b0 - s1 * n0);
+    const C ms1 = hl * (s2 * b1 - s1 * n1);
+    const C ms2 = hl * (s2 * b2 - s1 * n2);
+    const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
+    const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
+    const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
     if (sd.side == 0) {        // fA = [-fu, msh - mdf]
       acc[0] += -fu0; acc[1] += -fu1; acc[2] += -fu2;
       acc[3] += ms0 - md0; acc[4] += ms1 - md1; acc[5] += ms2 - md2;
@@ -109,6 +124,15 @@ __device__ __forceinline__ void stencil_acc(
       acc[3] += ms0 + md0; acc[4] += ms1 + md1; acc[5] += ms2 + md2;
     }
   }
+}
+
+template <typename TU, typename TR>
+__device__ __forceinline__ void stencil_acc(
+    const TU* up, const TR* r2p, long long Fp, long long q, int c,
+    const Side* __restrict__ sides, int s_begin, int s_end,
+    float E, float kG, float G2, float acc[6]) {
+  stencil_acc_t<float, Side>(up, r2p, Fp, q, c, sides, s_begin, s_end,
+                             E, kG, G2, acc);
 }
 
 // (x, y, z) of the padded flat index q; true when q is an interior point

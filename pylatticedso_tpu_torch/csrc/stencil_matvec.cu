@@ -1,5 +1,5 @@
 // B1 and B2: structured Timoshenko stencil matvec K.u for Hopper (sm_90a),
-// one template over the load/store type.
+// one template over the load/store type and the compute type.
 //
 // B1 (float loads and stores) replaces the TPU kernel of
 // pylatticedso_tpu/parallel/stencil_pallas.py make_pallas_matvec ->
@@ -9,6 +9,28 @@
 // (pylatticedso_tpu_torch/parallel/structured.py apply_gather), which is
 // also their plain version; the per-point body is stencil_acc in
 // stencil_body.cuh, shared with the fused smoother kernels B3-B5.
+//
+// B1 has two instances: float (the main path's float32 operator) and
+// double (the float64 operator; the JAX package runs float64 through its
+// XLA gather form, structured.py:655, so this instance is the port's
+// counterpart of that path).  The double instance reads its own side table
+// (struct SideD, double frame) and takes double material constants, so
+// every operation is float64 and it agrees with the float64 gather form to
+// rounding.
+//
+// B1's VJP (kernels/stencil.py, a torch.autograd.Function, as the TPU
+// kernel is a jax.custom_vjp at stencil_pallas.py:575-588): the
+// u-cotangent is this same kernel launched on the cotangent g, since K is
+// symmetric; the r^2-cotangent, which JAX takes from XLA's VJP of the
+// gather form, is stencil_vjp_r2 below, written by hand as well:
+//   gr[e, Q] = sum over the two sides of edge e that read r^2 at Q of
+//              g(self, q) . dF_side(u(self, q), u(other, q + du)) / dr^2,
+// with q = Q - dr the side's output point and dF/dr^2 the side's row with
+// dS/dr^2 = pi and dI/dr^2 = pi r^2 / 2.  One thread per r^2 position
+// (edge, padded point) gathers side A then side B in that fixed order: no
+// atomics, bitwise-equal repeats.  It moves u, g and r^2 in and gr out
+// (4 * (24 + 24 + 24 + 24) F = 57.2 MB at 50^3 in float32 -> 17.1 us,
+// bound by bytes).
 //
 // Layout: u is ghost-padded [nc, 6, Xp, Yp, Zp] and r^2 [n_e, Xp, Yp, Zp]
 // (Xp = X + 2, ...); every shifted read of an interior point stays in
@@ -41,13 +63,13 @@
 
 #include "stencil_body.cuh"
 
-template <typename T>
+template <typename T, typename C, typename SideT>
 __global__ void __launch_bounds__(256)
 stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
-                      T* __restrict__ out, const Side* __restrict__ sides,
+                      T* __restrict__ out, const SideT* __restrict__ sides,
                       const int* __restrict__ class_start,
                       int nc, int X, int Y, int Z,
-                      float E, float kG, float G2) {
+                      C E, C kG, C G2) {
   const int N = X * Y * Z;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)nc * N) return;
@@ -60,25 +82,121 @@ stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
   const long long Fp = (long long)(X + 2) * Yp * Zp;
   const long long q = ((long long)(x + 1) * Yp + (y + 1)) * Zp + (z + 1);
 
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  stencil_acc(up, r2p, Fp, q, c, sides, class_start[c], class_start[c + 1],
-              E, kG, G2, acc);
+  C acc[6] = {0, 0, 0, 0, 0, 0};
+  stencil_acc_t<C, SideT>(up, r2p, Fp, q, c, sides, class_start[c],
+                          class_start[c + 1], E, kG, G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k)
     st(out + ((long long)c * 6 + k) * N + pt, acc[k]);
 }
 
-template <typename T>
+// r^2-derivative of one side's contribution g(q) . F_side at output
+// point q of class c: the side's force row with the section stiffnesses
+// replaced by their r^2-derivatives, dotted with g (the same strain math as
+// stencil_acc_t; torch's plain version is apply_gather_vjp_r2)
+template <typename C, typename SideT, typename T>
+__device__ __forceinline__ C side_dr2(const T* up, const T* gp, long long Fp,
+                                      long long q, int c, const SideT& sd,
+                                      C r2, C E, C kG, C G2) {
+  C us[6], uo[6], lam[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    us[k] = ld(up + ((long long)c * 6 + k) * Fp + q);
+    uo[k] = ld(up + ((long long)sd.co * 6 + k) * Fp + q + sd.du);
+    lam[k] = ld(gp + ((long long)c * 6 + k) * Fp + q);
+  }
+  const C pi = (C)3.14159265358979323846;
+  const C sg = sd.side ? (C)-1 : (C)1;
+  const C t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
+  const C b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
+  const C n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
+  const C invL = sd.invL;
+  const C du0 = sg * (uo[0] - us[0]), du1 = sg * (uo[1] - us[1]),
+          du2 = sg * (uo[2] - us[2]);
+  const C th0 = us[3] + uo[3], th1 = us[4] + uo[4], th2 = us[5] + uo[5];
+  const C dt0 = sg * (uo[3] - us[3]), dt1 = sg * (uo[4] - us[4]),
+          dt2 = sg * (uo[5] - us[5]);
+  const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
+  const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
+             - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
+  const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
+             + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
+  const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
+  const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
+  const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
+  // d(pi r^2)/dr^2 = pi, d(pi r^4 / 4)/dr^2 = pi r^2 / 2
+  const C dI = (pi * (C)0.5) * r2;
+  const C s0 = (E * pi) * e0, s1 = (kG * pi) * e1, s2 = (kG * pi) * e2;
+  const C s3 = G2 * dI * e3, s4 = E * dI * e4, s5 = E * dI * e5;
+  const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
+  const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
+  const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
+  const C hl = sd.halfL;
+  const C ms0 = hl * (s2 * b0 - s1 * n0);
+  const C ms1 = hl * (s2 * b1 - s1 * n1);
+  const C ms2 = hl * (s2 * b2 - s1 * n2);
+  const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
+  const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
+  const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
+  const C sf = -sg;            // side A: [-fu, msh - mdf]; B: [fu, msh + mdf]
+  return lam[0] * (sf * fu0) + lam[1] * (sf * fu1) + lam[2] * (sf * fu2)
+       + lam[3] * (ms0 + sf * md0) + lam[4] * (ms1 + sf * md1)
+       + lam[5] * (ms2 + sf * md2);
+}
+
+// edges[4 e .. 4 e + 3] = (table index of side A, of side B, class A,
+// class B) of template edge e
+template <typename T, typename C, typename SideT>
+__global__ void __launch_bounds__(256)
+stencil_vjp_r2_kernel(const T* __restrict__ up, const T* __restrict__ gp,
+                      const T* __restrict__ r2p, T* __restrict__ out,
+                      const SideT* __restrict__ sides,
+                      const int* __restrict__ edges, int n_e,
+                      int X, int Y, int Z, C E, C kG, C G2) {
+  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)n_e * Fp) return;
+  const int e = (int)(idx / Fp);
+  const long long Q = idx - (long long)e * Fp;
+  const C r2 = ld(r2p + idx);
+  C acc = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {            // side A, then side B
+    const SideT& sd = sides[edges[4 * e + h]];
+    const long long q = Q - sd.dr;
+    if (q < 0 || q >= Fp || !interior(q, X, Y, Z)) continue;
+    acc += side_dr2<C, SideT>(up, gp, Fp, q, edges[4 * e + 2 + h], sd, r2,
+                              E, kG, G2);
+  }
+  st(out + idx, acc);
+}
+
+template <typename T, typename C, typename SideT>
+static int launch_vjp(const void* up, const void* gp, const void* r2p,
+                      void* out, const void* sides, const void* edges,
+                      int n_e, int X, int Y, int Z, C E, C kG, C G2,
+                      void* stream) {
+  const long long total = (long long)n_e * (X + 2) * (Y + 2) * (Z + 2);
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  stencil_vjp_r2_kernel<T, C, SideT><<<(unsigned)blocks, threads, 0,
+                                       (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
+      (const SideT*)sides, (const int*)edges, n_e, X, Y, Z, E, kG, G2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename C, typename SideT>
 static int launch(const void* up, const void* r2p, void* out,
                   const void* sides, const void* class_start,
-                  int nc, int X, int Y, int Z, float E, float kG, float G2,
+                  int nc, int X, int Y, int Z, C E, C kG, C G2,
                   void* stream) {
   const long long total = (long long)nc * X * Y * Z;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  stencil_matvec_kernel<T><<<(unsigned)blocks, threads, 0,
-                             (cudaStream_t)stream>>>(
-      (const T*)up, (const T*)r2p, (T*)out, (const Side*)sides,
+  stencil_matvec_kernel<T, C, SideT><<<(unsigned)blocks, threads, 0,
+                                       (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)r2p, (T*)out, (const SideT*)sides,
       (const int*)class_start, nc, X, Y, Z, E, kG, G2);
   return (int)cudaGetLastError();
 }
@@ -88,8 +206,8 @@ extern "C" int stencil_matvec_f32(const void* up, const void* r2p, void* out,
                                   int nc, int X, int Y, int Z,
                                   float E, float kG, float G2,
                                   void* stream) {
-  return launch<float>(up, r2p, out, sides, class_start, nc, X, Y, Z,
-                       E, kG, G2, stream);
+  return launch<float, float, Side>(up, r2p, out, sides, class_start,
+                                    nc, X, Y, Z, E, kG, G2, stream);
 }
 
 extern "C" int stencil_matvec_bf16(const void* up, const void* r2p, void* out,
@@ -97,6 +215,34 @@ extern "C" int stencil_matvec_bf16(const void* up, const void* r2p, void* out,
                                    int nc, int X, int Y, int Z,
                                    float E, float kG, float G2,
                                    void* stream) {
-  return launch<__nv_bfloat16>(up, r2p, out, sides, class_start, nc, X, Y, Z,
-                               E, kG, G2, stream);
+  return launch<__nv_bfloat16, float, Side>(up, r2p, out, sides, class_start,
+                                            nc, X, Y, Z, E, kG, G2, stream);
+}
+
+extern "C" int stencil_matvec_f64(const void* up, const void* r2p, void* out,
+                                  const void* sides, const void* class_start,
+                                  int nc, int X, int Y, int Z,
+                                  double E, double kG, double G2,
+                                  void* stream) {
+  return launch<double, double, SideD>(up, r2p, out, sides, class_start,
+                                       nc, X, Y, Z, E, kG, G2, stream);
+}
+
+extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
+                                  const void* r2p, void* out,
+                                  const void* sides, const void* edges,
+                                  int n_e, int X, int Y, int Z,
+                                  float E, float kG, float G2, void* stream) {
+  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, edges, n_e,
+                                        X, Y, Z, E, kG, G2, stream);
+}
+
+extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
+                                  const void* r2p, void* out,
+                                  const void* sides, const void* edges,
+                                  int n_e, int X, int Y, int Z,
+                                  double E, double kG, double G2,
+                                  void* stream) {
+  return launch_vjp<double, double, SideD>(up, gp, r2p, out, sides, edges,
+                                           n_e, X, Y, Z, E, kG, G2, stream);
 }

@@ -23,7 +23,7 @@ __all__ = ["SOURCES", "build_all", "load"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_matvec", "mg_fused")
+SOURCES = ("stencil_matvec", "mg_fused", "probes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -37,8 +37,8 @@ import torch.nn.functional as F
 from . import build
 from .stencil import FLOPS_PER_SIDE, StencilMatvec, edge_sides
 
-__all__ = ["FusedSmoother", "route", "cheb_static", "storage_dtype",
-           "check_compute", "KERNELS"]
+__all__ = ["FusedSmoother", "route", "has_kernel_matvec", "cheb_static",
+           "storage_dtype", "check_compute", "KERNELS"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 SOURCE = "pylatticedso_tpu_torch/csrc/mg_fused.cu"
@@ -81,11 +81,9 @@ HYBRID_MAXTILE = 1280
 VMEM_BUDGET = 14e6
 
 
-def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
-    """(ok, single_ok) of one level, by the JAX package's rule
-    (``stencil_pallas.make_pallas_matvec`` at its default tile and default
-    tiling settings).  ``ok`` is False where JAX builds no fused smoother
-    (no tile fits its model, so the level has the gather-form matvec)."""
+def _tile_search(slat, tile: int):
+    """The JAX rule's tile choice for the Pallas matvec: (T, once, Tmin,
+    vmem_est), or None where no tile fits its scoped-VMEM model."""
     X, Y, Z = slat.grid
     Xp, Yp, Zp = X + 2, Y + 2, Z + 2
     F_ = Xp * Yp * Zp
@@ -121,11 +119,38 @@ def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
     t_two = best_tile(False)
     t_once = best_tile(True)
     if t_once is not None and (t_two is None or 2 * t_once >= t_two):
-        T, once = t_once, True
-    elif t_two is not None:
-        T, once = t_two, False
-    else:
+        return t_once, True, Tmin, vmem_est
+    if t_two is not None:
+        return t_two, False, Tmin, vmem_est
+    return None
+
+
+def has_kernel_matvec(slat, tile: int = 3072) -> bool:
+    """True where the JAX package builds its Pallas matvec for a level
+    (``structured.py:653-669``): a float32, unwarped lattice whose template
+    fits the kernel's scoped-VMEM model.  Only such a level has the
+    bf16-I/O matvec ``apply.lo`` (JAX ``prepare_lo`` gives None elsewhere,
+    ``multigrid.py:183-189``) and a fused smoother, so the port runs B2 and
+    B3-B5 exactly there; elsewhere JAX smooths with its full-precision
+    gather form and the port with B1."""
+    if slat.dtype != torch.float32 \
+            or getattr(slat, "node_transform", None) is not None:
+        return False
+    return _tile_search(slat, tile) is not None
+
+
+def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
+    """(ok, single_ok) of one level, by the JAX package's rule
+    (``stencil_pallas.make_pallas_matvec`` at its default tile and default
+    tiling settings).  ``ok`` is False where JAX builds no fused smoother
+    (a float64 or warped level, or no tile fits its model, so the level
+    has the gather-form matvec)."""
+    if not has_kernel_matvec(slat, tile):
         return False, False          # JAX: gather-form matvec, no fused
+    T, once, Tmin, vmem_est = _tile_search(slat, tile)
+    X, Y, Z = slat.grid
+    F_ = (X + 2) * (Y + 2) * (Z + 2)
+    rows_in = slat.nc * 8
     io_bytes = 2 if storage_dtype() == torch.bfloat16 else 4
 
     def fits(Tc):

@@ -3,17 +3,31 @@
 
 B1 replaces the TPU kernel ``make_pallas_matvec -> make_call(jnp.float32)``
 of ``pylatticedso_tpu/parallel/stencil_pallas.py``: the structured
-Timoshenko stencil K.u in float32 over ghost-padded class fields.  B2
-replaces ``make_call(jnp.bfloat16)`` (``apply.lo``): the same K.u with
-bfloat16 loads and stores and float32 arithmetic, the matvec of the
-multigrid's bf16-I/O smoother.
+Timoshenko stencil K.u over ghost-padded class fields, with a float32 and a
+float64 instance (the JAX package runs float64 through its XLA gather
+form).  B2 replaces ``make_call(jnp.bfloat16)`` (``apply.lo``): the same
+K.u with bfloat16 loads and stores and float32 arithmetic, the matvec of
+the multigrid's bf16-I/O smoother.
 
-``StencilMatvec(slat, plain)`` is the ``apply(u, r2p)`` of one lattice's
-operator, and ``apply.lo(u_lo, r2_lo)`` its bf16-I/O form.  On a CPU tensor
-each returns its plain version, the gather form of ``parallel/structured.py``
-(for ``lo``: on the bf16 inputs widened, the result rounded to bf16).  On a
-CUDA tensor each launches its kernel or raises — there is no fallback.
-``launches`` counts B1 launches and ``launches_lo`` B2 launches.
+``StencilMatvec(slat, plain, plain_vjp_r2)`` is the ``apply(u, r2p)`` of
+one lattice's operator, and ``apply.lo(u_lo, r2_lo)`` its bf16-I/O form.
+On a CPU tensor each returns its plain version, the gather form of
+``parallel/structured.py`` (for ``lo``: on the bf16 inputs widened, the
+result rounded to bf16).  On a CUDA tensor each launches its kernel or
+raises — there is no fallback.  ``launches`` counts B1's float32
+launches, ``launches_f64`` its float64 launches (in either: those on a
+cotangent too), ``launches_vjp`` the r^2-cotangent kernel's launches and
+``launches_lo`` B2 launches.
+
+B1 is differentiable, as the JAX kernel is a ``jax.custom_vjp``
+(``stencil_pallas.py:575-588``): when a gradient would flow, ``apply`` runs
+the ``torch.autograd.Function`` ``_B1``.  Its u-cotangent is B1 itself
+launched on the cotangent (K is symmetric in u); its r^2-cotangent is
+``vjp_r2``, the kernel ``stencil_vjp_r2`` (one thread per r^2 position,
+both sides of its edge summed in a fixed order, no atomics), whose plain
+version ``plain_vjp_r2`` is the closed form of the gather form's
+r^2-derivative in torch (JAX computes that part in XLA).  B2 and the fused
+kernels are never differentiated.
 
 The kernel reads the edge sides from a device table built here from
 ``edge_sides`` (the counterpart of ``stencil_pallas._edge_sides``), sorted
@@ -32,7 +46,9 @@ import torch.nn.functional as F
 from . import build
 
 __all__ = ["StencilMatvec", "edge_sides", "side_table", "SIDE_DTYPE",
-           "FLOPS_PER_SIDE"]
+           "SIDE_DTYPE_F64", "FLOPS_PER_SIDE"]
+
+PAD = (1, 1, 1, 1, 1, 1)
 
 # must match ``struct Side`` in csrc/stencil_body.cuh (64 bytes)
 SIDE_DTYPE = np.dtype([
@@ -40,6 +56,13 @@ SIDE_DTYPE = np.dtype([
     ("side", "<i4"), ("t", "<f4", (3,)), ("a1", "<f4", (3,)),
     ("a2", "<f4", (3,)), ("invL", "<f4"), ("halfL", "<f4")])
 assert SIDE_DTYPE.itemsize == 64
+# must match ``struct SideD`` (112 bytes): the float64 instance's record
+SIDE_DTYPE_F64 = np.dtype([
+    ("co", "<i4"), ("du", "<i4"), ("dr", "<i4"), ("ei", "<i4"),
+    ("side", "<i4"), ("pad", "<i4"), ("t", "<f8", (3,)),
+    ("a1", "<f8", (3,)), ("a2", "<f8", (3,)), ("invL", "<f8"),
+    ("halfL", "<f8")])
+assert SIDE_DTYPE_F64.itemsize == 112
 
 # operations per edge side per output point (strains, forces, accumulate);
 # the JAX cost estimate uses the same figure (stencil_pallas.py:540)
@@ -67,17 +90,20 @@ def edge_sides(slat, Yp: int, Zp: int) -> List[dict]:
     return recs
 
 
-def side_table(slat) -> Tuple[np.ndarray, np.ndarray]:
-    """(sides [n_sides] SIDE_DTYPE, class_start [nc + 1] int32): the
-    records of ``edge_sides`` stably sorted by self class."""
+def side_table(slat, dtype=SIDE_DTYPE) -> Tuple[np.ndarray, np.ndarray]:
+    """(sides [n_sides] ``dtype`` (SIDE_DTYPE or SIDE_DTYPE_F64),
+    class_start [nc + 1] int32): the records of ``edge_sides`` stably
+    sorted by self class."""
     Yp, Zp = slat.grid[1] + 2, slat.grid[2] + 2
     recs = edge_sides(slat, Yp, Zp)
     order = sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
-    table = np.zeros(len(recs), SIDE_DTYPE)
+    table = np.zeros(len(recs), dtype)
     for j, i in enumerate(order):
         r = recs[i]
-        table[j] = (r["co"], r["du"], r["dr"], r["ei"], r["side"],
-                    r["t"], r["a1"], r["a2"], 1.0 / r["L"], 0.5 * r["L"])
+        for k in ("co", "du", "dr", "ei", "side", "t", "a1", "a2"):
+            table[k][j] = r[k]
+        table["invL"][j] = 1.0 / r["L"]
+        table["halfL"][j] = 0.5 * r["L"]
     counts = np.bincount([r["cs"] for r in recs], minlength=slat.nc)
     class_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     return table, class_start
@@ -86,25 +112,55 @@ def side_table(slat) -> Tuple[np.ndarray, np.ndarray]:
 def _bind(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf, vp]
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        cf = ctypes.c_double if name.endswith("f64") else ctypes.c_float
+        # the r^2-cotangent kernel takes one more pointer (g)
+        n_ptr = 6 if name.startswith("stencil_vjp") else 5
+        fn.argtypes = [vp] * n_ptr + [ci] * 4 + [cf] * 3 + [vp]
         fn.restype = ctypes.c_int
     return fn
+
+
+class _B1(torch.autograd.Function):
+    """B1 with its VJP (the JAX kernel's ``custom_vjp``): u-cotangent
+    K g by the same kernel (plain version on the CPU), r^2-cotangent by
+    the closed form ``plain_vjp_r2``."""
+
+    @staticmethod
+    def forward(ctx, u, r2p, mv):
+        ctx.mv = mv
+        ctx.save_for_backward(u, r2p)
+        return mv.apply_nograd(u, r2p)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, r2p = ctx.saved_tensors
+        mv = ctx.mv
+        g = g.contiguous()
+        gu = mv.apply_nograd(g, r2p) if ctx.needs_input_grad[0] else None
+        gr = mv.vjp_r2(g, u, r2p) if ctx.needs_input_grad[1] else None
+        return gu, gr, None
 
 
 class StencilMatvec:
     """apply(u [nc, 6, X, Y, Z], r2p [n_e, Xp, Yp, Zp]) -> K.u."""
 
     name = "stencil_matvec_f32"
+    name_f64 = "stencil_matvec_f64"
+    name_vjp = "stencil_vjp_r2"
     source = "pylatticedso_tpu_torch/csrc/stencil_matvec.cu"
     replaces = "pylatticedso_tpu/parallel/stencil_pallas.py:530"
+    replaces_vjp = "pylatticedso_tpu/parallel/stencil_pallas.py:575"
     name_lo = "stencil_matvec_bf16"
     replaces_lo = "pylatticedso_tpu/parallel/stencil_pallas.py:546"
 
-    def __init__(self, slat, plain: Callable):
+    def __init__(self, slat, plain: Callable, plain_vjp_r2: Callable):
         self.plain = plain
+        self.plain_vjp_r2 = plain_vjp_r2
         self.dtype = slat.dtype
         self.launches = 0
+        self.launches_f64 = 0
+        self.launches_vjp = 0
         self.launches_lo = 0
         self.grid = tuple(slat.grid)
         self.nc = slat.nc
@@ -112,17 +168,26 @@ class StencilMatvec:
         G_mod = slat.E_mod / (2.0 * (1.0 + slat.nu))
         self.consts = (float(slat.E_mod), float(slat.kappa * G_mod),
                        float(2.0 * G_mod))
-        self._table, self._class_start = side_table(slat)
-        self._dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._tables = {torch.float32: side_table(slat, SIDE_DTYPE),
+                        torch.float64: side_table(slat, SIDE_DTYPE_F64)}
+        # per edge: table rows of its side A and side B, classes A and B
+        Yp, Zp = slat.grid[1] + 2, slat.grid[2] + 2
+        recs = edge_sides(slat, Yp, Zp)
+        order = sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
+        row = {i: j for j, i in enumerate(order)}
+        self._edges = np.array(
+            [[row[2 * e], row[2 * e + 1], recs[2 * e]["cs"],
+              recs[2 * e + 1]["cs"]] for e in range(self.n_e)], np.int32)
+        self._dev: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
     @property
     def n_sides(self) -> int:
-        return len(self._table)
+        return len(self._tables[torch.float32][0])
 
     def work(self, itemsize: int = 4) -> Tuple[int, int]:
         """(bytes, operations) one application needs: padded u and r^2
         read once, the output written once, ``itemsize`` bytes each (4 for
-        B1, 2 for B2)."""
+        B1 in float32, 8 in float64, 2 for B2)."""
         X, Y, Z = self.grid
         Fp = (X + 2) * (Y + 2) * (Z + 2)
         N = X * Y * Z
@@ -131,9 +196,75 @@ class StencilMatvec:
         return nbytes, FLOPS_PER_SIDE * self.n_sides * N
 
     def __call__(self, u: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled() and (u.requires_grad or r2p.requires_grad):
+            return _B1.apply(u, r2p, self)
+        return self.apply_nograd(u, r2p)
+
+    def apply_nograd(self, u: torch.Tensor, r2p: torch.Tensor):
+        """K.u with no autograd graph: the plain version on a CPU tensor,
+        B1 on a CUDA tensor."""
         if u.device.type == "cpu":
-            return self.plain(u, r2p)
-        return self.launch(F.pad(u, (1, 1, 1, 1, 1, 1)).contiguous(), r2p)
+            with torch.no_grad():
+                return self.plain(u, r2p)
+        return self.launch(F.pad(u, PAD).contiguous(), r2p)
+
+    def vjp_work(self, itemsize: int = 4) -> Tuple[int, int]:
+        """(bytes, operations) of one r^2-cotangent launch: padded u, g
+        and r^2 read once, the r^2-cotangent written once; the strains and
+        the derivative row of every side (counted as one stencil pass)."""
+        X, Y, Z = self.grid
+        Fp = (X + 2) * (Y + 2) * (Z + 2)
+        nbytes = itemsize * (2 * self.nc * 6 * Fp + 2 * self.n_e * Fp)
+        return nbytes, FLOPS_PER_SIDE * self.n_sides * X * Y * Z
+
+    def vjp_r2(self, g: torch.Tensor, u: torch.Tensor,
+               r2p: torch.Tensor) -> torch.Tensor:
+        """r^2-cotangent of sum(g * K(r2p) u): ``plain_vjp_r2`` on a CPU
+        tensor, the kernel ``stencil_vjp_r2`` on a CUDA tensor."""
+        if u.device.type == "cpu":
+            with torch.no_grad():
+                return self.plain_vjp_r2(g, u, r2p)
+        return self.launch_vjp(F.pad(u, PAD).contiguous(),
+                               F.pad(g, PAD).contiguous(), r2p)
+
+    def launch_vjp(self, up: torch.Tensor, gp: torch.Tensor,
+                   r2p: torch.Tensor) -> torch.Tensor:
+        """Run the r^2-cotangent kernel on ghost-padded u and g [nc, 6, Xp,
+        Yp, Zp] (float32 or float64, like r^2)."""
+        X, Y, Z = self.grid
+        padded = (X + 2, Y + 2, Z + 2)
+        io = up.dtype
+        if up.device.type != "cuda" or {gp.device, r2p.device} != {up.device}:
+            raise ValueError("the r^2-cotangent kernel needs u, g and r^2 "
+                             "on one CUDA device")
+        if io not in (torch.float32, torch.float64) \
+                or gp.dtype != io or r2p.dtype != io:
+            raise ValueError(f"the r^2-cotangent kernel takes float32 or "
+                             f"float64 u, g and r^2 of one type (got "
+                             f"{up.dtype}, {gp.dtype}, {r2p.dtype})")
+        if tuple(up.shape) != (self.nc, 6) + padded \
+                or tuple(gp.shape) != (self.nc, 6) + padded \
+                or tuple(r2p.shape) != (self.n_e,) + padded:
+            raise ValueError(f"r^2-cotangent shapes: u {tuple(up.shape)}, g "
+                             f"{tuple(gp.shape)}, r^2 {tuple(r2p.shape)} "
+                             f"for grid {self.grid}")
+        if not (up.is_contiguous() and gp.is_contiguous()
+                and r2p.is_contiguous()):
+            raise ValueError("the r^2-cotangent kernel needs contiguous "
+                             "inputs")
+        f64 = io == torch.float64
+        name = self.name_vjp + ("_f64" if f64 else "_f32")
+        fn = _bind(build.load("stencil_matvec"), name)
+        sides, edges = self.tables(up.device, io, vjp=True)
+        out = torch.empty_like(r2p)
+        E, kG, G2 = self.consts
+        rc = fn(up.data_ptr(), gp.data_ptr(), r2p.data_ptr(), out.data_ptr(),
+                sides.data_ptr(), edges.data_ptr(), self.n_e, X, Y, Z,
+                E, kG, G2, torch.cuda.current_stream(up.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        self.launches_vjp += 1
+        return out
 
     def prepare_lo(self, r2p: torch.Tensor) -> torch.Tensor:
         """bf16 copy of the padded r^2 fields, B2's second operand."""
@@ -147,7 +278,7 @@ class StencilMatvec:
                              f" {r2_lo.dtype})")
         if u_lo.device.type == "cpu":
             return self.plain_lo(u_lo, r2_lo)
-        return self.launch(F.pad(u_lo, (1, 1, 1, 1, 1, 1)), r2_lo)
+        return self.launch(F.pad(u_lo, PAD), r2_lo)
 
     def plain_lo(self, u_lo: torch.Tensor, r2_lo: torch.Tensor):
         """B2's plain version: the gather form on the widened bf16 inputs,
@@ -155,42 +286,45 @@ class StencilMatvec:
         return self.plain(u_lo.to(self.dtype),
                           r2_lo.to(self.dtype)).to(torch.bfloat16)
 
-    def tables(self, device):
-        """(sides, class_start) on ``device``, uploaded once per device."""
-        if device not in self._dev:
-            sides = torch.from_numpy(self._table.view(np.uint8).copy())
-            self._dev[device] = (sides.to(device),
-                                 torch.from_numpy(self._class_start).to(device))
-        return self._dev[device]
+    def tables(self, device, dtype=torch.float32, vjp: bool = False):
+        """(sides, class_start) on ``device`` for the float32 (B1, B2) or
+        float64 (B1's double instance) kernel, or (sides, edges) for the
+        r^2-cotangent kernel, uploaded once."""
+        key = (device, dtype, vjp)
+        if key not in self._dev:
+            table, class_start = self._tables[dtype]
+            sides = torch.from_numpy(table.view(np.uint8).copy())
+            index = self._edges if vjp else class_start
+            self._dev[key] = (sides.to(device),
+                              torch.from_numpy(index.reshape(-1)).to(device))
+        return self._dev[key]
 
     def launch(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
-        """Run B1 (float32 u and r^2) or B2 (bfloat16 u and r^2) on an
-        already ghost-padded u [nc, 6, Xp, Yp, Zp]."""
+        """Run B1 (float32 or float64 u and r^2) or B2 (bfloat16 u and r^2)
+        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]."""
         X, Y, Z = self.grid
         padded = (X + 2, Y + 2, Z + 2)
         if up.device.type != "cuda" or r2p.device != up.device:
             raise ValueError(f"B1/B2 need u and r^2 on one CUDA device, got "
                              f"{up.device} and {r2p.device}")
-        lo = up.dtype == torch.bfloat16
-        io = torch.bfloat16 if lo else torch.float32
-        if up.dtype != io or r2p.dtype != io:
-            raise NotImplementedError(
-                f"B1/B2 on CUDA take float32 or bfloat16 u and r^2 of one "
-                f"type (got {up.dtype}, {r2p.dtype}); float64 on the card: "
-                "ROADMAP.md queue A, deferred feature 'f64 on card'")
-        if torch.is_grad_enabled() and (up.requires_grad or r2p.requires_grad):
-            raise NotImplementedError(
-                "B1 has no autograd.Function VJP yet: ROADMAP.md queue A, "
-                "deferred feature 'implicit gradient'")
+        io = up.dtype
+        names = {torch.float32: self.name, torch.float64: self.name_f64,
+                 torch.bfloat16: self.name_lo}
+        if io not in names or r2p.dtype != io:
+            raise ValueError(
+                f"B1/B2 on CUDA take float32, float64 or bfloat16 u and r^2 "
+                f"of one type (got {up.dtype}, {r2p.dtype})")
         if tuple(up.shape) != (self.nc, 6) + padded \
                 or tuple(r2p.shape) != (self.n_e,) + padded:
             raise ValueError(f"B1/B2 shapes: u {tuple(up.shape)}, r^2 "
                              f"{tuple(r2p.shape)} for grid {self.grid}")
         if not (up.is_contiguous() and r2p.is_contiguous()):
             raise ValueError("B1/B2 need contiguous u and r^2")
-        name = self.name_lo if lo else self.name
+        lo = io == torch.bfloat16
+        name = names[io]
         fn = _bind(build.load("stencil_matvec"), name)
-        sides, class_start = self.tables(up.device)
+        sides, class_start = self.tables(
+            up.device, torch.float64 if io == torch.float64 else torch.float32)
         out = torch.empty((self.nc, 6, X, Y, Z), dtype=io, device=up.device)
         E, kG, G2 = self.consts
         rc = fn(up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
@@ -200,6 +334,8 @@ class StencilMatvec:
             raise RuntimeError(f"{name} launch failed: cudaError {rc}")
         if lo:
             self.launches_lo += 1
+        elif io == torch.float64:
+            self.launches_f64 += 1
         else:
             self.launches += 1
         return out

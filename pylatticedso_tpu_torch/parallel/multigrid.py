@@ -9,8 +9,12 @@ iteration.  Three V-cycles, selected by the JAX package's switches with the
 same names and defaults:
 
 * unfused, working dtype: every smoother matvec is B1 (the stencil kernel);
-* ``lo_smoother`` (``PLDSO_MG_BF16=1``): unfused, every smoother matvec is
-  B2, the bf16-I/O stencil kernel (f32 vectors outside it);
+* ``lo_smoother`` (``PLDSO_MG_BF16=1``): unfused, the smoother matvecs of
+  every level that has a bf16 operand are B2, the bf16-I/O stencil kernel
+  (f32 vectors outside it); the JAX rule gives a level that operand only
+  where it builds its Pallas matvec (``kernels.fused.has_kernel_matvec``),
+  and every other level — every level of a float64 hierarchy — smooths
+  with B1 at full precision, as JAX smooths there with its gather form;
 * ``fused`` (``mg_opts["fused"]`` or ``PLDSO_MG_FUSED=1``/``force``): the
   fused V-cycle of kernels B3 (residual), B4 (one Chebyshev step) and B5
   (a whole smoother in one launch), with smoother vectors stored in
@@ -22,6 +26,7 @@ raises: a fused request it cannot meet never runs another path.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, List, Optional, Tuple
 
@@ -29,10 +34,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.fused import check_compute, cheb_static, storage_dtype
+from ..kernels.fused import (check_compute, cheb_static, has_kernel_matvec,
+                             storage_dtype)
 
 __all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
-           "make_transfers", "make_radius_restrictor"]
+           "mg_preconditioner", "make_transfers", "make_radius_restrictor"]
 
 PAD = (1, 1, 1, 1, 1, 1)        # one ghost cell on every side of X, Y, Z
 
@@ -42,6 +48,21 @@ def _unpad(v: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- transfers
+@contextlib.contextmanager
+def _full_precision_matmul():
+    """TF32 off and bf16 products reduced in float32 (as XLA's are) for
+    the block, the caller's settings restored after it: the flags are
+    process-wide, so the transfers never leave them changed."""
+    m = torch.backends.cuda.matmul
+    old = (m.allow_tf32, m.allow_bf16_reduced_precision_reduction)
+    m.allow_tf32 = False
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = old
+
+
 def _interp_matrix(X: int, C: int, frac: float) -> np.ndarray:
     """[X, C] 1-D linear interpolation matrix coarse->fine (factor 2),
     offset-aware: a class with fractional template coordinate ``frac`` has
@@ -63,7 +84,7 @@ def _interp_matrix(X: int, C: int, frac: float) -> np.ndarray:
 def make_transfers(fine_grid: Tuple[int, int, int],
                    coarse_grid: Tuple[int, int, int],
                    class_keys: np.ndarray, dtype=torch.float64,
-                   device="cpu"):
+                   device="cuda"):
     """(prolong, restrict) for [nc, 6, X, Y, Z] class fields.
 
     Three per-axis batched contractions with stacked per-class [X, C]
@@ -71,11 +92,10 @@ def make_transfers(fine_grid: Tuple[int, int, int],
     (axes in reverse order, each matrix transposed), so
     <prolong(c), f> == <c, restrict(f)> up to rounding — the symmetry of
     the V-cycle depends on it.  The contractions run in full precision:
-    TF32 is switched off for them (it is off by default in PyTorch).
+    TF32 is switched off for them, and bf16 transfers (fused V-cycle)
+    accumulate in float32, as XLA's do; both flags are set around each
+    contraction only (``_full_precision_matmul``).
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    # bf16 transfers (fused V-cycle) accumulate in float32, as XLA's do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     keys = np.asarray(class_keys, dtype=float)
     nc = len(keys)
     Ps = []
@@ -93,15 +113,17 @@ def make_transfers(fine_grid: Tuple[int, int, int],
 
     def prolong(c):
         P0, P1, P2 = _mats(c)
-        f = torch.einsum("cdqyz,cxq->cdxyz", c, P0)
-        f = torch.einsum("cdxqz,cyq->cdxyz", f, P1)
-        return torch.einsum("cdxyq,czq->cdxyz", f, P2)
+        with _full_precision_matmul():
+            f = torch.einsum("cdqyz,cxq->cdxyz", c, P0)
+            f = torch.einsum("cdxqz,cyq->cdxyz", f, P1)
+            return torch.einsum("cdxyq,czq->cdxyz", f, P2)
 
     def restrict(f):
         P0, P1, P2 = _mats(f)
-        c = torch.einsum("cdxyz,czq->cdxyq", f, P2)
-        c = torch.einsum("cdxyq,cyp->cdxpq", c, P1)
-        return torch.einsum("cdxpq,cxo->cdopq", c, P0)
+        with _full_precision_matmul():
+            c = torch.einsum("cdxyz,czq->cdxyq", f, P2)
+            c = torch.einsum("cdxyq,cyp->cdxpq", c, P1)
+            return torch.einsum("cdxpq,cxo->cdopq", c, P0)
 
     return prolong, restrict
 
@@ -119,7 +141,7 @@ def _coarse_cell_valid(valid: np.ndarray) -> np.ndarray:
 
 
 def make_radius_restrictor(valid: np.ndarray, dtype=torch.float64,
-                           device="cpu"):
+                           device="cuda"):
     """Coarse per-cell radii: validity-weighted 2x2x2 mean, doubled (keeps
     r/L, hence relative density and homogenized moduli, across levels)."""
     nx, ny, nz = valid.shape
@@ -160,6 +182,8 @@ class MGLevel:
                                     dtype=slat.dtype,
                                     device=torch.device(slat.device))
         self._free_as = {slat.dtype: self.free}
+        # the JAX rule: only a level with the Pallas matvec has B2
+        self.has_lo = has_kernel_matvec(slat)
 
     @property
     def fused(self):
@@ -188,7 +212,10 @@ class MGLevel:
         return f * self.matvec.apply(f * u, aux) + (1.0 - f) * u
 
     def prepare_lo(self, aux):
-        """bf16 copy of the hoisted r^2 operands (B2's second operand)."""
+        """bf16 copy of the hoisted r^2 operands (B2's second operand), or
+        None on a level without the bf16-I/O matvec (JAX ``prepare_lo``)."""
+        if not self.has_lo:
+            return None
         return self.matvec.apply.prepare_lo(aux)
 
     def A_aux_lo(self, u, aux_lo):
@@ -371,7 +398,8 @@ def mg_precond_state(h: dict, radius_field: torch.Tensor,
                      power_iters: int = 10,
                      fused: Optional[bool] = None) -> dict:
     """Radius-derived V-cycle state: per-level radii, hoisted matvec
-    operands (and their bf16 copies for B2), Jacobi diagonals and lmax
+    operands (and their bf16 copies for B2 where the level has B2, None
+    elsewhere), Jacobi diagonals and lmax
     estimates, and — when the fused V-cycle is on (``fused``, default
     ``PLDSO_MG_FUSED``) — per level the fused smoother's operands
     ``fdinv = free / D``, ``fm = free`` (ghost-padded) and r^2, in the
@@ -422,9 +450,10 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     at every level), so it remains a valid SPD preconditioner for plain
     CG.  ``fused`` (default ``PLDSO_MG_FUSED`` in ``1``/``force``) runs the
     fused V-cycle and raises if the state lacks a level's fused operands;
-    otherwise ``lo_smoother`` (default ``PLDSO_MG_BF16=1``) runs every
-    smoother matvec through B2 and raises if the state lacks its bf16
-    operands.
+    otherwise ``lo_smoother`` (default ``PLDSO_MG_BF16=1``) runs the
+    smoother matvecs of every level whose state has bf16 operands through
+    B2, and those of the other levels through B1 (the JAX rule,
+    ``multigrid.py:496-499``).
     """
     if lo_smoother is None:
         lo_smoother = os.environ.get("PLDSO_MG_BF16") == "1"
@@ -448,16 +477,11 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
         return _mg_apply_fused(h, state, nu_at, coarse_degree, smooth_frac)
     radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
                               state["lmaxs"])
-    if lo_smoother:
-        auxs_lo = state.get("auxs_lo") or [None] * nL
-        if any(a is None for a in auxs_lo):
-            raise RuntimeError(
-                "lo_smoother requested but the state has no bf16 operands "
-                "(auxs_lo) on every level")
+    auxs_lo = state.get("auxs_lo") or [None] * nL
 
     def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
         lvl, rad, D, lmax = levels[level], radii[level], Ds[level], lmaxs[level]
-        if lo_smoother:
+        if lo_smoother and auxs_lo[level] is not None:
             Af = lambda u: lvl.A_aux_lo(u, auxs_lo[level])
         else:
             Af = lambda u: lvl.A_aux(u, rad, auxs[level])
@@ -476,3 +500,17 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
         return vcycle(0, r)
 
     return M
+
+
+def mg_preconditioner(h: dict, radius_field: torch.Tensor, nu=2,
+                      coarse_degree: int = 24, smooth_frac: float = 0.25,
+                      power_iters: int = 10) -> Callable:
+    """Symmetric V(nu,nu)-cycle preconditioner M(r) for PCG, its state
+    derived from ``radius_field`` once per call (JAX
+    ``multigrid.mg_preconditioner``).  The radii are detached: a
+    preconditioner never moves the fixed point."""
+    with torch.no_grad():
+        state = mg_precond_state(h, radius_field.detach(),
+                                 power_iters=power_iters)
+    return mg_apply(h, state, nu=nu, coarse_degree=coarse_degree,
+                    smooth_frac=smooth_frac)

@@ -18,10 +18,10 @@ CUDA tensor, the gather form on a CPU tensor.
 
 Scope of this module: uniform cell size, no penalization; single-geometry
 and hybrid (superposed multi-geometry) templates, erased cells and
-node-granular trimming.  Warped lattices (``node_transform``), the scatter
-matvec, a custom objective, imposed displacements, the implicit-gradient
-path and the batched step raise ``NotImplementedError`` (ROADMAP.md, queue A
-"deferred features").
+node-granular trimming; the step with every objective, imposed
+displacements and gradient form of the JAX package.  Warped lattices
+(``node_transform``) raise ``NotImplementedError`` (ROADMAP.md, queue A),
+and the scatter matvec is not ported.
 """
 
 from __future__ import annotations
@@ -431,6 +431,46 @@ class StructuredLattice:
         class_sides = [[i for i, r in enumerate(recs) if r["cs"] == c]
                        for c in range(self.nc)]
 
+        t_s, a1_s, a2_s = fr[:, 0], fr[:, 1], fr[:, 2]     # [n_s, 3, 1]
+        dot = lambda V, w: (V * w).sum(1)
+        o = lambda s_, w: s_[:, None] * w
+        cs_s = it("cs")
+        # side s adds its row at interior point p to r^2 position p + dr_s:
+        # the 3-D form of dr, -oa on side A and -ob on side B
+        r2_at = []
+        for r in recs:
+            e = self.edges[r["ei"]]
+            off = e["ob"] if r["side"] else e["oa"]
+            r2_at.append((r["ei"],) + tuple(
+                slice(1 - off[ax], 1 - off[ax] + self.grid[ax])
+                for ax in range(3)))
+
+        def _gather(u, r2ps):
+            """Per-side reads: self and other u [n_s, 6, N], r^2 [n_s, N]."""
+            up = F.pad(u, (1, 1, 1, 1, 1, 1)).reshape(self.nc * 6, -1)
+            r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]
+            return up[rows_s, q], up[rows_o, pos_o], r2
+
+        def _strains(uS, uO):
+            """The six generalized strains of every side [n_s, N]."""
+            d = sgn * (uO - uS)                          # uB - uA
+            du, dth = d[:, :3], d[:, 3:]
+            ths = uS[:, 3:] + uO[:, 3:]
+            return (dot(du, t_s) * invL_s,
+                    dot(du, a1_s) * invL_s - dot(ths, a2_s) * 0.5,
+                    dot(du, a2_s) * invL_s + dot(ths, a1_s) * 0.5,
+                    dot(dth, t_s) * invL_s,
+                    dot(dth, a1_s) * invL_s,
+                    dot(dth, a2_s) * invL_s)
+
+        def _rows(s0, s1, s2, s3, s4, s5):
+            """Force/moment row [n_s, 6, N] of every side from its section
+            forces."""
+            fu = o(s0, t_s) + o(s1, a1_s) + o(s2, a2_s)
+            msh = halfL_s * (o(s2, a1_s) - o(s1, a2_s))
+            mdf = o(s3, t_s) + o(s4, a1_s) + o(s5, a2_s)
+            return torch.cat([sgf * fu, msh + sgf * mdf], dim=1)
+
         def apply_gather(u, r2ps):
             """Gather-form K.u: every output point SUMS shifted reads.
 
@@ -445,33 +485,16 @@ class StructuredLattice:
             evaluated as one batch; each class then sums its sides in edge
             order, side A before side B — the order the B1 kernel keeps.
             """
-            up = F.pad(u, (1, 1, 1, 1, 1, 1)).reshape(self.nc * 6, -1)
-            uS = up[rows_s, q]                           # [n_s, 6, N]
-            uO = up[rows_o, pos_o]
-            r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]   # [n_s, N]
-            d = sgn * (uO - uS)                          # uB - uA
-            du, dth = d[:, :3], d[:, 3:]
-            ths = uS[:, 3:] + uO[:, 3:]
-            t, a1, a2 = fr[:, 0], fr[:, 1], fr[:, 2]     # [n_s, 3, 1]
-            dot = lambda V, w: (V * w).sum(1)
-            invL = invL_s
+            if u.is_cuda:
+                matvec.plain_calls += 1
+            uS, uO, r2 = _gather(u, r2ps)
+            e0, e1, e2, e3, e4, e5 = _strains(uS, uO)
             S = np.pi * r2
             I = np.pi * r2 * r2 / 4.0
             ES, kGS = E_mod * S, kappa * G_mod * S
             GJ, EI = 2.0 * G_mod * I, E_mod * I
-            e0 = dot(du, t) * invL
-            e1 = dot(du, a1) * invL - dot(ths, a2) * 0.5
-            e2 = dot(du, a2) * invL + dot(ths, a1) * 0.5
-            e3 = dot(dth, t) * invL
-            e4 = dot(dth, a1) * invL
-            e5 = dot(dth, a2) * invL
-            s0, s1, s2 = ES * e0, kGS * e1, kGS * e2
-            s3, s4, s5 = GJ * e3, EI * e4, EI * e5
-            o = lambda s, w: s[:, None] * w
-            fu = o(s0, t) + o(s1, a1) + o(s2, a2)
-            msh = halfL_s * (o(s2, a1) - o(s1, a2))
-            mdf = o(s3, t) + o(s4, a1) + o(s5, a2)
-            f_side = torch.cat([sgf * fu, msh + sgf * mdf], dim=1)
+            f_side = _rows(ES * e0, kGS * e1, kGS * e2, GJ * e3, EI * e4,
+                           EI * e5)
             acc = []
             for sides in class_sides:
                 a = torch.zeros_like(f_side[0])
@@ -479,6 +502,30 @@ class StructuredLattice:
                     a = a + f_side[i]
                 acc.append(a)
             return torch.stack(acc).reshape((self.nc, 6) + self.grid)
+
+        def apply_gather_vjp_r2(lam, u, r2ps):
+            """r^2-cotangent of sum(lam * apply_gather(u, r2ps)), in closed
+            form: each side's row with the section stiffnesses replaced by
+            their r^2-derivatives (dS/dr2 = pi, dI/dr2 = pi r2 / 2), dotted
+            with lam at the side's output point and added to the r^2
+            position the side read.  Sides are added one at a time, in
+            edge order (side A, then B), by slices: a fixed summation order
+            with no atomics, so repeats are bitwise equal.  Equal to
+            autograd of the gather form to rounding, at every position."""
+            uS, uO, r2 = _gather(u, r2ps)
+            e0, e1, e2, e3, e4, e5 = _strains(uS, uO)
+            dS = np.pi
+            dI = (np.pi / 2.0) * r2
+            dfs = _rows((E_mod * dS) * e0, (kappa * G_mod * dS) * e1,
+                        (kappa * G_mod * dS) * e2, (2.0 * G_mod) * dI * e3,
+                        E_mod * dI * e4, E_mod * dI * e5)
+            lamS = lam.reshape(self.nc, 6, N)[cs_s]          # [n_s, 6, N]
+            per_side = (lamS * dfs).sum(1).reshape((n_s,) + self.grid)
+            out = torch.zeros(r2ps.shape, dtype=r2ps.dtype,
+                              device=r2ps.device)
+            for i, at in enumerate(r2_at):
+                out[at] += per_side[i]
+            return out
 
         def diag(radius):
             r2s = _sections(radius)
@@ -530,7 +577,7 @@ class StructuredLattice:
                     + (0.5 * E_mod) * r2 * (e4 * e4 + e5 * e5)))
             return out
 
-        apply = StencilMatvec(self, apply_gather)
+        apply = StencilMatvec(self, apply_gather, apply_gather_vjp_r2)
         apply.fused = FusedSmoother(self, apply)
 
         def matvec(u, radius):
@@ -539,6 +586,10 @@ class StructuredLattice:
         matvec.prepare = prepare_gather
         matvec.apply = apply
         matvec.apply_gather = apply_gather
+        matvec.apply_gather_vjp_r2 = apply_gather_vjp_r2
+        # calls of the plain gather form on CUDA tensors (the smoke's
+        # references only: the operator itself runs B1 there)
+        matvec.plain_calls = 0
         matvec.sections = _sections
         matvec.energy_dr2 = energy_dr2
         return matvec, diag
@@ -551,48 +602,56 @@ def make_structured_compliance_step(slat: StructuredLattice,
                                     tol: float = 1e-6, maxiter: int = 4000,
                                     precond: str = "jacobi",
                                     mg_opts: Optional[dict] = None):
-    """Compliance and its gradient w.r.t. the per-cell radius field.
+    """Value and gradient of an objective w.r.t. the per-cell radius field.
 
     ``free_mask``: [nc, X, Y, Z] bool (free nodes) or [nc, 6, X, Y, Z]
     bool (free DOFs); ``f_ext``: [nc, 6, X, Y, Z] applied forces;
-    ``precond``: "jacobi" or "mg" (geometric multigrid V-cycle).  The
-    tensors live on ``slat.device`` in ``slat.dtype``.
+    ``u_imposed``: optional nonzero Dirichlet values; ``objective(u, f)``:
+    scalar functional (default: compliance sum(f * u)); ``precond``:
+    "jacobi" or "mg" (geometric multigrid V-cycle).  The tensors live on
+    ``slat.device`` in ``slat.dtype``.
 
-    Returns ``step(radius_field, u0=None, precond_state=None) -> (c, g, u)``
-    with the analytic self-adjoint gradient (no adjoint solve), and
-    ``step.precond_state(r)`` for a frozen multigrid state.  After each
-    call ``step.last_solve`` holds the CG iteration count, the recurrence
-    residual norm and the convergence flag.
+    Returns ``step(radius_field, u0=None, precond_state=None) -> (obj, g,
+    u)``, with the gradient chosen as the JAX package chooses it
+    (``structured.py:785-824``):
+
+    * analytic (the default for compliance with no imposed displacement):
+      the self-adjoint closed form, no adjoint solve;
+    * implicit (forced by a custom objective or ``u_imposed``, selected by
+      ``PLDSO_GRAD=implicit`` otherwise): autograd through
+      ``fem.solve.custom_linear_solve``, one warm-started adjoint CG, and
+      B1's VJP for the operator's r^2-dependence;
+    * ``PLDSO_SELFADJOINT=1`` (the legacy switch, compliance only):
+      self-adjoint, with autograd through ``prepare`` and B1's VJP.
+
+    ``step.precond_state(r)`` gives a frozen multigrid state;
+    ``step.raw(radius_field, free, f, u0)`` is the differentiable
+    ``(obj, u)``; ``step.batch(radius_fields)`` the value and gradient of
+    each of ``[B, ...]`` candidates (cold solves).  After each call
+    ``step.last_solve`` holds the forward solve's CG iteration count,
+    recurrence residual norm and convergence flag, and
+    ``step.last_adjoint`` the adjoint solve's (None when there was none).
     """
-    from ..fem.solve import pcg
+    from ..fem.solve import custom_linear_solve, pcg
 
-    if u_imposed is not None:
-        raise NotImplementedError(
-            "u_imposed is not ported yet: ROADMAP.md queue A, deferred "
-            "feature 'u_imposed/objective'")
-    if objective is not None:
-        raise NotImplementedError(
-            "a custom objective is not ported yet: ROADMAP.md queue A, "
-            "deferred feature 'u_imposed/objective'")
-    if os.environ.get("PLDSO_GRAD", "analytic") != "analytic" \
-            or os.environ.get("PLDSO_SELFADJOINT") == "1":
-        raise NotImplementedError(
-            "only the analytic self-adjoint gradient is ported: "
-            "ROADMAP.md queue A, deferred feature 'implicit gradient'")
     if precond not in ("jacobi", "mg"):
         raise ValueError(f"unknown precond {precond!r}: use 'jacobi' or 'mg'")
 
     matvec, diag_fn = slat.make_matvec()
     dev = torch.device(slat.device)
     dt = slat.dtype
+    tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
     free_mask = np.asarray(free_mask)
     if free_mask.ndim == 4:            # per-node -> per-DOF
         free_mask = free_mask[:, None]
     f_shape = np.shape(f_ext)
-    free = torch.as_tensor(
-        np.ascontiguousarray(np.broadcast_to(free_mask, f_shape), np.float64),
-        dtype=dt, device=dev)
-    f = torch.as_tensor(np.asarray(f_ext), dtype=dt, device=dev)
+    free = tens(np.ascontiguousarray(np.broadcast_to(free_mask, f_shape),
+                                     np.float64))
+    f = tens(f_ext)
+    u_imp = torch.zeros_like(f) if u_imposed is None else tens(u_imposed)
+    default_objective = objective is None
+    if objective is None:
+        objective = lambda u, f_: torch.sum(f_ * u)
 
     opts = dict(mg_opts or {})
     power = opts.pop("power_iters", 10)
@@ -601,32 +660,89 @@ def make_structured_compliance_step(slat: StructuredLattice,
         from .multigrid import build_mg_hierarchy
         mg_hier = build_mg_hierarchy(slat, np.broadcast_to(free_mask, f_shape))
 
-    def _solve(radius_field, u0, pstate):
+    solves = []                        # this call's solves, in order
+    # the fused V-cycle's smoothers scale by free / D, so its M is zero on
+    # the non-free DOFs: CG preconditioned by it can never reduce a residual
+    # there, which a nonzero u_imposed puts into the forward rhs (the JAX
+    # package's fused route stalls at |(1 - free) b| / |b| then).  A is the
+    # identity on those DOFs, so on this route the solve takes them
+    # straight from the rhs and runs CG on the free part alone: the same
+    # fixed point, for the forward and the adjoint solve alike.
+    fused = mg_hier is not None and (
+        opts["fused"] if opts.get("fused") is not None
+        else os.environ.get("PLDSO_MG_FUSED", "") in ("1", "force"))
+
+    def _preconditioner(radius_field, free, pstate):
+        # the preconditioner never moves the fixed point: detached radii.
+        # ``pstate`` may carry a FROZEN earlier design's state
+        r = radius_field.detach()
+        with torch.no_grad():
+            if mg_hier is not None:
+                from .multigrid import mg_apply, mg_precond_state
+                if pstate is None:
+                    pstate = mg_precond_state(mg_hier, r, power_iters=power,
+                                              fused=opts.get("fused"))
+                return mg_apply(mg_hier, pstate, **opts)
+            dg = free * diag_fn(r) + (1.0 - free)
+            dg = torch.where(dg == 0, torch.ones_like(dg), dg)
+            return lambda r_: r_ / dg
+
+    def _solve(radius_field, free, f, u0, pstate=None):
         aux = matvec.prepare(radius_field)
         K = lambda u: matvec.apply(u, aux)
 
         def A(u):
             return free * K(free * u) + (1.0 - free) * u
 
-        b = free * f
-        if mg_hier is not None:
-            from .multigrid import mg_apply, mg_precond_state
-            # ``pstate`` may carry a FROZEN earlier design's state; the
-            # preconditioner only moves convergence, never the fixed point
-            if pstate is None:
-                pstate = mg_precond_state(mg_hier, radius_field,
-                                          power_iters=power,
-                                          fused=opts.get("fused"))
-            M = mg_apply(mg_hier, pstate, **opts)
-        else:
-            dg = free * diag_fn(radius_field) + (1.0 - free)
-            dg = torch.where(dg == 0, torch.ones_like(dg), dg)
-            M = lambda r_: r_ / dg
-        res = pcg(A, b, M=M, x0=u0 * free, maxiter=maxiter, tol=tol)
-        step.last_solve = {"iterations": res.iterations,
+        b = free * f if u_imposed is None \
+            else free * (f - K(u_imp)) + (1.0 - free) * u_imp
+        M = _preconditioner(radius_field, free, pstate)
+        x0 = u0.detach() * free
+
+        def solve_fn(mv, rhs):
+            # the warm start moves convergence only, not the fixed point,
+            # so the implicit gradient stays exact; the adjoint solve
+            # starts from it too, as in JAX
+            res = pcg(mv, free * rhs if fused else rhs, M=M, x0=x0,
+                      maxiter=maxiter, tol=tol)
+            solves.append({"iterations": res.iterations,
                            "residual_norm": res.residual_norm,
-                           "converged": res.converged}
-        return free * res.x
+                           "converged": res.converged})
+            return res.x + (1.0 - free) * rhs if fused else res.x
+
+        u = custom_linear_solve(A, b, solve_fn)
+        return free * u + (1.0 - free) * u_imp
+
+    def raw(radius_field, free, f, u0, pstate=None):
+        """The differentiable (objective, u) of one design."""
+        u = _solve(radius_field, free, f, u0, pstate)
+        return objective(u, f), u
+
+    def _vag(r, u0, pstate=None):
+        rf = r.detach().requires_grad_(True)
+        with torch.enable_grad():
+            obj, u = raw(rf, free, f, u0, pstate)
+            (g,) = torch.autograd.grad(obj, rf)
+        return obj.detach(), g, u.detach()
+
+    # gradient form, as the JAX package selects it
+    sa_eligible = default_objective and u_imposed is None
+    grad_mode = os.environ.get("PLDSO_GRAD", "analytic")
+    selfadjoint = sa_eligible and os.environ.get("PLDSO_SELFADJOINT") == "1"
+    analytic = sa_eligible and not selfadjoint and grad_mode == "analytic"
+
+    def _sa_step(r, u0):
+        """Legacy self-adjoint form: g = -d(uf^T K(r) uf)/dr by autograd
+        through ``prepare`` and B1's VJP."""
+        with torch.no_grad():
+            u = _solve(r.detach(), free, f, u0)
+            c = torch.sum(f * u)
+        uf = free * u
+        rf = r.detach().requires_grad_(True)
+        with torch.enable_grad():
+            q = torch.sum(uf * matvec.apply(uf, matvec.prepare(rf)))
+            (g,) = torch.autograd.grad(q, rf)
+        return c, -g, u
 
     def _analytic_grad(radius_field, uf):
         with torch.no_grad():
@@ -640,20 +756,36 @@ def make_structured_compliance_step(slat: StructuredLattice,
             (g,) = torch.autograd.grad(tot, rf)
         return -g
 
+    def _sa_analytic(r, u0, pstate=None):
+        with torch.no_grad():
+            u = _solve(r.detach(), free, f, u0, pstate)
+            c = torch.sum(f * u)
+        return c, _analytic_grad(r, free * u), u
+
+    def _u0(u0):
+        return torch.zeros_like(f) if u0 is None \
+            else torch.as_tensor(u0, dtype=dt, device=dev)
+
     def step(radius_field, u0=None, precond_state=None):
-        """Returns (compliance, grad, u); pass the previous step's u as
-        ``u0`` to warm-start the solve, and ``precond_state`` (from
+        """Returns (objective, grad, u); pass the previous step's u as
+        ``u0`` to warm-start the solves, and ``precond_state`` (from
         ``step.precond_state(r)``) to freeze the multigrid state across
         steps — the solve fixed point is unaffected."""
         r = torch.as_tensor(radius_field, dtype=dt, device=dev)
-        with torch.no_grad():
-            u0 = torch.zeros_like(f) if u0 is None \
-                else torch.as_tensor(u0, dtype=dt, device=dev)
-            ps = precond_state if mg_hier is not None else None
-            u = _solve(r, u0, ps)
-            c = torch.sum(f * u)
-        g = _analytic_grad(r, free * u)
-        return c, g, u
+        u0 = _u0(u0)
+        solves.clear()
+        if precond_state is not None and mg_hier is not None:
+            out = _sa_analytic(r, u0, precond_state) if analytic \
+                else _vag(r, u0, precond_state)
+        elif analytic:
+            out = _sa_analytic(r, u0)
+        elif selfadjoint:
+            out = _sa_step(r, u0)
+        else:
+            out = _vag(r, u0)
+        step.last_solve = solves[0]
+        step.last_adjoint = solves[1] if len(solves) > 1 else None
+        return out
 
     if mg_hier is not None:
         from .multigrid import mg_precond_state as _mps
@@ -666,13 +798,28 @@ def make_structured_compliance_step(slat: StructuredLattice,
         step.precond_state = precond_state
 
     def step_batch(radius_fields):
-        raise NotImplementedError(
-            "step.batch is not ported yet: ROADMAP.md queue A, deferred "
-            "feature 'step.batch'")
+        """Value and gradient of each design candidate (``[B, Nx, Ny,
+        Nz]`` radii), cold-started, by the implicit form; (obj [B],
+        grad [B, ...]).  JAX vmaps the same value-and-grad, whose
+        while-loop freezes each converged lane: one solve per candidate
+        gives the same result."""
+        rs = torch.as_tensor(radius_fields, dtype=dt, device=dev)
+        cs, gs = [], []
+        for rb in rs:
+            solves.clear()
+            c, g, _u = _vag(rb, torch.zeros_like(f))
+            cs.append(c)
+            gs.append(g)
+        return torch.stack(cs), torch.stack(gs)
 
     step.batch = step_batch
+    step.raw = raw
     step.operands = (free, f)
+    step._operands = step.operands      # the JAX step's name for them
     step.matvec = matvec
     step.hierarchy = mg_hier
+    step.grad_form = ("analytic" if analytic
+                      else "selfadjoint" if selfadjoint else "implicit")
     step.last_solve = None
+    step.last_adjoint = None
     return step

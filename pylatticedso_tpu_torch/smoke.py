@@ -15,6 +15,13 @@ compliance gradient for every cell radius.  Its routes (``ROUTES``):
   the unfused V-cycle with every smoother matvec in B2;
 * ``f32``: the library default, the unfused f32 V-cycle (B1 everywhere).
 
+Beside them, the design-gradient step (the implicit adjoint through B1's
+VJP) runs its three paths (``design_phase``): (a) float64 implicit against
+analytic compliance gradients, (b) float64 displacement objective with an
+imposed displacement against a central finite difference, (c) the same
+problem in float32 on the fused bf16 route under bench.py's protocol.  The
+probes P1 and P2 run through their own entry (``probes.main``).
+
 ``run(device, n)`` runs every phase and returns a report; it raises on the
 first failure.  ``chip_smoke.py`` calls it with ``device="cuda"``, n = 50;
 the CPU tests rehearse it at n = 4, where each wrapper runs its plain
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import probes
 from .fem.solve import pcg
 from .kernels import build
 from .kernels.fused import KERNELS as FUSED_KERNELS
@@ -57,7 +65,22 @@ E_MOD, NU = 1013.0, 0.3
 # operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_F64_PER_S = 34e12       # float64 outside the tensor cores
 KERNEL_REL_TOL = 1e-5        # summation order differs from the plain form
+KERNEL_F64_TOL = 1e-12       # B1<double> against the float64 gather form
+# B1's VJP against autograd of the plain gather form, per cotangent
+VJP_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# design-gradient gates: (a) implicit vs analytic g, (b) directional
+# derivative vs central difference, (c) float32 fused g vs (b)'s float64 g
+IMPLICIT_VS_ANALYTIC_TOL = 1e-6
+FD_TOL = 1e-5
+FUSED_VS_F64_TOL = 1e-3
+DESIGN_TOL64 = 1e-10         # CG tol of path (a)
+# CG tol of path (b): its gradient and both difference solves.  The
+# difference quotient divides the solves' error by 2 h, so they are held
+# two orders tighter than (a)'s
+FD_SOLVE_TOL = 1e-12
+IMPOSED_X = 1e-3             # prescribed X displacement of the clamped face
 # kernel vs plain, relative to the plain result's largest value: float32
 # storage as tests/test_stencil_pallas.py (residual 1e-5, Chebyshev 2e-5),
 # bf16 storage 1e-2 as the CPU parity tests (both sides take the same bf16
@@ -162,9 +185,9 @@ def build_phase(device: torch.device) -> Dict:
             "ptxas": dict(build.build_log)}
 
 
-def _bound_of(work) -> Dict:
+def _bound_of(work, peak_ops: float = PEAK_F32_PER_S) -> Dict:
     nbytes, ops = work
-    tb, to = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+    tb, to = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return {"bytes": nbytes, "ops": ops, "bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations"}
 
@@ -248,7 +271,7 @@ def _err(got, want):
         got, want = (got,), (want,)
     a = r = 0.0
     for g, w in zip(got, want):
-        g, w = g.to(torch.float32), w.to(torch.float32)
+        g, w = g.to(torch.float64), w.to(torch.float64)
         e = float((g - w).abs().max())
         a = max(a, e)
         r = max(r, e / max(float(w.abs().max()), 1e-30))
@@ -385,25 +408,34 @@ def _route_step(n: int, device, route: str, tol: float, maxiter: int):
 
 def _counters(step) -> Dict[str, List]:
     """Per kernel, per MG level, the wrappers whose launches count there
-    (the outer CG matvec is the fine level's operator too)."""
+    (the outer CG matvec is the fine level's operator too), and the
+    operators whose plain gather-form calls are counted."""
     levels = step.hierarchy["levels"]
     mvs = [[step.matvec.apply, levels[0].matvec.apply]] \
         + [[lvl.matvec.apply] for lvl in levels[1:]]
-    return {"levels": levels, "mvs": mvs}
+    ops = [step.matvec] + [lvl.matvec for lvl in levels]
+    return {"levels": levels, "mvs": mvs, "ops": ops}
+
+
+# launch counters of the stencil wrapper, by the kernel tag they count
+_STENCIL_COUNTERS = {"B1": "launches", "B1f64": "launches_f64",
+                     "VJP": "launches_vjp", "B2": "launches_lo"}
 
 
 def _zero(ctr) -> None:
     for ws in ctr["mvs"]:
         for w in ws:
-            w.launches = 0
-            w.launches_lo = 0
+            for attr in _STENCIL_COUNTERS.values():
+                setattr(w, attr, 0)
             for k in w.fused.launches:
                 w.fused.launches[k] = 0
+    for op in ctr["ops"]:
+        op.plain_calls = 0
 
 
 def _read(ctr) -> Dict[str, List[int]]:
-    out = {"B1": [sum(w.launches for w in ws) for ws in ctr["mvs"]],
-           "B2": [sum(w.launches_lo for w in ws) for ws in ctr["mvs"]]}
+    out = {tag: [sum(getattr(w, attr) for w in ws) for ws in ctr["mvs"]]
+           for tag, attr in _STENCIL_COUNTERS.items()}
     for tag, key in (("B3", "residual"), ("B4", "cheb_run"),
                      ("B5", "cheb_full")):
         out[tag] = [sum(w.fused.launches[key] for w in ws)
@@ -411,12 +443,19 @@ def _read(ctr) -> Dict[str, List[int]]:
     return out
 
 
+def _plain_calls(ctr) -> int:
+    return sum(op.plain_calls for op in ctr["ops"])
+
+
 def _check_launches(route: str, counts: Dict[str, List[int]],
-                    single: List[bool]) -> None:
+                    single: List[bool], implicit: bool = False,
+                    f64: bool = False) -> None:
     """Every kernel the route runs was launched on every level it runs
-    on, and no kernel of another route was launched."""
+    on, and no kernel of another route was launched.  ``implicit``: the
+    r^2-cotangent kernel of B1's VJP runs on the fine level;  ``f64``: B1
+    is its float64 instance."""
     nL = len(single)
-    want = {"B1": [True] * nL}
+    want = {"B1f64" if f64 else "B1": [True] * nL}
     if route == "fused":
         # the mid-cycle residual runs on every level but the coarsest
         want["B3"] = [lvl < nL - 1 for lvl in range(nL)]
@@ -424,6 +463,8 @@ def _check_launches(route: str, counts: Dict[str, List[int]],
         want["B5"] = list(single)
     elif route == "lo":
         want["B2"] = [True] * nL
+    if implicit:
+        want["VJP"] = [lvl == 0 for lvl in range(nL)]
     for k, per_level in counts.items():
         expect = want.get(k, [False] * nL)
         for lvl, (c, e) in enumerate(zip(per_level, expect)):
@@ -582,17 +623,384 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
     return report
 
 
+def kernel64_phase(device: torch.device, n: int, seed: int = 2) -> List[Dict]:
+    """B1's float64 instance against the float64 gather form at every
+    multigrid level's grid of the main path (limit KERNEL_F64_TOL,
+    relative to the plain result's largest value)."""
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for geom, cells, h, label, lvl in _grids(n):
+        if lvl is None:
+            continue
+        sl = StructuredLattice(geom, (cells,) * 3, (h, h, h), E_MOD, NU,
+                               dtype=torch.float64, device=device)
+        mv, _ = sl.make_matvec()
+        u = torch.randn((sl.nc, 6) + sl.grid, generator=gen, device=device,
+                        dtype=torch.float64)
+        r = 0.04 + 0.05 * torch.rand((cells,) * 3, generator=gen,
+                                     device=device, dtype=torch.float64)
+        r2p = mv.prepare(r)
+        y_plain = mv.apply_gather(u, r2p)
+        y = mv.apply(u, r2p)
+        _sync(device)
+        abs_err, rel_err = _err(y, y_plain)
+        if not rel_err <= KERNEL_F64_TOL:
+            raise AssertionError(f"B1<double> disagrees with its plain "
+                                 f"version on {label}: rel err "
+                                 f"{rel_err:.3e} > {KERNEL_F64_TOL}")
+        rec = {"case": label, "grid": list(sl.grid), "max_abs_err": abs_err,
+               "max_rel_err": rel_err,
+               **_bound_of(mv.apply.work(itemsize=8), PEAK_F64_PER_S)}
+        if cuda:
+            up = F.pad(u, PAD)
+            rec["ms"] = _median_ms(lambda: mv.apply.launch(up, r2p), device,
+                                   reps=7, batch=20)
+            rec["plain_ms"] = _median_ms(lambda: mv.apply_gather(u, r2p),
+                                         device, reps=3, batch=2)
+        else:
+            rec["ms"] = None
+            rec["plain_ms"] = _median_ms(lambda: mv.apply_gather(u, r2p),
+                                         device, reps=1)
+        out.append(rec)
+    return out
+
+
+def vjp_phase(device: torch.device, n: int, seed: int = 3) -> List[Dict]:
+    """B1's VJP at the fine grid, float32 and float64: the u- and
+    r^2-cotangents of ``backward()`` through ``apply`` against torch
+    autograd of the plain gather form (limits VJP_TOL, each relative to its
+    largest value), with B1 and the r^2-cotangent kernel launched during
+    the backward.  Times: the r^2-cotangent kernel, its plain closed form,
+    and the autograd of the gather form it replaces."""
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for dt in (torch.float32, torch.float64):
+        sl = StructuredLattice("Octet", (n,) * 3, (1.0,) * 3, E_MOD, NU,
+                               dtype=dt, device=device)
+        mv, _ = sl.make_matvec()
+        B = mv.apply
+        shape = (sl.nc, 6) + sl.grid
+        u = torch.randn(shape, generator=gen, device=device, dtype=dt)
+        g = torch.randn(shape, generator=gen, device=device, dtype=dt)
+        r = 0.04 + 0.05 * torch.rand((n,) * 3, generator=gen, device=device,
+                                     dtype=dt)
+        r2p = mv.prepare(r)
+
+        def reference():
+            uq = u.clone().requires_grad_(True)
+            rq = r2p.clone().requires_grad_(True)
+            with torch.enable_grad():
+                return torch.autograd.grad(mv.apply_gather(uq, rq), (uq, rq),
+                                           g)
+
+        want = reference()
+        uq = u.clone().requires_grad_(True)
+        rq = r2p.clone().requires_grad_(True)
+        with torch.enable_grad():
+            y = B(uq, rq)
+        attr = "launches_f64" if dt == torch.float64 else "launches"
+        before = (getattr(B, attr), B.launches_vjp)
+        y.backward(g)
+        _sync(device)
+        rose = (getattr(B, attr) - before[0], B.launches_vjp - before[1])
+        if cuda and rose != (1, 1):
+            raise AssertionError(f"B1's backward launched (B1, r^2-cotangent)"
+                                 f" {rose} times, expected (1, 1)")
+        errs = [_err(a, b) for a, b in zip((uq.grad, rq.grad), want)]
+        tol = VJP_TOL[dt]
+        label = f"Octet {n}^3 {'f64' if dt == torch.float64 else 'f32'}"
+        for what, (_a, rel) in zip(("u", "r^2"), errs):
+            if not rel <= tol:
+                raise AssertionError(f"B1's VJP {what}-cotangent on {label}:"
+                                     f" rel err {rel:.3e} > {tol}")
+        item = torch.finfo(dt).bits // 8
+        peak = PEAK_F64_PER_S if dt == torch.float64 else PEAK_F32_PER_S
+        rec = {"case": label, "launches_in_backward": list(rose),
+               "max_abs_err": max(a for a, _ in errs),
+               "max_rel_err": max(r_ for _, r_ in errs),
+               "u_rel_err": errs[0][1], "r2_rel_err": errs[1][1], "tol": tol,
+               **_bound_of(B.vjp_work(itemsize=item), peak)}
+        plain = lambda: B.plain_vjp_r2(g, u, r2p)
+        if cuda:
+            up, gp = F.pad(u, PAD), F.pad(g, PAD)
+            rec["ms"] = _median_ms(lambda: B.launch_vjp(up, gp, r2p), device,
+                                   reps=7, batch=20)
+            rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=2)
+            rec["autograd_ms"] = _median_ms(reference, device, reps=3,
+                                            batch=1)
+        else:
+            rec["ms"] = rec["autograd_ms"] = None
+            rec["plain_ms"] = _median_ms(plain, device, reps=1)
+        out.append(rec)
+    return out
+
+
+def probe_phase(device: torch.device) -> Dict:
+    """P1 (both kinds) and P2 bitwise against their plain versions, timed
+    (P2 beside ``torch.mul``, the one PyTorch call that computes it), then
+    the probes' own entry driven with the counts zeroed just before it and
+    read just after."""
+    cuda = device.type == "cuda"
+    xs = probes.inputs(device)
+    cases = []
+    for kind in ("1d", "2d"):
+        x = xs["chain"]
+        got, want = probes.chain(x, kind), probes.plain_chain(x, kind)
+        _sync(device)
+        if not torch.equal(got, want):
+            raise AssertionError(f"P1 ({kind}) is not bitwise equal to its "
+                                 f"plain version")
+        nbytes = 2 * x.numel() * 4
+        rec = {"kernel": "P1", "case": kind, "max_abs_err": 0.0,
+               "max_rel_err": 0.0, "flops": probes.flops(kind),
+               **_bound_of((nbytes, probes.flops(kind)))}
+        if cuda:
+            rec["ms"] = _median_ms(lambda: probes.chain(x, kind), device,
+                                   reps=7, batch=10)
+            rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
+                                         device, reps=3, batch=2)
+            rec["gflops"] = probes.flops(kind) / rec["ms"] / 1e6
+        else:
+            rec["ms"] = rec["gflops"] = None
+            rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
+                                         device, reps=1)
+        rec["library_ms"] = None
+        cases.append(rec)
+    x = xs["scale"]
+    got = probes.scale(x)
+    _sync(device)
+    if not torch.equal(got, probes.plain_scale(x)):
+        raise AssertionError("P2 is not bitwise equal to x * 2")
+    rec = {"kernel": "P2", "case": "8x128", "max_abs_err": 0.0,
+           "max_rel_err": 0.0, **_bound_of((2 * x.numel() * 4, x.numel()))}
+    if cuda:
+        rec["ms"] = _median_ms(lambda: probes.scale(x), device, reps=7,
+                               batch=50)
+        rec["plain_ms"] = _median_ms(lambda: probes.plain_scale(x), device,
+                                     reps=7, batch=50)
+        rec["library_ms"] = _median_ms(lambda: torch.mul(x, 2.0), device,
+                                       reps=7, batch=50)
+    else:
+        rec["ms"] = rec["library_ms"] = None
+        rec["plain_ms"] = _median_ms(lambda: probes.plain_scale(x), device,
+                                     reps=1)
+    cases.append(rec)
+    # the probes' main path: their entry point, as a user runs it
+    for k in probes.launches:
+        probes.launches[k] = 0
+    if cuda:
+        with contextlib.redirect_stdout(None):
+            rc = probes.main(["--device", str(device)])
+        if rc != 0:
+            raise AssertionError(f"the probes' entry exited {rc}")
+    entry = dict(probes.launches)
+    if cuda and not all(v > 0 for v in entry.values()):
+        raise AssertionError(f"the probes' entry launched {entry}")
+    return {"cases": cases, "launches": entry}
+
+
+# ------------------------------------------------------ design gradient
+def _design_problem(n: int, device, dtype):
+    """The bench's lattice and load with a prescribed X displacement of
+    IMPOSED_X on the clamped face, and the objective "max" of the top
+    face's mean Z displacement (the JAX optimizer's displacement objective
+    s * sum(sel * u) with s = -1, ``opti/structured_optimizer.py:100-107``)."""
+    sl, free, f = _bench_problem(n, device, dtype)
+    fixed = sl.select_nodes(lambda x, y, z: z == 0.0)
+    top = sl.select_nodes(lambda x, y, z: z == float(n))
+    u_imp = np.zeros_like(f)
+    sel = np.zeros_like(f)
+    n_top = int(top.sum())
+    for c in range(sl.nc):
+        u_imp[c, 0][fixed[c]] = IMPOSED_X
+        sel[c, 2][top[c]] = 1.0 / n_top
+    sel_t = torch.as_tensor(sel, dtype=dtype, device=device)
+    objective = lambda u, f_: -torch.sum(sel_t * u)
+    return sl, free, f, u_imp, objective
+
+
+def _design_step(n, device, dtype, route, tol, maxiter, grad=None,
+                 displacement=True):
+    """(step, lattice) of the design problem on ``route`` (the f32 V-cycle
+    at float64, where the hierarchy has no bf16 operands)."""
+    sl, free, f, u_imp, obj = _design_problem(n, device, dtype)
+    kw = dict(u_imposed=u_imp, objective=obj) if displacement else {}
+    env = {} if grad is None else {"PLDSO_GRAD": grad}
+    with _env(**env):
+        step = make_structured_compliance_step(
+            sl, free, f, tol=tol, maxiter=maxiter, precond="mg",
+            mg_opts=dict(MG_OPTS, **ROUTES[route]), **kw)
+    return step, sl
+
+
+def _solves(step) -> Dict:
+    """CG iterations of the last call's forward and adjoint solves."""
+    adj = step.last_adjoint
+    return {"forward": step.last_solve["iterations"],
+            "adjoint": None if adj is None else adj["iterations"]}
+
+
+def design_phase(device: torch.device, n: int, steps: int = 8,
+                 windows: int = 3, maxiter: int = 6000,
+                 fd_h: float = 1e-4, seed: int = 4) -> Dict:
+    """The design-gradient step at n^3 Octet on its three paths; each path's
+    launch counts are zeroed just before its drive and read just after."""
+    cuda = device.type == "cuda"
+    f64 = torch.float64
+    r64 = torch.full((n, n, n), 0.05, dtype=f64, device=device)
+    out = {}
+
+    # (a) float64: implicit against analytic compliance gradients
+    st_i, _ = _design_step(n, device, f64, "f32", DESIGN_TOL64, maxiter,
+                           grad="implicit", displacement=False)
+    st_a, _ = _design_step(n, device, f64, "f32", DESIGN_TOL64, maxiter,
+                           grad="analytic", displacement=False)
+    if (st_i.grad_form, st_a.grad_form) != ("implicit", "analytic"):
+        raise AssertionError(f"gradient forms {st_i.grad_form}, "
+                             f"{st_a.grad_form}")
+    ctr = _counters(st_i)
+    ps = st_i.precond_state(r64)
+    _zero(ctr)
+    t = time.perf_counter()
+    c_i, g_i, u_i = st_i(r64, None, ps)
+    _sync(device)
+    secs_i = time.perf_counter() - t
+    counts_a = _read(ctr)
+    it_i = _solves(st_i)
+    c_a, g_a, u_a = st_a(r64, None, ps)
+    it_an = _solves(st_a)
+    _abs, err_a = _err(g_i, g_a)
+    out["a"] = {"objective": float(c_i), "objective_analytic": float(c_a),
+                "grad_rel_err": err_a, "iterations": it_i,
+                "iterations_analytic": it_an, "step_s": secs_i,
+                "kernel_launches": counts_a}
+    if not err_a <= IMPLICIT_VS_ANALYTIC_TOL:
+        raise AssertionError(f"(a) implicit vs analytic g: rel err "
+                             f"{err_a:.3e} > {IMPLICIT_VS_ANALYTIC_TOL}")
+
+    # (b) float64 displacement objective with an imposed displacement,
+    # against a central difference along one seeded direction
+    st_b, _ = _design_step(n, device, f64, "f32", FD_SOLVE_TOL, maxiter)
+    ctr = _counters(st_b)
+    ps_b = st_b.precond_state(r64)
+    _zero(ctr)
+    t = time.perf_counter()
+    c_b, g_b, u_b = st_b(r64, None, ps_b)
+    _sync(device)
+    secs_b = time.perf_counter() - t
+    counts_b = _read(ctr)
+    it_b = _solves(st_b)
+    # a seeded random direction of positive entries, a relative change of
+    # 0.5-1.5 of each radius: a direction of random signs makes g.v a sum
+    # that cancels to ~1/sqrt(cells) of its terms, and the check then
+    # measures that cancellation instead of the gradient
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = r64 * (0.5 + torch.rand((n,) * 3, generator=gen, device=device,
+                                dtype=f64))
+    free_b, f_b = st_b.operands
+    with torch.no_grad():
+        j_p, _ = st_b.raw(r64 + fd_h * v, free_b, f_b, u_b, ps_b)
+        j_m, _ = st_b.raw(r64 - fd_h * v, free_b, f_b, u_b, ps_b)
+    fd = float(j_p - j_m) / (2.0 * fd_h)
+    dd = float(torch.sum(g_b * v))
+    err_b = abs(fd - dd) / abs(dd)
+    out["b"] = {"objective": float(c_b), "directional": dd,
+                "finite_difference": fd, "fd_h": fd_h, "fd_rel_err": err_b,
+                "iterations": it_b, "step_s": secs_b,
+                "kernel_launches": counts_b}
+    if not err_b <= FD_TOL:
+        raise AssertionError(f"(b) g.v {dd:.9e} vs central difference "
+                             f"{fd:.9e}: rel err {err_b:.3e} > {FD_TOL}")
+    for path, counts in (("a", counts_a), ("b", counts_b)):
+        if cuda:
+            _check_launches("f32", counts,
+                            [lvl.fused.single_ok for lvl in ctr["levels"]],
+                            implicit=True, f64=True)
+
+    # (c) float32, the bench's fused bf16 route, the same problem as (b)
+    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
+        out["c"] = _design_fused(device, n, steps, windows, maxiter, g_b)
+    return out
+
+
+def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
+    st, sl = _design_step(n, device, torch.float32, "fused", 1e-6, maxiter)
+    ctr = _counters(st)
+    levels = ctr["levels"]
+    single = [lvl.fused.single_ok for lvl in levels]
+    r0 = torch.full((n, n, n), 0.05, dtype=torch.float32, device=device)
+    _zero(ctr)
+    t = time.perf_counter()
+    pstate = st.precond_state(r0)
+    c, g, u = st(r0, None, pstate)
+    _sync(device)
+    cold_s = time.perf_counter() - t
+    cold = _solves(st)
+    st(r0 * 1.0005, None, pstate)
+    c_b, g_b, u_b = st(r0, None, pstate)
+    _sync(device)
+    same = lambda a, b: a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    bitwise = same(c, c_b) and same(g, g_b) and same(u, u_b)
+    # descent steps of a relative size ~1e-3 at the largest gradient entry
+    lr = 5e-5 / float(g.abs().max())
+    window_s, iters = [], []
+    for rep in range(windows):
+        rr = r0 * (1.0 + 1e-3 * (rep + 1))
+        uu = u
+        _sync(device)
+        t1 = time.perf_counter()
+        for k in range(steps):
+            cc, gg, uu = st(rr, uu, pstate)
+            iters.append(_solves(st))
+            rr = torch.clamp(rr - lr * gg, 0.01, 0.1)
+        _sync(device)
+        window_s.append(time.perf_counter() - t1)
+    counts = _read(ctr)
+    plain_calls = _plain_calls(ctr)
+    _abs, g_err = _err(g.to(torch.float64), g_ref)
+    finite = bool(torch.isfinite(cc) and torch.isfinite(gg).all()
+                  and torch.isfinite(uu).all())
+    rep = {"objective": float(c), "grad_rel_err_vs_f64": g_err,
+           "bitwise": bitwise, "finite": finite, "cold_step_s": cold_s,
+           "cold_iterations": cold, "warm_iterations": iters,
+           "window_s": window_s, "s_per_step": min(window_s) / steps,
+           "single_levels": single, "kernel_launches": counts,
+           "plain_gather_calls": plain_calls}
+    if not finite:
+        raise AssertionError(f"(c) non-finite result: {rep}")
+    if not bitwise:
+        raise AssertionError("(c) two identical steps differ bitwise in "
+                             "obj, g or u")
+    if not g_err <= FUSED_VS_F64_TOL:
+        raise AssertionError(f"(c) float32 fused g vs float64 g: rel err "
+                             f"{g_err:.3e} > {FUSED_VS_F64_TOL}")
+    if device.type == "cuda":
+        _check_launches("fused", counts, single, implicit=True)
+        if plain_calls:
+            raise AssertionError(f"(c) the plain gather form ran "
+                                 f"{plain_calls} times as an operator")
+    return rep
+
+
 def profile_phase(device: torch.device, n: int, route: str = "f32",
                   steps: int = 2) -> Dict:
     """Device time by kernel over ``steps`` warm-started steps of the main
     path on ``route`` (frozen state), from ``torch.profiler``: the busy
     share of the window's wall clock, the device events (kernels, copies,
     fills) per CG iteration and the kernels that take the most device time.
-    The profiler's own host cost lengthens the wall clock."""
+    ``route="design"`` profiles path (c) of ``design_phase`` (the fused
+    route's implicit displacement step), counting the forward and adjoint
+    iterations.  The profiler's own host cost lengthens the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
-        step, _, _ = _route_step(n, device, route, 1e-6, 6000)
+        if route == "design":
+            step, _ = _design_step(n, device, torch.float32, "fused", 1e-6,
+                                   6000)
+        else:
+            step, _, _ = _route_step(n, device, route, 1e-6, 6000)
         r = torch.full((n, n, n), 0.05, dtype=torch.float32, device=device)
         pstate = step.precond_state(r)
         _, _, u = step(r, None, pstate)
@@ -603,7 +1011,7 @@ def profile_phase(device: torch.device, n: int, route: str = "f32",
             t = time.perf_counter()
             for k in range(steps):
                 step(r * (1.0 + 1e-3 * (k + 1)), u, pstate)
-                iters.append(step.last_solve["iterations"])
+                iters.append(sum(v or 0 for v in _solves(step).values()))
             _sync(device)
             wall = time.perf_counter() - t
     rows = []
@@ -629,7 +1037,8 @@ def profile_phase(device: torch.device, n: int, route: str = "f32",
                     for k, ms, c in rows[:20]]}
 
 
-def _entry(name, source, replaces, launches, recs, head, per_level):
+def _entry(name, source, replaces, launches, recs, head, per_level,
+           library_ms=None):
     """One ``kernels`` entry: ``head``'s numbers (the main path's largest
     shape), the launches of the main path and the worst error over every
     case of the kernel."""
@@ -640,23 +1049,29 @@ def _entry(name, source, replaces, launches, recs, head, per_level):
         "max_rel_err": max(c["max_rel_err"] for c in recs),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "launches_per_level": per_level,
+        "library_ms": library_ms, "launches_per_level": per_level,
         "cases": [{k: c.get(k) for k in (
             "case", "storage", "variant", "ms", "ms_cold", "wrapper_ms",
-            "plain_ms", "bound_ms", "bound_by", "max_rel_err")}
-            for c in recs],
+            "plain_ms", "autograd_ms", "library_ms", "bound_ms", "bound_by",
+            "max_rel_err")} for c in recs],
     }
 
 
 def kernels_line(cases: List[Dict], fused_cases: List[Dict],
-                 mains: Dict[str, Dict]) -> List[Dict]:
-    """The ``kernels`` entries of B1-B5.  ``launches`` sums each kernel's
-    launches over the main-path routes (each read just after its route's
-    drive); the timed shape is the largest the main path gives it, in the
-    bench's bf16 storage."""
+                 mains: Dict[str, Dict], cases64: List[Dict],
+                 vjp_cases: List[Dict], probe: Dict,
+                 design: Dict) -> List[Dict]:
+    """The ``kernels`` entries of B1 (float32, float64, VJP), B2-B5, P1
+    and P2.  ``launches`` sums each kernel's launches over the main paths
+    (the three routes' compliance steps and the three design-gradient
+    paths, each read just after its drive; the probes' entry for P1 and
+    P2); the timed shape is the largest the main path gives the kernel, in
+    the bench's bf16 storage for B2-B5."""
+    runs = [mains[r]["kernel_launches"] for r in mains] \
+        + [design[p]["kernel_launches"] for p in ("a", "b", "c")]
+
     def launches(tag):
-        per = [mains[r]["kernel_launches"][tag] for r in mains]
-        return [sum(x) for x in zip(*per)]
+        return [sum(x) for x in zip(*[run[tag] for run in runs])]
 
     def of(tag):
         return [c for c in fused_cases if c["kernel"] == tag]
@@ -669,8 +1084,14 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
         raise AssertionError(f"no {tag} case")
 
     src = StencilMatvec.source
+    vjp32 = [c for c in vjp_cases if c["case"].endswith("f32")][0]
     out = [_entry(StencilMatvec.name, src, StencilMatvec.replaces,
                   sum(launches("B1")), cases, cases[0], launches("B1")),
+           _entry(StencilMatvec.name_f64, src, StencilMatvec.replaces,
+                  sum(launches("B1f64")), cases64, cases64[0],
+                  launches("B1f64")),
+           _entry(StencilMatvec.name_vjp, src, StencilMatvec.replaces_vjp,
+                  sum(launches("VJP")), vjp_cases, vjp32, launches("VJP")),
            _entry(StencilMatvec.name_lo, src, StencilMatvec.replaces_lo,
                   sum(launches("B2")), of("B2"), head("B2"),
                   launches("B2"))]
@@ -682,6 +1103,13 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
         out.append(_entry(name, FusedSmoother.source, replaces,
                           sum(launches(tag)), of(tag), head(tag, variant),
                           launches(tag)))
+    for tag, key in (("P1", "chain"), ("P2", "scale")):
+        recs = [c for c in probe["cases"] if c["kernel"] == tag]
+        name, replaces = probes.KERNELS[key]
+        out.append(_entry(name, probes.SOURCE, replaces,
+                          probe["launches"][key], recs, recs[-1],
+                          [probe["launches"][key]],
+                          library_ms=recs[-1]["library_ms"]))
     return out
 
 
@@ -732,6 +1160,37 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"({c['bound_by']}) [{card}]")
     budget.check("kernels B2-B5")
 
+    cases64 = kernel64_phase(dev, n)
+    for c in cases64:
+        log(f"B1<double> {c['case']}: rel err {c['max_rel_err']:.2e} (tol "
+            f"{KERNEL_F64_TOL:.0e}) | kernel {_ms(c['ms'])}, plain "
+            f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
+            f"({c['bound_by']}) [{card}]")
+    budget.check("kernel B1 float64")
+
+    vjp_cases = vjp_phase(dev, n)
+    for c in vjp_cases:
+        log(f"B1 VJP {c['case']}: u-cotangent rel err {c['u_rel_err']:.2e}, "
+            f"r^2-cotangent {c['r2_rel_err']:.2e} (tol {c['tol']:.0e}); "
+            f"launched in backward (B1, r^2-cotangent) "
+            f"{c['launches_in_backward']} | r^2-cotangent kernel "
+            f"{_ms(c['ms'])}, its plain closed form {c['plain_ms']:.3f} ms, "
+            f"autograd of the gather form {_ms(c['autograd_ms'])}, bound "
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']}) [{card}]")
+    budget.check("B1 VJP")
+
+    probe = probe_phase(dev)
+    for c in probe["cases"]:
+        rate = "" if c.get("gflops") is None \
+            else f", {c['gflops']:.1f} GFLOP/s"
+        lib = "" if c["library_ms"] is None \
+            else f", torch.mul {_ms(c['library_ms'])}"
+        log(f"{c['kernel']} {c['case']}: bitwise equal to plain | kernel "
+            f"{_ms(c['ms'])}{rate}, plain {c['plain_ms']:.4f} ms{lib}, "
+            f"bound {c['bound_ms']:.6f} ms ({c['bound_by']}) [{card}]")
+    log(f"probes entry launches {probe['launches']}")
+    budget.check("probes")
+
     mains = {}
     for route in ROUTES:
         m = main_path_phase(dev, n, route=route, steps=steps,
@@ -767,7 +1226,34 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             raise AssertionError(
                 f"route {route} needs {warm} CG iterations over the timed "
                 f"steps against {warm0} on the f32 route")
+
+    design = design_phase(dev, n, steps=steps, windows=windows)
+    a, b, c = design["a"], design["b"], design["c"]
+    log(f"design (a) f64 {n}^3 compliance, implicit vs analytic g: rel err "
+        f"{a['grad_rel_err']:.2e} (tol {IMPLICIT_VS_ANALYTIC_TOL:.0e}); CG "
+        f"iterations forward/adjoint {a['iterations']}, analytic "
+        f"{a['iterations_analytic']}; implicit step {a['step_s']:.2f} s; "
+        f"launches {a['kernel_launches']} [{card}]")
+    log(f"design (b) f64 {n}^3 displacement objective, u_imposed X "
+        f"{IMPOSED_X}: obj {b['objective']:.9e}; g.v {b['directional']:.9e}"
+        f" vs central difference {b['finite_difference']:.9e} (h "
+        f"{b['fd_h']}): rel err {b['fd_rel_err']:.2e} (tol {FD_TOL:.0e}); "
+        f"CG iterations {b['iterations']}; step {b['step_s']:.2f} s; "
+        f"launches {b['kernel_launches']} [{card}]")
+    log(f"design (c) f32 fused bf16 {n}^3, the same problem: "
+        f"{c['s_per_step']:.4f} s/step (windows "
+        f"{[round(w, 3) for w in c['window_s']]}) vs the analytic "
+        f"compliance step [fused] {mains['fused']['s_per_step']:.4f} s/step;"
+        f" g vs (b) rel err {c['grad_rel_err_vs_f64']:.2e} (tol "
+        f"{FUSED_VS_F64_TOL:.0e}); bitwise {c['bitwise']}; cold CG "
+        f"iterations {c['cold_iterations']}; warm {c['warm_iterations']}; "
+        f"plain gather calls {c['plain_gather_calls']}; launches "
+        f"{c['kernel_launches']} [{card}]")
+    budget.check("design gradient")
     return {"device": info, "build": built, "cases": cases,
-            "fused_cases": fused_cases, "mains": mains,
-            "kernels": kernels_line(cases, fused_cases, mains),
+            "fused_cases": fused_cases, "cases64": cases64,
+            "vjp_cases": vjp_cases, "probe": probe, "mains": mains,
+            "design": design,
+            "kernels": kernels_line(cases, fused_cases, mains, cases64,
+                                    vjp_cases, probe, design),
             "wall_s": budget.elapsed()}

@@ -356,11 +356,23 @@ def test_fused_bf16_compute_is_refused(bcc_port, monkeypatch):
 
 
 def test_lo_request_without_operands_raises(bcc_port):
+    """A lo request runs B2 only on the levels whose state has bf16
+    operands and smooths the others in full precision (the JAX rule,
+    ``multigrid.py:496-499``): with none, it is the f32 V-cycle; with the
+    coarse level's missing, it differs from both."""
     ht, r = bcc_port
     st = tmg.mg_precond_state(ht, r, power_iters=1)
-    st["auxs_lo"] = [None] * len(st["auxs_lo"])
-    with pytest.raises(RuntimeError, match="auxs_lo"):
-        tmg.mg_apply(ht, st, lo_smoother=True)
+    assert all(a is not None for a in st["auxs_lo"])
+    v = torch.ones((ht["levels"][0].slat.nc, 6) + ht["levels"][0].slat.grid)
+    v = v * ht["levels"][0].free
+    m32 = tmg.mg_apply(ht, st, lo_smoother=False, fused=False)(v)
+    m_lo = tmg.mg_apply(ht, st, lo_smoother=True, fused=False)(v)
+    none = dict(st, auxs_lo=[None] * len(st["auxs_lo"]))
+    assert torch.equal(tmg.mg_apply(ht, none, lo_smoother=True,
+                                    fused=False)(v), m32)
+    part = dict(st, auxs_lo=st["auxs_lo"][:-1] + [None])
+    m_part = tmg.mg_apply(ht, part, lo_smoother=True, fused=False)(v)
+    assert not torch.equal(m_part, m32) and not torch.equal(m_part, m_lo)
 
 
 def test_b5_refuses_a_multi_program_level():

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the kernels B1-B5 against their plain
-versions and the main path's routes at a small size.  They import no JAX,
+"""Card-only tests of the port: the kernels B1 (float32, float64 and its
+VJP), B2-B5, P1 and P2 against their plain versions, and the main path's
+routes and the design-gradient paths at a small size.  They import no JAX,
 so they run on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -45,8 +46,97 @@ def test_kernel_matches_plain_on_card(name, n):
     assert torch.equal(y, y2)                     # no atomics: bitwise
     err = float((y - y_plain).abs().max() / y_plain.abs().max())
     assert err < 1e-5, err
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.apply(u.double(), aux.double())
+    # B1 takes float32 or float64 of one type, never a mix
+    with pytest.raises(ValueError, match="one type"):
+        tm.apply(u.double(), aux)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n", [("octet", 50), ("octet", 7),
+                                    ("hybrid", 6)])
+def test_f64_kernel_matches_plain_on_card(name, n):
+    """B1's float64 instance against the float64 gather form (1e-12,
+    relative to the plain result's largest value), bitwise on repeat."""
+    _need_card()
+    ts = StructuredLattice(GEOMS[name], (n, n, n), (1.0, 1.0, 1.0), 1013.0,
+                           0.3, dtype=torch.float64, device="cuda")
+    tm, _ = ts.make_matvec()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    u = torch.randn((ts.nc, 6) + ts.grid, generator=g, device="cuda",
+                    dtype=torch.float64)
+    r = 0.04 + 0.05 * torch.rand((ts.n_geom, n, n, n), generator=g,
+                                 device="cuda", dtype=torch.float64)
+    aux = tm.prepare(r)
+    y_plain = tm.apply_gather(u, aux)
+    y = tm.apply(u, aux)
+    assert torch.equal(y, tm.apply(u, aux))
+    torch.cuda.synchronize()
+    assert tm.apply.launches_f64 == 2 and tm.apply.launches == 0
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= 1e-12, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_b1_backward_matches_autograd_on_card(dtype, tol):
+    """B1's VJP through backward(): the u-cotangent (B1 on the cotangent)
+    and the r^2-cotangent (its own kernel) against autograd of the plain
+    gather form, each launched once during the backward."""
+    _need_card()
+    n = 13
+    ts = StructuredLattice("Octet", (n, n, n), (1.0, 1.0, 1.0), 1013.0,
+                           0.3, dtype=dtype, device="cuda")
+    tm, _ = ts.make_matvec()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    shape = (ts.nc, 6) + ts.grid
+    u = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    lam = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    r = 0.04 + 0.05 * torch.rand((n, n, n), generator=g, device="cuda",
+                                 dtype=dtype)
+    aux = tm.prepare(r)
+    uq, aq = u.clone().requires_grad_(True), aux.clone().requires_grad_(True)
+    want = torch.autograd.grad(tm.apply_gather(uq, aq), (uq, aq), lam)
+    uq, aq = u.clone().requires_grad_(True), aux.clone().requires_grad_(True)
+    y = tm.apply(uq, aq)
+    B = tm.apply
+    counter = "launches_f64" if dtype == torch.float64 else "launches"
+    before = (getattr(B, counter), B.launches_vjp)
+    y.backward(lam)
+    torch.cuda.synchronize()
+    assert (getattr(B, counter) - before[0], B.launches_vjp - before[1]) \
+        == (1, 1)
+    for got, ref in zip((uq.grad, aq.grad), want):
+        err = float((got - ref).abs().max() / ref.abs().max())
+        assert err <= tol, err
+    # the r^2-cotangent sums in a fixed order: bitwise on repeat
+    up, gp = torch.nn.functional.pad(u, (1,) * 6), \
+        torch.nn.functional.pad(lam, (1,) * 6)
+    assert torch.equal(B.launch_vjp(up, gp, aux), B.launch_vjp(up, gp, aux))
+
+
+@pytest.mark.gpu
+def test_probes_match_plain_on_card():
+    """P1 (both kinds) and P2 bitwise equal to their plain versions."""
+    _need_card()
+    from pylatticedso_tpu_torch import probes
+    xs = probes.inputs("cuda")
+    for kind in ("1d", "2d"):
+        assert torch.equal(probes.chain(xs["chain"], kind),
+                           probes.plain_chain(xs["chain"], kind))
+    assert torch.equal(probes.scale(xs["scale"]),
+                       probes.plain_scale(xs["scale"]))
+    assert probes.launches["chain"] >= 2 and probes.launches["scale"] >= 1
+
+
+@pytest.mark.gpu
+def test_design_paths_small_on_card():
+    """The design-gradient paths (a)-(c) at n=8 under their gates."""
+    _need_card()
+    rep = smoke.design_phase(torch.device("cuda"), 8, steps=2, windows=1)
+    assert rep["a"]["grad_rel_err"] <= smoke.IMPLICIT_VS_ANALYTIC_TOL
+    assert rep["b"]["fd_rel_err"] <= smoke.FD_TOL
+    assert rep["c"]["bitwise"] and rep["c"]["plain_gather_calls"] == 0
 
 
 @pytest.mark.gpu

@@ -33,7 +33,8 @@ def _imports(path):
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"structured.py", "multigrid.py", "stencil.py", "fused.py",
-            "convert.py", "solve.py", "smoke.py", "chip_smoke.py"} <= names
+            "convert.py", "solve.py", "smoke.py", "probes.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -37,7 +37,8 @@ def test_transfers_match_jax_and_are_adjoint(fine, coarse, keys):
     c = rng.normal(size=(nc, 6) + coarse)
     f = rng.normal(size=(nc, 6) + fine)
     Pj, Rj = jmg.make_transfers(fine, coarse, keys)
-    Pt, Rt = tmg.make_transfers(fine, coarse, keys, dtype=torch.float64)
+    Pt, Rt = tmg.make_transfers(fine, coarse, keys, dtype=torch.float64,
+                                device="cpu")
     pc, rf = Pt(torch.tensor(c)), Rt(torch.tensor(f))
     assert _rel(Pj(jnp.asarray(c)), pc.numpy()) <= TOL
     assert _rel(Rj(jnp.asarray(f)), rf.numpy()) <= TOL
@@ -50,7 +51,7 @@ def test_radius_restrictor_matches_jax():
     rng = np.random.default_rng(1)
     valid = rng.random((5, 4, 3)) > 0.2
     rj = jmg.make_radius_restrictor(valid)
-    rt = tmg.make_radius_restrictor(valid)
+    rt = tmg.make_radius_restrictor(valid, device="cpu")
     for shape in ((5, 4, 3), (3, 5, 4, 3)):
         r = rng.uniform(0.03, 0.08, shape)
         assert _rel(rj(jnp.asarray(r)), rt(torch.tensor(r)).numpy()) <= TOL
@@ -106,6 +107,22 @@ def test_precond_state_and_vcycle_match_jax(bcc4):
     assert _rel(mj, mt) <= 1e-11
 
 
+def test_mg_preconditioner_matches_jax(bcc4):
+    """``mg_preconditioner``: the state from the radii, then the V-cycle,
+    in one call, as the JAX package's."""
+    js, _ts, _free, hj, ht, r, _sj = bcc4
+    v = np.random.default_rng(8).standard_normal((js.nc, 6) + js.grid)
+    v *= np.asarray(hj["levels"][0].free)
+    with jax.disable_jit():
+        mj = np.asarray(jmg.mg_preconditioner(hj, jnp.asarray(r),
+                                              power_iters=5, **OPTS)(
+            jnp.asarray(v)))
+    mt = tmg.mg_preconditioner(ht, torch.tensor(r), power_iters=5,
+                               **OPTS)(torch.tensor(v)).numpy()
+    assert np.abs(mj).max() > 0
+    assert _rel(mj, mt) <= 1e-11
+
+
 @pytest.mark.parametrize("nu", [1, (1, 2)])
 def test_vcycle_is_symmetric_positive(bcc4, nu):
     _js, ts, free, _hj, ht, r, _sj = bcc4
@@ -124,15 +141,20 @@ def test_vcycle_is_symmetric_positive(bcc4, nu):
 
 def test_unported_smoothers_raise(bcc4, monkeypatch):
     """The fused V-cycle's bf16 arithmetic is not ported and raises; a
-    fused or bf16-I/O request that the state cannot meet raises instead of
-    running the unfused f32 V-cycle."""
-    _js, _ts, _free, _hj, ht, r, _sj = bcc4
+    fused request that the state cannot meet (float64: no level has a
+    fused smoother) raises instead of running the unfused V-cycle.  A
+    bf16-I/O request smooths each level without bf16 operands with B1, as
+    JAX smooths it with its gather form: at float64 no level has them, so
+    it is the full-precision V-cycle."""
+    _js, ts, _free, _hj, ht, r, _sj = bcc4
     st = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1)
     with pytest.raises(RuntimeError, match="fall back"):
         tmg.mg_apply(ht, st, fused=True)
-    with pytest.raises(RuntimeError, match="auxs_lo"):
-        tmg.mg_apply(ht, dict(st, auxs_lo=[None] * len(st["Ds"])),
-                     lo_smoother=True)
+    assert st["auxs_lo"] == [None] * len(st["Ds"])
+    v = torch.tensor(np.random.default_rng(6).standard_normal(
+        (ts.nc, 6) + ts.grid)) * ht["levels"][0].free
+    assert torch.equal(tmg.mg_apply(ht, st, lo_smoother=True)(v),
+                       tmg.mg_apply(ht, st, lo_smoother=False)(v))
     st_f = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1,
                                 fused=True)
     monkeypatch.setenv("PLDSO_MG_FUSED_COMPUTE", "bf16")

@@ -47,22 +47,48 @@ def test_phases_rehearse_on_cpu():
         assert main["bitwise"] and main["finite"]
         assert main["compliance_rel_err"] <= 1e-5
         # no kernel on the CPU
-        assert main["kernel_launches"] == {k: [0, 0] for k in
-                                           ("B1", "B2", "B3", "B4", "B5")}
+        assert main["kernel_launches"] == {
+            k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4",
+                                "B5")}
+    # B1's float64 instance at every MG level, its VJP in both precisions
+    assert [c["case"] for c in rep["cases64"]] == \
+        ["Octet 4^3 (MG level 0)", "Octet 2^3 (MG level 1)"]
+    assert all(c["max_rel_err"] == 0.0 for c in rep["cases64"])
+    assert [c["case"] for c in rep["vjp_cases"]] == \
+        ["Octet 4^3 f32", "Octet 4^3 f64"]
+    assert all(c["max_rel_err"] <= c["tol"] for c in rep["vjp_cases"])
+    assert [(c["kernel"], c["case"]) for c in rep["probe"]["cases"]] == \
+        [("P1", "1d"), ("P1", "2d"), ("P2", "8x128")]
+    # the design-gradient paths under their gates
+    design = rep["design"]
+    assert design["a"]["grad_rel_err"] <= smoke.IMPLICIT_VS_ANALYTIC_TOL
+    assert design["a"]["iterations"]["adjoint"] is not None
+    assert design["a"]["iterations_analytic"]["adjoint"] is None
+    assert design["b"]["fd_rel_err"] <= smoke.FD_TOL
+    assert design["b"]["directional"] != 0.0
+    c = design["c"]
+    assert c["bitwise"] and c["finite"] and c["plain_gather_calls"] == 0
+    assert c["grad_rel_err_vs_f64"] <= smoke.FUSED_VS_F64_TOL
+    assert len(c["warm_iterations"]) == 2
     names = [k["name"] for k in rep["kernels"]]
-    assert names == ["stencil_matvec_f32", "stencil_matvec_bf16",
-                     "mg_residual", "mg_cheb_run", "mg_cheb_full"]
+    assert names == ["stencil_matvec_f32", "stencil_matvec_f64",
+                     "stencil_vjp_r2", "stencil_matvec_bf16",
+                     "mg_residual", "mg_cheb_run", "mg_cheb_full",
+                     "probe_chain", "probe_scale"]
     for k in rep["kernels"]:
         for key in ("name", "route", "source", "replaces", "launches",
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms"):
             assert key in k
         assert (ROOT / k["source"]).exists()
-        assert k["bound_ms"] > 0 and k["library_ms"] is None
+        assert k["bound_ms"] > 0 and k["library_ms"] is None  # no card
+        assert k["launches"] == 0
     json.dumps(rep["kernels"])
     for route in ("fused", "lo", "f32"):
         assert any(line.startswith(f"main path [{route}] 4^3 Octet")
                    for line in lines)
+    for path in ("a", "b", "c"):
+        assert any(line.startswith(f"design ({path})") for line in lines)
     assert all("[CPU rehearsal, host clock]" in line for line in lines
                if " ms" in line)
 
@@ -77,6 +103,23 @@ def test_launch_gates_name_the_missing_kernel():
     with pytest.raises(AssertionError, match="B2 launched"):
         smoke._check_launches("f32", dict(ok, B3=[0, 0], B4=[0, 0],
                                           B5=[0, 0], B2=[1, 0]), single)
+
+
+def test_launch_gates_of_the_design_paths():
+    """The float64 paths run B1's double instance, never the float32 one;
+    an implicit path launches the r^2-cotangent kernel on the fine level."""
+    single = [False, True]
+    ok = {"B1": [0, 0], "B1f64": [3, 1], "VJP": [1, 0], "B2": [0, 0],
+          "B3": [0, 0], "B4": [0, 0], "B5": [0, 0]}
+    smoke._check_launches("f32", ok, single, implicit=True, f64=True)
+    with pytest.raises(AssertionError, match="VJP launched 0 times"):
+        smoke._check_launches("f32", dict(ok, VJP=[0, 0]), single,
+                              implicit=True, f64=True)
+    with pytest.raises(AssertionError, match="B1 launched 1 times"):
+        smoke._check_launches("f32", dict(ok, B1=[1, 0]), single,
+                              implicit=True, f64=True)
+    with pytest.raises(AssertionError, match="VJP launched 1 times"):
+        smoke._check_launches("f32", ok, single, f64=True)
 
 
 def test_level_cells_follow_the_hierarchy():
