@@ -842,6 +842,16 @@ def _solves(step) -> Dict:
             "adjoint": None if adj is None else adj["iterations"]}
 
 
+def _directional(step, r, g, u, pstate, v, h):
+    """(g . v, the central difference (J(r + h v) - J(r - h v)) / 2h),
+    the two solves warm-started from ``u`` on the frozen ``pstate``."""
+    free, f = step.operands
+    with torch.no_grad():
+        j_p, _ = step.raw(r + h * v, free, f, u, pstate)
+        j_m, _ = step.raw(r - h * v, free, f, u, pstate)
+    return float(torch.sum(g * v)), float(j_p - j_m) / (2.0 * h)
+
+
 def design_phase(device: torch.device, n: int, steps: int = 8,
                  windows: int = 3, maxiter: int = 6000,
                  fd_h: float = 1e-4, seed: int = 4) -> Dict:
@@ -895,16 +905,12 @@ def design_phase(device: torch.device, n: int, steps: int = 8,
     # a seeded random direction of positive entries, a relative change of
     # 0.5-1.5 of each radius: a direction of random signs makes g.v a sum
     # that cancels to ~1/sqrt(cells) of its terms, and the check then
-    # measures that cancellation instead of the gradient
+    # measures that cancellation instead of the gradient (shown, not
+    # gated, by ``signed_direction`` below)
     gen = torch.Generator(device=device).manual_seed(seed)
     v = r64 * (0.5 + torch.rand((n,) * 3, generator=gen, device=device,
                                 dtype=f64))
-    free_b, f_b = st_b.operands
-    with torch.no_grad():
-        j_p, _ = st_b.raw(r64 + fd_h * v, free_b, f_b, u_b, ps_b)
-        j_m, _ = st_b.raw(r64 - fd_h * v, free_b, f_b, u_b, ps_b)
-    fd = float(j_p - j_m) / (2.0 * fd_h)
-    dd = float(torch.sum(g_b * v))
+    dd, fd = _directional(st_b, r64, g_b, u_b, ps_b, v, fd_h)
     err_b = abs(fd - dd) / abs(dd)
     out["b"] = {"objective": float(c_b), "directional": dd,
                 "finite_difference": fd, "fd_h": fd_h, "fd_rel_err": err_b,
@@ -913,6 +919,21 @@ def design_phase(device: torch.device, n: int, steps: int = 8,
     if not err_b <= FD_TOL:
         raise AssertionError(f"(b) g.v {dd:.9e} vs central difference "
                              f"{fd:.9e}: rel err {err_b:.3e} > {FD_TOL}")
+    # the same check along a seeded direction of random signs, at (a)'s
+    # and (b)'s CG tol
+    w = r64 * torch.randn((n,) * 3, generator=gen, device=device, dtype=f64)
+    st_w, _ = _design_step(n, device, f64, "f32", DESIGN_TOL64, maxiter)
+    ps_w = st_w.precond_state(r64)
+    _c, g_w, u_w = st_w(r64, None, ps_w)
+    signed = []
+    for tol, st_, g_, u_, ps_ in ((DESIGN_TOL64, st_w, g_w, u_w, ps_w),
+                                  (FD_SOLVE_TOL, st_b, g_b, u_b, ps_b)):
+        d_, f_ = _directional(st_, r64, g_, u_, ps_, w, fd_h)
+        signed.append({"tol": tol, "directional": d_,
+                       "finite_difference": f_,
+                       "fd_rel_err": abs(f_ - d_) / abs(d_),
+                       "sum_abs_terms": float(torch.sum(torch.abs(g_ * w)))})
+    out["b"]["signed_direction"] = signed
     for path, counts in (("a", counts_a), ("b", counts_b)):
         if cuda:
             _check_launches("f32", counts,
@@ -1240,6 +1261,12 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{b['fd_h']}): rel err {b['fd_rel_err']:.2e} (tol {FD_TOL:.0e}); "
         f"CG iterations {b['iterations']}; step {b['step_s']:.2f} s; "
         f"launches {b['kernel_launches']} [{card}]")
+    for sd in b["signed_direction"]:
+        log(f"design (b), not gated: a direction of random signs at CG tol "
+            f"{sd['tol']:.0e}: g.v {sd['directional']:.9e} vs central "
+            f"difference {sd['finite_difference']:.9e}: rel err "
+            f"{sd['fd_rel_err']:.2e} (sum |g_i v_i| "
+            f"{sd['sum_abs_terms']:.6e}) [{card}]")
     log(f"design (c) f32 fused bf16 {n}^3, the same problem: "
         f"{c['s_per_step']:.4f} s/step (windows "
         f"{[round(w, 3) for w in c['window_s']]}) vs the analytic "

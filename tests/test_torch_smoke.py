@@ -66,6 +66,8 @@ def test_phases_rehearse_on_cpu():
     assert design["a"]["iterations_analytic"]["adjoint"] is None
     assert design["b"]["fd_rel_err"] <= smoke.FD_TOL
     assert design["b"]["directional"] != 0.0
+    assert [sd["tol"] for sd in design["b"]["signed_direction"]] == \
+        [smoke.DESIGN_TOL64, smoke.FD_SOLVE_TOL]
     c = design["c"]
     assert c["bitwise"] and c["finite"] and c["plain_gather_calls"] == 0
     assert c["grad_rel_err_vs_f64"] <= smoke.FUSED_VS_F64_TOL
