@@ -7,7 +7,7 @@
 // (the TPU grid of 100 programs on the same block).  Kind "1d" runs the
 // chain on row 0 and broadcasts it to all 8 rows; kind "2d" runs it on all
 // 8 rows.  The probe measured the TPU VPU's sublane density, which means
-// nothing here; the H100 counterpart is the same arithmetic with its rate
+// nothing on an H100; the counterpart is the same arithmetic with its rate
 // recorded.  The multiply and the add are rounded separately (__fmul_rn,
 // __fadd_rn: nvcc would otherwise contract them into one FMA), so the
 // result is bitwise equal to the plain torch loop, which rounds each op.

@@ -10,7 +10,7 @@ float64, CG tol 1e-10:
   (the two states agree to 1e-12, tests/test_torch_step_mg.py).  BCC, not
   Octet: JAX unrolls the V-cycle into its forward and adjoint CG loops,
   and its compile grows with the template's edges and creators; on Octet
-  one such step compiles for about 3.5 minutes here, on BCC in 45 s;
+  one such step compiles for several times as long as on BCC;
 * compliance under ``PLDSO_GRAD=implicit`` and ``PLDSO_SELFADJOINT=1`` on
   Octet n=4 and ``BCC+Hybrid1+Hybrid4`` n=4, against the port's analytic
   form on the same state, which tests/test_torch_step_mg.py holds to the

@@ -3,8 +3,8 @@
 ``scripts/tpu_harvest_r{5,6,7,8}.sh``): their plain versions against a
 numpy float32 loop that rounds each multiply and add on its own, bitwise.
 
-The scripts themselves cannot be imported here: they run at import time
-and only on a TPU, so the numpy loop restates their arithmetic.  The
+The scripts themselves cannot be imported by a test: they run at import
+time and only on a TPU, so the numpy loop restates their arithmetic.  The
 kernels are held against these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
 """
