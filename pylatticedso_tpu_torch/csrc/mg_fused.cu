@@ -21,7 +21,7 @@
 //
 // Layout: every vector is ghost-padded [nc, 6, Xp, Yp, Zp] (B1's layout,
 // not the TPU kernels' align8 [rows, Fp] flats) and r^2 is
-// [n_e, Xp, Yp, Zp].  One thread per (class, padded point): interior
+// [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point): interior
 // threads run the shared stencil body (stencil_body.cuh) and update their
 // own 6 values; ghost threads write zeros, so outputs can come from
 // torch.empty and every neighbour read of the next launch sees zero ghosts.
@@ -34,18 +34,20 @@
 //       110 x 48 x N = 0.70 GFLOP -> 10.5 us: bound by bytes, barely.
 //   B4: (5 inputs + 3 outputs) x 24 F x 2 B = 57.2 MB -> 17.1 us (final:
 //       42.9 MB): bound by bytes.
-//   B5: one thread block on one SM, on levels of at most 13^3 padded
-//       points: bound by the latency of its `degree` dependent
-//       stencil-then-update phases, not by bytes or operations.
+//   B5: on the single levels (7^3, 4^3, 2^3 cells at 50^3) its whole work
+//       bounds it at 0.12 us or less, below the cost of a launch: it is
+//       bound by the latency of its `degree` dependent phases.
 // B3 and B4 are B1's thread layout plus a pointwise epilogue on values the
 // thread already holds, so they add no pass over memory around the
 // stencil.  Re-reads of d (13 per value) are left to L1/L2, as in B1;
-// shared-memory tiles of d and TMA are later work.  B5 keeps d, the one
-// vector that neighbours read, in shared memory when it fits (<= 227 KB:
-// every Octet level up to 13^3 padded points) and otherwise in a float
-// global scratch buffer, which stays in L2; x and r are read only by their
-// own thread and live in a float global scratch buffer.  __syncthreads()
-// separates the K.d phase from the update phase of every step.
+// shared-memory tiles of d and TMA are later work.  B5 spreads the level
+// over a thread-block cluster (up to 16 SMs) so that each thread owns one
+// to four interior items and keeps their x, r, d and fd in registers; d,
+// the one vector that neighbours read, is exchanged through distributed
+// shared memory with a cluster barrier between phases (see the B5 section
+// below).
+
+#include <cooperative_groups.h>
 
 #include "stencil_body.cuh"
 
@@ -142,96 +144,243 @@ mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
 }
 
 // ------------------------------------------------------------------ B5
-// One block.  xs, rs: float scratch [nc * 6 * Fp] each; dg: float scratch
-// for d when it does not fit shared memory (use_smem == 0).
-template <typename T, bool WITH_X0>
-__global__ void __launch_bounds__(1024, 1)
+// One thread-block cluster per launch.  Block `rank` owns the interior
+// items [rank * per_block, min((rank + 1) * per_block, n_items)) of the
+// level's interior list `items` ((class << 22) | padded point, in ascending
+// order, planned on the host); thread t owns the items rank * per_block + t
+// + j * blockDim.x for j < ipt.  Each thread keeps x, r, d and fd of its
+// items in registers across all steps.  The sides table, class_start and
+// (where it fits) r^2 are staged in shared memory once per launch.  d, the
+// one vector that neighbours read, lives in one of two layouts:
+//   B5_BCAST:  every block keeps a full copy of d in its shared memory and
+//              broadcasts its own updates into every block's copy with
+//              distributed-shared-memory stores; stencil reads are local
+//              (faster at every cluster size than reading a neighbour from
+//              its owner's shared memory through cluster.map_shared_rank,
+//              the layout it was measured against);
+//   B5_GLOBAL: d in a float global scratch buffer (a level whose d does not
+//              fit shared memory), written with st.cg and read with ld.cg.
+// A cluster barrier separates the phases (__syncthreads for a cluster of
+// one block).  Every item is computed by one thread with the same
+// arithmetic whatever the cluster size or layout, so the result does not
+// depend on either.
+#define B5_MAX_THREADS 256
+#define B5_MAX_IPT 4
+#define B5_MAX_CLUSTER 16
+#define B5_Q_BITS 22
+enum { B5_BCAST = 0, B5_GLOBAL = 1 };
+
+struct B5Plan {
+  int cluster, threads, ipt, per_block, n_items, n_sides, n_e, r2_smem;
+};
+
+__host__ __device__ inline long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// dynamic shared memory of one block: [sides][class_start][d][r^2]
+__host__ __device__ inline long long b5_smem_bytes(int layout, int nc,
+                                                   long long Fp, int n_sides,
+                                                   int n_e, int r2_smem,
+                                                   int itemsize) {
+  long long n = align16((long long)n_sides * sizeof(Side))
+              + align16(4LL * (nc + 1));
+  if (layout == B5_BCAST) n += align16(4LL * nc * 6 * Fp);
+  if (r2_smem) n += align16((long long)itemsize * n_e * Fp);
+  return n;
+}
+
+// copy `bytes` from global to shared memory, 16 bytes a thread when src
+// is 16-byte aligned (dst always is)
+__device__ __forceinline__ void b5_stage(void* dst, const void* src,
+                                         long long bytes) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  long long done = 0;
+  if ((((unsigned long long)src) & 15) == 0) {
+    const long long n16 = bytes >> 4;
+    for (long long i = t; i < n16; i += nt)
+      ((uint4*)dst)[i] = ((const uint4*)src)[i];
+    done = n16 << 4;
+  }
+  for (long long i = done + t; i < bytes; i += nt)
+    ((unsigned char*)dst)[i] = ((const unsigned char*)src)[i];
+}
+
+// K.d at one item: self values from registers, neighbours from the
+// layout.  Unrolled by two so that a side's loads and forces overlap the
+// previous side's; the sides still add into acc one by one in table order.
+template <int LAYOUT, typename TR>
+__device__ __forceinline__ void b5_stencil(
+    const float* d, const TR* r2, int Fp, int q, const float us[6],
+    const Side* sides, int s_begin, int s_end, float E, float kG, float G2,
+    float acc[6]) {
+#pragma unroll 2
+  for (int s = s_begin; s < s_end; ++s) {
+    const Side& sd = sides[s];
+    const int base = sd.co * 6 * Fp + q + sd.du;
+    float uo[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      uo[k] = LAYOUT == B5_GLOBAL ? __ldcg(d + base + k * Fp)
+                                  : d[base + k * Fp];
+    const float r2v = ld(r2 + sd.ei * Fp + q + sd.dr);
+    side_acc<float, Side>(sd, us, uo, r2v, E, kG, G2, acc);
+  }
+}
+
+// write a thread's new d value at flat offset o into the layout
+template <int LAYOUT>
+__device__ __forceinline__ void b5_put(float* d,
+                                       cooperative_groups::cluster_group& cl,
+                                       int ncl, int o, float v) {
+  if (LAYOUT == B5_GLOBAL) {
+    __stcg(d + o, v);
+  } else if (ncl == 1) {
+    d[o] = v;
+  } else {
+    for (int r = 0; r < ncl; ++r) cl.map_shared_rank(d, r)[o] = v;
+  }
+}
+
+// the barrier between phases: the cluster's, or the block's when the
+// cluster is one block (global writes are fenced first)
+template <int LAYOUT>
+__device__ __forceinline__ void b5_sync(cooperative_groups::cluster_group& cl,
+                                        int ncl) {
+  if (LAYOUT == B5_GLOBAL) __threadfence();
+  if (ncl == 1)
+    __syncthreads();
+  else
+    cl.sync();
+}
+
+template <typename T, bool WITH_X0, int LAYOUT>
+__global__ void __launch_bounds__(B5_MAX_THREADS, 1)
 mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
                     const T* __restrict__ fd, const float* __restrict__ sc,
-                    const T* __restrict__ r2, T* __restrict__ out,
-                    float* xs, float* rs, float* dg, int use_smem,
-                    ChebCoefs cf, int degree, Stencil s) {
-  extern __shared__ float smem[];
-  float* d = use_smem ? smem : dg;
-  const long long Fp = padded_points(s);
-  const long long items = (long long)s.nc * Fp;
-  const float inv_theta = sc[0];
-  const float inv_delta = sc[1];
+                    const T* __restrict__ r2g, T* __restrict__ out,
+                    float* __restrict__ dg, const int* __restrict__ items,
+                    ChebCoefs cf, int degree, B5Plan p, Stencil s) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nc = s.nc;
+  const int Fp = (s.X + 2) * (s.Y + 2) * (s.Z + 2);
+
+  unsigned char* sp = smem;
+  Side* sides = (Side*)sp;
+  sp += align16((long long)p.n_sides * sizeof(Side));
+  int* cstart = (int*)sp;
+  sp += align16(4LL * (nc + 1));
+  float* d = dg;
+  if (LAYOUT == B5_BCAST) {
+    d = (float*)sp;
+    sp += align16(4LL * nc * 6 * Fp);
+  }
+  const T* r2 = p.r2_smem ? (const T*)sp : r2g;
+
+  b5_stage(sides, s.sides, (long long)p.n_sides * sizeof(Side));
+  b5_stage(cstart, s.class_start, 4LL * (nc + 1));
+  if (p.r2_smem) b5_stage(sp, r2g, (long long)sizeof(T) * p.n_e * Fp);
+  if (LAYOUT == B5_BCAST) {
+    const int n = nc * 6 * Fp;          // zero d, ghosts included
+    for (int i = tid; i < (n >> 2); i += nthr)
+      ((float4*)d)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = ((n >> 2) << 2) + tid; i < n; i += nthr) d[i] = 0.f;
+  }
+  // zero ghosts of out (and of d in global scratch): this block's share of
+  // the padded points, the one division per point of the launch
+  for (int i = rank * nthr + tid; i < nc * Fp; i += p.cluster * nthr) {
+    const int c = i / Fp, q = i - c * Fp;
+    if (interior(q, s.X, s.Y, s.Z)) continue;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      st(out + (c * 6 + k) * Fp + q, 0.f);
+      if (LAYOUT == B5_GLOBAL) __stcg(dg + (c * 6 + k) * Fp + q, 0.f);
+    }
+  }
+
+  const float inv_theta = sc[0], inv_delta = sc[1];
+  const int i0 = rank * p.per_block;
+  const int i1 = min(i0 + p.per_block, p.n_items);
+  bool have[B5_MAX_IPT];
+  int qq[B5_MAX_IPT], cc[B5_MAX_IPT];
+  float x[B5_MAX_IPT][6], r[B5_MAX_IPT][6], dv[B5_MAX_IPT][6],
+      f[B5_MAX_IPT][6];
+#pragma unroll
+  for (int j = 0; j < B5_MAX_IPT; ++j) {
+    const int i = i0 + tid + j * nthr;
+    have[j] = j < p.ipt && i < i1;
+    const int e = have[j] ? items[i] : 0;
+    cc[j] = e >> B5_Q_BITS;
+    qq[j] = e & ((1 << B5_Q_BITS) - 1);
+  }
+  // staged tables and zeroed d ready in every block; every block of the
+  // cluster has started before any distributed-shared-memory access
+  b5_sync<LAYOUT>(cl, p.cluster);
 
   // x = x0 (or 0), r = b - K x0 (or b), d = (r fd) inv_theta
-  for (long long i = threadIdx.x; i < items; i += blockDim.x) {
-    const int c = (int)(i / Fp);
-    const long long q = i - (long long)c * Fp;
-    const long long row0 = (long long)c * 6 * Fp + q;
-    if (!interior(q, s.X, s.Y, s.Z)) {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const long long o = row0 + k * Fp;
-        xs[o] = 0.f; rs[o] = 0.f; d[o] = 0.f;
-      }
-      continue;
-    }
+  for (int j = 0; j < B5_MAX_IPT; ++j) {
+    if (!have[j]) continue;
+    const int c = cc[j], q = qq[j];
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (WITH_X0)
-      stencil_acc(x0, r2, Fp, q, c, s.sides, s.class_start[c],
-                  s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+      stencil_acc(x0, r2, (long long)Fp, (long long)q, c, sides, cstart[c],
+                  cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
-      const long long o = row0 + k * Fp;
+      const int o = (c * 6 + k) * Fp + q;
       const float xv = WITH_X0 ? ld(x0 + o) : 0.f;
       const float rv = WITH_X0 ? ld(b + o) - acc[k] : ld(b + o);
-      xs[o] = xv;
-      rs[o] = rv;
-      d[o] = (rv * ld(fd + o)) * inv_theta;
+      const float fv = ld(fd + o);
+      x[j][k] = xv;
+      r[j][k] = rv;
+      f[j][k] = fv;
+      dv[j][k] = (rv * fv) * inv_theta;
     }
   }
-  __syncthreads();
 
   for (int step = 0; step < degree; ++step) {
-    // x += d, r -= K d: every thread reads its neighbours' d, none writes d
-    for (long long i = threadIdx.x; i < items; i += blockDim.x) {
-      const int c = (int)(i / Fp);
-      const long long q = i - (long long)c * Fp;
-      if (!interior(q, s.X, s.Y, s.Z)) continue;
-      const long long row0 = (long long)c * 6 * Fp + q;
-      float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      stencil_acc((const float*)d, r2, Fp, q, c, s.sides, s.class_start[c],
-                  s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+    // publish d, then every block reads its neighbours' d
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const long long o = row0 + k * Fp;
-        xs[o] = xs[o] + d[o];
-        rs[o] = rs[o] - acc[k];
-      }
+    for (int j = 0; j < B5_MAX_IPT; ++j) {
+      if (!have[j]) continue;
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        b5_put<LAYOUT>(d, cl, p.cluster, (cc[j] * 6 + k) * Fp + qq[j],
+                       dv[j][k]);
     }
-    __syncthreads();
-    // d = c1 d + (c2 inv_delta) r fd, on each thread's own points
+    b5_sync<LAYOUT>(cl, p.cluster);
+    // x += d, r -= K d, d = c1 d + (c2 inv_delta) r fd
     const float c1 = cf.c1[step];
     const float c2i = cf.c2[step] * inv_delta;
-    for (long long i = threadIdx.x; i < items; i += blockDim.x) {
-      const int c = (int)(i / Fp);
-      const long long q = i - (long long)c * Fp;
-      if (!interior(q, s.X, s.Y, s.Z)) continue;
-      const long long row0 = (long long)c * 6 * Fp + q;
+#pragma unroll
+    for (int j = 0; j < B5_MAX_IPT; ++j) {
+      if (!have[j]) continue;
+      const int c = cc[j];
+      float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      b5_stencil<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, cstart[c],
+                         cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
-        const long long o = row0 + k * Fp;
-        d[o] = c1 * d[o] + (c2i * rs[o]) * ld(fd + o);
+        x[j][k] = x[j][k] + dv[j][k];
+        r[j][k] = r[j][k] - acc[k];
+        dv[j][k] = c1 * dv[j][k] + (c2i * r[j][k]) * f[j][k];
       }
     }
-    __syncthreads();
+    // no block overwrites d before every block has read it
+    if (step + 1 < degree) b5_sync<LAYOUT>(cl, p.cluster);
   }
 
-  for (long long i = threadIdx.x; i < items; i += blockDim.x) {
-    const int c = (int)(i / Fp);
-    const long long q = i - (long long)c * Fp;
-    const long long row0 = (long long)c * 6 * Fp + q;
-    const bool in = interior(q, s.X, s.Y, s.Z);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const long long o = row0 + k * Fp;
-      st(out + o, in ? xs[o] + d[o] : 0.f);
-    }
+  for (int j = 0; j < B5_MAX_IPT; ++j) {
+    if (!have[j]) continue;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      st(out + (cc[j] * 6 + k) * Fp + qq[j], x[j][k] + dv[j][k]);
   }
 }
 
@@ -312,61 +461,188 @@ extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
 
 // largest dynamic shared memory one block may use on sm_90 (232,448 bytes)
 static const int MAX_SMEM = 227 * 1024;
+static const int MAX_DEVICES = 64;
 
-template <typename T, bool WITH_X0>
-static int cheb_full(const void* b, const void* x0, const void* fd,
-                     const void* sc, const void* r2, void* out, void* xs,
-                     void* rs, void* dg, const ChebCoefs& cf, int degree,
-                     const Stencil& s, cudaStream_t stream) {
-  auto kern = mg_cheb_full_kernel<T, WITH_X0>;
-  static bool attr_set = false;
-  if (!attr_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  const long long dbytes =
-      4LL * s.nc * 6 * (s.X + 2) * (s.Y + 2) * (s.Z + 2);
-  const int use_smem = dbytes <= MAX_SMEM;
-  kern<<<1, 1024, use_smem ? (size_t)dbytes : 0, stream>>>(
-      (const T*)b, (const T*)x0, (const T*)fd, (const float*)sc,
-      (const T*)r2, (T*)out, (float*)xs, (float*)rs, (float*)dg, use_smem,
-      cf, degree, s);
+// B5's function attributes, set once per device (they are per-device
+// state), each call's return code checked
+template <typename T, bool WITH_X0, int LAYOUT>
+static cudaError_t cheb_full_attrs() {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  auto kern = mg_cheb_full_kernel<T, WITH_X0, LAYOUT>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           MAX_SMEM);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  done[dev] = true;
+  return cudaSuccess;
+}
+
+struct ChebFullArgs {
+  const void *b, *x0, *fd, *sc, *r2;
+  void *out, *dg;
+  const void* items;
+};
+
+static cudaLaunchConfig_t cluster_config(const B5Plan& p, size_t smem,
+                                         cudaStream_t stream,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, 1, 1);
+  cfg.blockDim = dim3(p.threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T, bool WITH_X0, int LAYOUT>
+static int cheb_full(const ChebFullArgs& a, const ChebCoefs& cf, int degree,
+                     const B5Plan& p, const Stencil& s, size_t smem,
+                     cudaStream_t stream) {
+  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(p, smem, stream, &attr);
+  e = cudaLaunchKernelEx(&cfg, mg_cheb_full_kernel<T, WITH_X0, LAYOUT>,
+                         (const T*)a.b, (const T*)a.x0, (const T*)a.fd,
+                         (const float*)a.sc, (const T*)a.r2, (T*)a.out,
+                         (float*)a.dg, (const int*)a.items, cf, degree, p,
+                         s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg may be null
-// when d fits shared memory (mg_cheb_full_smem_bytes() says how much fits)
-extern "C" int mg_cheb_full(int dtype, int with_x0, const void* b,
+template <typename T, bool WITH_X0>
+static int cheb_full_layout(int layout, const ChebFullArgs& a,
+                            const ChebCoefs& cf, int degree, const B5Plan& p,
+                            const Stencil& s, size_t smem,
+                            cudaStream_t stream) {
+  if (layout == B5_BCAST)
+    return cheb_full<T, WITH_X0, B5_BCAST>(a, cf, degree, p, s, smem, stream);
+  return cheb_full<T, WITH_X0, B5_GLOBAL>(a, cf, degree, p, s, smem, stream);
+}
+
+static B5Plan make_plan(int cluster, int threads, int ipt, int per_block,
+                        int n_items, int n_sides, int n_e, int r2_smem) {
+  B5Plan p;
+  p.cluster = cluster; p.threads = threads; p.ipt = ipt;
+  p.per_block = per_block; p.n_items = n_items; p.n_sides = n_sides;
+  p.n_e = n_e; p.r2_smem = r2_smem;
+  return p;
+}
+
+// a plan the kernel can run: the partition covers n_items, the sizes are
+// within the kernel's limits and its shared memory fits one block
+static bool plan_ok(int layout, const B5Plan& p, long long smem) {
+  return (layout == B5_BCAST || layout == B5_GLOBAL) && p.cluster >= 1
+      && p.cluster <= B5_MAX_CLUSTER && p.threads >= 1
+      && p.threads <= B5_MAX_THREADS && p.ipt >= 1 && p.ipt <= B5_MAX_IPT
+      && p.per_block <= p.threads * p.ipt
+      && (long long)p.per_block * p.cluster >= p.n_items
+      && smem <= MAX_SMEM;
+}
+
+// dynamic shared memory of one block of a plan (bytes), as the launch
+// requests it
+extern "C" int mg_cheb_full_smem_bytes(int dtype, int layout, int nc, int X,
+                                       int Y, int Z, int n_sides, int n_e,
+                                       int r2_smem) {
+  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
+  return (int)b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
+                            dtype == 0 ? 4 : 2);
+}
+
+// B5: plan fields as the host planned them (kernels/fused.py b5_plan);
+// c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg: float scratch
+// of nc * 6 * Fp (layout B5_GLOBAL only, else null); items: the interior
+// list
+extern "C" int mg_cheb_full(int dtype, int with_x0, int layout, const void* b,
                             const void* x0, const void* fd, const void* sc,
-                            const void* r2, void* out, void* xs, void* rs,
-                            void* dg, const float* c1, const float* c2,
-                            int degree, const void* sides,
-                            const void* class_start, int nc, int X, int Y,
-                            int Z, float E, float kG, float G2,
-                            void* stream) {
+                            const void* r2, void* out, void* dg,
+                            const void* items, const float* c1,
+                            const float* c2, int degree,
+                            int cluster, int threads, int ipt, int per_block,
+                            int n_items, int n_sides, int n_e, int r2_smem,
+                            const void* sides, const void* class_start,
+                            int nc, int X, int Y, int Z, float E, float kG,
+                            float G2, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
+  const B5Plan p = make_plan(cluster, threads, ipt, per_block, n_items,
+                             n_sides, n_e, r2_smem);
+  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
+  const long long smem = b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
+                                       dtype == 0 ? 4 : 2);
+  if (!plan_ok(layout, p, smem) || Fp >= (1 << B5_Q_BITS)
+      || (layout == B5_GLOBAL && dg == nullptr))
+    return (int)cudaErrorInvalidValue;
   ChebCoefs cf;
   for (int i = 0; i < degree; ++i) {
     cf.c1[i] = c1[i];
     cf.c2[i] = c2[i];
   }
   const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
+  const ChebFullArgs a = {b, x0, fd, sc, r2, out, dg, items};
   cudaStream_t st_ = (cudaStream_t)stream;
   if (dtype == 0)
     return with_x0
-        ? cheb_full<float, true>(b, x0, fd, sc, r2, out, xs, rs, dg, cf,
-                                 degree, s, st_)
-        : cheb_full<float, false>(b, x0, fd, sc, r2, out, xs, rs, dg, cf,
-                                  degree, s, st_);
+        ? cheb_full_layout<float, true>(layout, a, cf, degree, p, s, smem, st_)
+        : cheb_full_layout<float, false>(layout, a, cf, degree, p, s, smem,
+                                         st_);
   typedef __nv_bfloat16 bf;
   return with_x0
-      ? cheb_full<bf, true>(b, x0, fd, sc, r2, out, xs, rs, dg, cf, degree,
-                            s, st_)
-      : cheb_full<bf, false>(b, x0, fd, sc, r2, out, xs, rs, dg, cf, degree,
-                             s, st_);
+      ? cheb_full_layout<bf, true>(layout, a, cf, degree, p, s, smem, st_)
+      : cheb_full_layout<bf, false>(layout, a, cf, degree, p, s, smem, st_);
 }
 
-extern "C" int mg_cheb_full_smem_bytes() { return MAX_SMEM; }
+template <typename T, bool WITH_X0, int LAYOUT>
+static int max_clusters(const B5Plan& p, size_t smem) {
+  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT>();
+  if (e != cudaSuccess) return -(int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(p, smem, 0, &attr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &n, (void*)mg_cheb_full_kernel<T, WITH_X0, LAYOUT>, &cfg);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, bool WITH_X0>
+static int max_clusters_layout(int layout, const B5Plan& p, size_t smem) {
+  if (layout == B5_BCAST) return max_clusters<T, WITH_X0, B5_BCAST>(p, smem);
+  return max_clusters<T, WITH_X0, B5_GLOBAL>(p, smem);
+}
+
+// how many clusters of this plan the card can hold at once (0: it cannot
+// run one); a negative value is -cudaError
+extern "C" int mg_cheb_full_max_clusters(int dtype, int with_x0, int layout,
+                                         int cluster, int threads, int nc,
+                                         int X, int Y, int Z, int n_sides,
+                                         int n_e, int r2_smem) {
+  const B5Plan p = make_plan(cluster, threads, 1, threads, threads, n_sides,
+                             n_e, r2_smem);
+  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
+  const long long smem = b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
+                                       dtype == 0 ? 4 : 2);
+  if (!plan_ok(layout, p, smem)) return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return with_x0 ? max_clusters_layout<float, true>(layout, p, smem)
+                   : max_clusters_layout<float, false>(layout, p, smem);
+  typedef __nv_bfloat16 bf;
+  return with_x0 ? max_clusters_layout<bf, true>(layout, p, smem)
+                 : max_clusters_layout<bf, false>(layout, p, smem);
+}
+
+extern "C" int mg_cheb_full_smem_limit() { return MAX_SMEM; }
 extern "C" int mg_cheb_full_max_degree() { return MAX_DEGREE; }

@@ -19,10 +19,18 @@ rule (the TPU kernel's scoped-VMEM tile search ``_vmem_est`` /
 ``_best_tile``, then ``_fits`` and ``T_full``).  The CUDA kernels do NOT
 use it for their layout: it only picks B5 or B3 + B4 per level.
 
+**B5's launch.**  B5 runs the level on one thread-block cluster
+(``b5_plan``): the cluster size follows a fixed rule from the level's
+interior item count, each block owns a contiguous share of the interior
+list (``b5_items``), and d sits in every block's shared memory where it
+fits, in global scratch elsewhere.  The result is the same bits whatever
+the cluster size or layout.
+
 On a CPU tensor every wrapper runs its plain torch version (the gather
 form of ``parallel/structured.py`` for K, then the same pointwise update
-with the same rounding points); on a CUDA tensor it launches its kernel or
-raises.  ``launches`` counts each kernel's launches.
+with the same rounding points); on a CUDA tensor it launches its kernel
+(through ``kernels/launch.py``) or raises.  ``launches`` counts each
+kernel's launches, ``b5_launches`` B5's by cluster size.
 """
 
 from __future__ import annotations
@@ -31,14 +39,16 @@ import ctypes
 import os
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
-from .stencil import FLOPS_PER_SIDE, StencilMatvec, edge_sides
+from . import launch
+from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 
 __all__ = ["FusedSmoother", "route", "has_kernel_matvec", "cheb_static",
-           "storage_dtype", "check_compute", "KERNELS"]
+           "storage_dtype", "check_compute", "KERNELS", "b5_plan",
+           "b5_items", "b5_partition", "B5_CLUSTERS"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 SOURCE = "pylatticedso_tpu_torch/csrc/mg_fused.cu"
@@ -185,26 +195,118 @@ def _unpad(v: torch.Tensor) -> torch.Tensor:
     return v[..., 1:-1, 1:-1, 1:-1]
 
 
-_SIGS = {
-    "mg_residual": [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p],
-    "mg_cheb_run": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9
-    + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-    + [ctypes.c_float] * 3 + [ctypes.c_void_p],
-    "mg_cheb_full": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
-    + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-    + [ctypes.c_float] * 3 + [ctypes.c_void_p],
-    "mg_cheb_full_smem_bytes": [],
-    "mg_cheb_full_max_degree": [],
-}
+# ------------------------------------------------------------ B5's plan
+# B5 runs one thread-block cluster per launch (csrc/mg_fused.cu).  The
+# plan is made here, on the host: the cluster size, the partition of the
+# level's interior items over its blocks and threads, and where d and r^2
+# live.  The kernel takes it as it is.  The layouts of d: a full copy in
+# every block's shared memory, each block's updates broadcast into all of
+# them, or float global scratch.
+B5_LAYOUTS = {"bcast": 0, "global": 1}          # csrc's B5_BCAST, B5_GLOBAL
+# the layout of d on a level whose d fits a block's shared memory
+B5_SMEM_LAYOUT = "bcast"
+B5_CLUSTERS = (1, 2, 4, 8, 16)  # 16 needs the non-portable cluster size
+# the rule: the smallest cluster that leaves <= 256 items to a block (one
+# item a thread); on an H100 it picks the fastest measured cluster at 7^3
+# (8), 4^3 (2), 2^3 (1) and the hybrid check case (4)
+B5_ITEMS_PER_BLOCK = 256
+B5_MAX_THREADS = 256            # csrc's B5_MAX_THREADS
+B5_MAX_IPT = 4                  # items per thread, csrc's B5_MAX_IPT
+B5_Q_BITS = 22                  # items[i] = (class << 22) | padded point
+B5_SMEM_LIMIT = 227 * 1024      # dynamic shared memory of one block, sm_90
+B5_MAX_DEGREE = 64              # csrc's MAX_DEGREE (Chebyshev coefficients)
 
 
-def _fn(name: str):
-    fn = getattr(build.load("mg_fused"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGS[name]
-        fn.restype = ctypes.c_int
-    return fn
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def b5_smem_bytes(layout: str, nc: int, Fp: int, n_sides: int, n_e: int,
+                  r2_smem: bool, itemsize: int) -> int:
+    """Dynamic shared memory of one B5 block (csrc ``b5_smem_bytes``):
+    the sides table, class_start, d in float (layout ``bcast``) and r^2 in
+    the storage type."""
+    n = _align16(n_sides * SIDE_DTYPE.itemsize) + _align16(4 * (nc + 1))
+    if layout == "bcast":
+        n += _align16(4 * nc * 6 * Fp)
+    if r2_smem:
+        n += _align16(itemsize * n_e * Fp)
+    return n
+
+
+def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
+            cluster: Optional[int] = None,
+            layout: Optional[str] = None) -> Dict:
+    """B5's launch plan for a level: ``cluster`` blocks (by default the
+    rule: the smallest power of two that leaves at most
+    ``B5_ITEMS_PER_BLOCK`` interior items to a block), ``per_block``
+    contiguous items per block, ``threads`` threads of ``ipt`` items each;
+    d in shared memory (``B5_SMEM_LAYOUT``) where it fits one block, else
+    in global scratch (``layout`` forces one); r^2 staged in shared memory
+    where it fits after d.  Raises ValueError for a plan the kernel cannot
+    run."""
+    X, Y, Z = grid
+    Fp = (X + 2) * (Y + 2) * (Z + 2)
+    n_items = nc * X * Y * Z
+    if Fp >= 1 << B5_Q_BITS:
+        raise ValueError(f"B5: {Fp} padded points per class exceed the "
+                         f"item encoding (2^{B5_Q_BITS})")
+    if cluster is None:
+        cluster = 1
+        while cluster < B5_CLUSTERS[-1] \
+                and -(-n_items // cluster) > B5_ITEMS_PER_BLOCK:
+            cluster *= 2
+    if cluster not in B5_CLUSTERS or cluster > n_items:
+        raise ValueError(f"B5: cluster {cluster} for {n_items} items")
+    per_block = -(-n_items // cluster)
+    threads = min(B5_MAX_THREADS, -(-per_block // 32) * 32)
+    ipt = -(-per_block // threads)
+    if ipt > B5_MAX_IPT:
+        raise ValueError(
+            f"B5: {n_items} interior items do not fit a cluster of "
+            f"{cluster} blocks of {B5_MAX_THREADS} threads x {B5_MAX_IPT}")
+    size = lambda lay, r2s: b5_smem_bytes(lay, nc, Fp, n_sides, n_e, r2s,
+                                          itemsize)
+    if layout is None:
+        layout = B5_SMEM_LAYOUT \
+            if size(B5_SMEM_LAYOUT, False) <= B5_SMEM_LIMIT else "global"
+    if layout not in B5_LAYOUTS:
+        raise ValueError(f"B5: layout {layout!r}")
+    r2_smem = size(layout, True) <= B5_SMEM_LIMIT
+    smem = size(layout, r2_smem)
+    if smem > B5_SMEM_LIMIT:
+        raise ValueError(f"B5: layout {layout!r} needs {smem} bytes of "
+                         f"shared memory (limit {B5_SMEM_LIMIT})")
+    return {"layout": layout, "cluster": cluster, "threads": threads,
+            "ipt": ipt, "per_block": per_block, "n_items": n_items,
+            "n_sides": n_sides, "n_e": n_e, "r2_smem": r2_smem,
+            "smem_bytes": smem}
+
+
+def b5_items(nc: int, grid) -> np.ndarray:
+    """The level's interior list, as the kernel reads it: (class << 22) |
+    padded point of every interior (class, point), in ascending order."""
+    X, Y, Z = grid
+    Yp, Zp = Y + 2, Z + 2
+    x, y, z = np.meshgrid(np.arange(1, X + 1), np.arange(1, Y + 1),
+                          np.arange(1, Z + 1), indexing="ij")
+    q = (x * (Yp * Zp) + y * Zp + z).reshape(-1)
+    c = np.repeat(np.arange(nc), q.size)
+    return ((c << B5_Q_BITS) | np.tile(q, nc)).astype(np.int32)
+
+
+def b5_partition(plan: Dict) -> List[np.ndarray]:
+    """Per block, the items (indices into ``b5_items``) its threads own, in
+    the kernel's order (thread t, slot j: block start + t + j * threads)."""
+    out = []
+    for blk in range(plan["cluster"]):
+        i0 = blk * plan["per_block"]
+        i1 = min(i0 + plan["per_block"], plan["n_items"])
+        t = np.arange(plan["threads"])
+        idx = np.concatenate([i0 + t + j * plan["threads"]
+                              for j in range(plan["ipt"])])
+        out.append(idx[idx < i1])
+    return out
 
 
 class FusedSmoother:
@@ -223,6 +325,14 @@ class FusedSmoother:
         self.nc = slat.nc
         self.n_e = len(slat.edges)
         self.launches: Dict[str, int] = {k: 0 for k in KERNELS}
+        # B5's plan and launches by cluster size, for the reports
+        self.b5_plans: Dict[tuple, Dict] = {}
+        self.b5_launches: Dict[int, int] = {}
+        self._dev: Dict[tuple, object] = {}     # per-device launch args
+        self._coefs: Dict[tuple, tuple] = {}    # (frac, degree) -> c1, c2
+        padded = tuple(g + 2 for g in self.grid)
+        self._shapes = (torch.Size((self.nc, 6) + padded),
+                        torch.Size((self.n_e,) + padded))
 
     # ------------------------------------------------------------ helpers
     @property
@@ -262,38 +372,43 @@ class FusedSmoother:
 
     def _check(self, what: str, vecs, sc: Optional[torch.Tensor],
                r2: torch.Tensor) -> torch.dtype:
+        """The storage dtype of ``vecs``; raises unless every vector, r^2
+        and sc are contiguous, of the level's shapes, of one storage dtype
+        (sc float32) and on one CUDA device."""
         io = vecs[0].dtype
-        if io not in (torch.float32, torch.bfloat16):
+        if io is not torch.float32 and io is not torch.bfloat16:
             raise NotImplementedError(
                 f"{what} stores float32 or bfloat16 (got {io})")
-        dev = vecs[0].device
-        shape = (self.nc, 6) + self.padded
+        dev = vecs[0].get_device()
+        shape, r2_shape = self._shapes
         for v in vecs:
-            if v.dtype != io or v.device != dev or tuple(v.shape) != shape \
-                    or not v.is_contiguous():
+            if v.dtype is not io or v.get_device() != dev \
+                    or v.shape != shape or not v.is_contiguous():
                 raise ValueError(
-                    f"{what}: vectors must be contiguous {shape} {io} on "
-                    f"{dev}; got {tuple(v.shape)} {v.dtype} on {v.device}")
-        if r2.dtype != io or r2.device != dev or not r2.is_contiguous() \
-                or tuple(r2.shape) != (self.n_e,) + self.padded:
+                    f"{what}: vectors must be contiguous {tuple(shape)} {io} "
+                    f"on cuda:{dev}; got {tuple(v.shape)} {v.dtype} on "
+                    f"{v.device}")
+        if r2.dtype is not io or r2.get_device() != dev \
+                or r2.shape != r2_shape or not r2.is_contiguous():
             raise ValueError(f"{what}: r^2 must be contiguous "
-                             f"{(self.n_e,) + self.padded} {io} on {dev}")
-        if sc is not None and (sc.dtype != torch.float32 or sc.device != dev
-                               or tuple(sc.shape) != (2,)):
-            raise ValueError(f"{what}: sc must be float32 (2,) on {dev}")
+                             f"{tuple(r2_shape)} {io} on cuda:{dev}")
+        if sc is not None and (sc.dtype is not torch.float32
+                               or sc.get_device() != dev
+                               or sc.shape != (2,)):
+            raise ValueError(f"{what}: sc must be float32 (2,) on cuda:{dev}")
         return io
 
-    def _args(self, device):
-        sides, class_start = self.mv.tables(device)
-        X, Y, Z = self.grid
-        return ([sides.data_ptr(), class_start.data_ptr(), self.nc, X, Y, Z,
-                 *self.mv.consts,
-                 torch.cuda.current_stream(device).cuda_stream])
-
-    @staticmethod
-    def _raise(name: str, rc: int) -> None:
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    def _static(self, index: int) -> tuple:
+        """The launch arguments that never change on device ``index``:
+        the side table, class_start, grid and material constants."""
+        key = ("stencil", index)
+        args = self._dev.get(key)
+        if args is None:
+            sides, class_start = self.mv.tables(torch.device("cuda", index))
+            args = (sides.data_ptr(), class_start.data_ptr(), self.nc,
+                    *self.grid, *self.mv.consts)
+            self._dev[key] = args
+        return args
 
     # ------------------------------------------------------- plain versions
     # K is the gather form (self.mv.plain) on interior fields, in its own
@@ -340,17 +455,27 @@ class FusedSmoother:
         return F.pad(x + d, PAD).to(io)
 
     # ------------------------------------------------------------ wrappers
+    @staticmethod
+    def _cpu_only(t: torch.Tensor) -> None:
+        """Off the card only a CPU tensor is taken (by the plain
+        version)."""
+        if t.device.type != "cpu":
+            raise ValueError(f"the fused kernels run on CPU (plain) or CUDA "
+                             f"tensors, got {t.device}")
+
     def residual(self, b, x, fm, r2):
         """B3: fm (b - K x), rounded to the storage dtype."""
-        if b.device.type == "cpu":
+        if not b.is_cuda:
+            self._cpu_only(b)
             return self.plain_residual(b, x, fm, r2)
         io = self._check("B3", (b, x, fm), None, r2)
         out = torch.empty_like(b)
-        rc = _fn("mg_residual")(
+        dev = b.get_device()
+        rc = launch.functions("mg_fused")["mg_residual"](
             int(io == torch.bfloat16), x.data_ptr(), b.data_ptr(),
-            fm.data_ptr(), r2.data_ptr(), out.data_ptr(),
-            *self._args(b.device))
-        self._raise("mg_residual", rc)
+            fm.data_ptr(), r2.data_ptr(), out.data_ptr(), *self._static(dev),
+            launch.stream(dev))
+        launch.check("mg_residual", rc)
         self.launches["residual"] += 1
         return out
 
@@ -358,54 +483,122 @@ class FusedSmoother:
                  final: bool):
         """B4: one Chebyshev step; (x1, r1, d1), or x1 + d1 when
         ``final``."""
-        if x.device.type == "cpu":
+        if not x.is_cuda:
+            self._cpu_only(x)
             return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final)
         io = self._check("B4", (x, r, d, fd), sc, r2)
         x1 = torch.empty_like(x)
         r1 = d1 = None
         if not final:
             r1, d1 = torch.empty_like(x), torch.empty_like(x)
-        ptr = lambda t: None if t is None else t.data_ptr()
-        rc = _fn("mg_cheb_run")(
+        dev = x.get_device()
+        rc = launch.functions("mg_fused")["mg_cheb_run"](
             int(io == torch.bfloat16), int(final), x.data_ptr(),
             r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
-            r2.data_ptr(), x1.data_ptr(), ptr(r1), ptr(d1), c1, c2,
-            *self._args(x.device))
-        self._raise("mg_cheb_run", rc)
+            r2.data_ptr(), x1.data_ptr(), None if final else r1.data_ptr(),
+            None if final else d1.data_ptr(), c1, c2, *self._static(dev),
+            launch.stream(dev))
+        launch.check("mg_cheb_run", rc)
         self.launches["cheb_run"] += 1
         return x1 if final else (x1, r1, d1)
 
-    def cheb_full(self, b, x0, fd, sc, r2, frac: float, degree: int):
+    def b5_plan(self, io: torch.dtype, with_x0: bool = False,
+                cluster: Optional[int] = None, layout: Optional[str] = None,
+                device: Optional[int] = None) -> Dict:
+        """B5's plan on this level (``b5_plan``) for storage ``io``.  On a
+        card (``device``), a cluster the card cannot hold with this
+        plan's shared memory is halved until it can (the rule's cluster is
+        not re-asked per launch: plans are cached); a requested
+        ``cluster`` or ``layout`` is taken as given and raises if the card
+        cannot run it."""
+        key = (io, with_x0, cluster, layout, device)
+        plan = self.b5_plans.get(key)
+        if plan is not None:
+            return plan
+        itemsize = torch.finfo(io).bits // 8
+        plan = b5_plan(self.nc, self.grid, self.n_e, self.mv.n_sides,
+                       itemsize, cluster, layout)
+        while device is not None:
+            fits = launch.functions("mg_fused")["mg_cheb_full_max_clusters"](
+                int(io == torch.bfloat16), int(with_x0),
+                B5_LAYOUTS[plan["layout"]], plan["cluster"], plan["threads"],
+                self.nc, *self.grid, plan["n_sides"], self.n_e,
+                int(plan["r2_smem"]))
+            if fits < 0:
+                raise RuntimeError(f"B5 cluster query failed: cudaError "
+                                   f"{-fits}")
+            if fits > 0:
+                break
+            if cluster is not None or plan["cluster"] == 1:
+                raise ValueError(f"B5: the card cannot hold a cluster of "
+                                 f"{plan['cluster']} for grid {self.grid}")
+            plan = b5_plan(self.nc, self.grid, self.n_e, self.mv.n_sides,
+                           itemsize, plan["cluster"] // 2, layout)
+        self.b5_plans[key] = plan
+        return plan
+
+    def _b5_items(self, index: int) -> int:
+        """Device pointer of the interior list, uploaded once."""
+        key = ("items", index)
+        items = self._dev.get(key)
+        if items is None:
+            items = torch.from_numpy(b5_items(self.nc, self.grid)).to(
+                torch.device("cuda", index))
+            self._dev[key] = items
+        return items.data_ptr()
+
+    def _b5_coefs(self, frac: float, degree: int) -> Tuple[int, int]:
+        """Host addresses of the (c1, c2) arrays of ``cheb_static``, made
+        once per (frac, degree)."""
+        key = (frac, degree)
+        got = self._coefs.get(key)
+        if got is None:
+            cs = cheb_static(frac, degree)
+            c1 = (ctypes.c_float * max(degree, 1))(*[a for a, _ in cs])
+            c2 = (ctypes.c_float * max(degree, 1))(*[b for _, b in cs])
+            got = (c1, c2, ctypes.addressof(c1), ctypes.addressof(c2))
+            self._coefs[key] = got
+        return got[2], got[3]
+
+    def cheb_full(self, b, x0, fd, sc, r2, frac: float, degree: int,
+                  cluster: Optional[int] = None,
+                  layout: Optional[str] = None):
         """B5: the whole smoother (x0 residual when ``x0`` is given,
         ``degree`` steps, x + d) in one launch, on a single-program level
-        only."""
+        only.  ``cluster`` and ``layout`` override the plan's (the card
+        tests and ``chip_smoke.py`` run every one; the result is the same
+        bits whatever they are)."""
         if not self.single_ok:
             raise ValueError(
                 f"B5 runs only on levels the routing marks single (grid "
                 f"{self.grid} is not): use B3 + B4")
-        if b.device.type == "cpu":
+        if not b.is_cuda:
+            self._cpu_only(b)
             return self.plain_cheb_full(b, x0, fd, sc, r2, frac, degree)
         vecs = (b, fd) if x0 is None else (b, fd, x0)
         io = self._check("B5", vecs, sc, r2)
-        if not 0 <= degree <= _fn("mg_cheb_full_max_degree")():
+        if not 0 <= degree <= B5_MAX_DEGREE:
             raise ValueError(f"B5 degree {degree} out of range")
-        cs = cheb_static(frac, degree)
-        c1 = (ctypes.c_float * max(degree, 1))(*[a for a, _ in cs])
-        c2 = (ctypes.c_float * max(degree, 1))(*[b_ for _, b_ in cs])
-        n = b.numel()
-        scratch = torch.empty(2 * n, dtype=torch.float32, device=b.device)
+        dev = b.get_device()
+        plan = self.b5_plan(io, x0 is not None, cluster, layout, dev)
+        items = self._b5_items(dev)
+        c1, c2 = self._b5_coefs(frac, degree)
         dg = None
-        if 4 * n > _fn("mg_cheb_full_smem_bytes")():
-            dg = torch.empty(n, dtype=torch.float32, device=b.device)
+        if plan["layout"] == "global":
+            dg = torch.empty(b.numel(), dtype=torch.float32, device=b.device)
         out = torch.empty_like(b)
-        rc = _fn("mg_cheb_full")(
-            int(io == torch.bfloat16), int(x0 is not None), b.data_ptr(),
+        rc = launch.functions("mg_fused")["mg_cheb_full"](
+            int(io == torch.bfloat16), int(x0 is not None),
+            B5_LAYOUTS[plan["layout"]], b.data_ptr(),
             None if x0 is None else x0.data_ptr(), fd.data_ptr(),
             sc.data_ptr(), r2.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n,
-            None if dg is None else dg.data_ptr(),
-            ctypes.cast(c1, ctypes.c_void_p), ctypes.cast(c2, ctypes.c_void_p),
-            degree, *self._args(b.device))
-        self._raise("mg_cheb_full", rc)
+            None if dg is None else dg.data_ptr(), items, c1, c2,
+            degree, plan["cluster"], plan["threads"], plan["ipt"],
+            plan["per_block"], plan["n_items"], plan["n_sides"], self.n_e,
+            int(plan["r2_smem"]), *self._static(dev), launch.stream(dev))
+        launch.check("mg_cheb_full", rc)
         self.launches["cheb_full"] += 1
+        self.b5_launches[plan["cluster"]] = \
+            self.b5_launches.get(plan["cluster"], 0) + 1
         return out
+

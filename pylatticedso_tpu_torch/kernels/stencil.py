@@ -36,14 +36,13 @@ by self class so that each class's sides keep the gather form's order.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import launch
 
 __all__ = ["StencilMatvec", "edge_sides", "side_table", "SIDE_DTYPE",
            "SIDE_DTYPE_F64", "FLOPS_PER_SIDE"]
@@ -109,18 +108,6 @@ def side_table(slat, dtype=SIDE_DTYPE) -> Tuple[np.ndarray, np.ndarray]:
     return table, class_start
 
 
-def _bind(lib: ctypes.CDLL, name: str):
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        cf = ctypes.c_double if name.endswith("f64") else ctypes.c_float
-        # the r^2-cotangent kernel takes one more pointer (g)
-        n_ptr = 6 if name.startswith("stencil_vjp") else 5
-        fn.argtypes = [vp] * n_ptr + [ci] * 4 + [cf] * 3 + [vp]
-        fn.restype = ctypes.c_int
-    return fn
-
-
 class _B1(torch.autograd.Function):
     """B1 with its VJP (the JAX kernel's ``custom_vjp``): u-cotangent
     K g by the same kernel (plain version on the CPU), r^2-cotangent by
@@ -179,6 +166,13 @@ class StencilMatvec:
             [[row[2 * e], row[2 * e + 1], recs[2 * e]["cs"],
               recs[2 * e + 1]["cs"]] for e in range(self.n_e)], np.int32)
         self._dev: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._static_args: Dict[tuple, tuple] = {}
+        padded = tuple(g + 2 for g in self.grid)
+        self._ushape = torch.Size((self.nc, 6) + padded)
+        self._r2shape = torch.Size((self.n_e,) + padded)
+        self._names = {torch.float32: self.name,
+                       torch.float64: self.name_f64,
+                       torch.bfloat16: self.name_lo}
 
     @property
     def n_sides(self) -> int:
@@ -203,7 +197,7 @@ class StencilMatvec:
     def apply_nograd(self, u: torch.Tensor, r2p: torch.Tensor):
         """K.u with no autograd graph: the plain version on a CPU tensor,
         B1 on a CUDA tensor."""
-        if u.device.type == "cpu":
+        if not u.is_cuda and u.device.type == "cpu":
             with torch.no_grad():
                 return self.plain(u, r2p)
         return self.launch(F.pad(u, PAD).contiguous(), r2p)
@@ -254,15 +248,12 @@ class StencilMatvec:
                              "inputs")
         f64 = io == torch.float64
         name = self.name_vjp + ("_f64" if f64 else "_f32")
-        fn = _bind(build.load("stencil_matvec"), name)
-        sides, edges = self.tables(up.device, io, vjp=True)
+        dev = up.get_device()
         out = torch.empty_like(r2p)
-        E, kG, G2 = self.consts
-        rc = fn(up.data_ptr(), gp.data_ptr(), r2p.data_ptr(), out.data_ptr(),
-                sides.data_ptr(), edges.data_ptr(), self.n_e, X, Y, Z,
-                E, kG, G2, torch.cuda.current_stream(up.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        rc = launch.functions("stencil_matvec")[name](
+            up.data_ptr(), gp.data_ptr(), r2p.data_ptr(), out.data_ptr(),
+            *self._static(dev, io, True), launch.stream(dev))
+        launch.check(name, rc)
         self.launches_vjp += 1
         return out
 
@@ -276,7 +267,7 @@ class StencilMatvec:
         if u_lo.dtype != torch.bfloat16 or r2_lo.dtype != torch.bfloat16:
             raise ValueError(f"B2 takes bfloat16 u and r^2 (got {u_lo.dtype},"
                              f" {r2_lo.dtype})")
-        if u_lo.device.type == "cpu":
+        if not u_lo.is_cuda and u_lo.device.type == "cpu":
             return self.plain_lo(u_lo, r2_lo)
         return self.launch(F.pad(u_lo, PAD), r2_lo)
 
@@ -299,39 +290,45 @@ class StencilMatvec:
                               torch.from_numpy(index.reshape(-1)).to(device))
         return self._dev[key]
 
+    def _static(self, index: int, io: torch.dtype, vjp: bool) -> tuple:
+        """The launch arguments that never change on device ``index`` for
+        storage ``io``: the tables (``tables``), the count (classes, or
+        edges for the r^2-cotangent kernel), grid and constants."""
+        key = (index, io, vjp)
+        args = self._static_args.get(key)
+        if args is None:
+            dt = torch.float64 if io == torch.float64 else torch.float32
+            table, index_ = self.tables(torch.device("cuda", index), dt, vjp)
+            args = (table.data_ptr(), index_.data_ptr(),
+                    self.n_e if vjp else self.nc, *self.grid, *self.consts)
+            self._static_args[key] = args
+        return args
+
     def launch(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
         """Run B1 (float32 or float64 u and r^2) or B2 (bfloat16 u and r^2)
         on an already ghost-padded u [nc, 6, Xp, Yp, Zp]."""
         X, Y, Z = self.grid
-        padded = (X + 2, Y + 2, Z + 2)
-        if up.device.type != "cuda" or r2p.device != up.device:
+        if not up.is_cuda or r2p.get_device() != up.get_device():
             raise ValueError(f"B1/B2 need u and r^2 on one CUDA device, got "
                              f"{up.device} and {r2p.device}")
         io = up.dtype
-        names = {torch.float32: self.name, torch.float64: self.name_f64,
-                 torch.bfloat16: self.name_lo}
-        if io not in names or r2p.dtype != io:
+        name = self._names.get(io)
+        if name is None or r2p.dtype is not io:
             raise ValueError(
                 f"B1/B2 on CUDA take float32, float64 or bfloat16 u and r^2 "
                 f"of one type (got {up.dtype}, {r2p.dtype})")
-        if tuple(up.shape) != (self.nc, 6) + padded \
-                or tuple(r2p.shape) != (self.n_e,) + padded:
+        if up.shape != self._ushape or r2p.shape != self._r2shape:
             raise ValueError(f"B1/B2 shapes: u {tuple(up.shape)}, r^2 "
                              f"{tuple(r2p.shape)} for grid {self.grid}")
         if not (up.is_contiguous() and r2p.is_contiguous()):
             raise ValueError("B1/B2 need contiguous u and r^2")
-        lo = io == torch.bfloat16
-        name = names[io]
-        fn = _bind(build.load("stencil_matvec"), name)
-        sides, class_start = self.tables(
-            up.device, torch.float64 if io == torch.float64 else torch.float32)
+        lo = io is torch.bfloat16
+        dev = up.get_device()
         out = torch.empty((self.nc, 6, X, Y, Z), dtype=io, device=up.device)
-        E, kG, G2 = self.consts
-        rc = fn(up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
-                sides.data_ptr(), class_start.data_ptr(), self.nc, X, Y, Z,
-                E, kG, G2, torch.cuda.current_stream(up.device).cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+        rc = launch.functions("stencil_matvec")[name](
+            up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
+            *self._static(dev, io, False), launch.stream(dev))
+        launch.check(name, rc)
         if lo:
             self.launches_lo += 1
         elif io == torch.float64:

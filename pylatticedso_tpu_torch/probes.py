@@ -24,14 +24,13 @@ prints what the scripts printed: ms and GFLOP/s per kind, and P2's result.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import time
 from typing import Dict
 
 import numpy as np
 import torch
 
-from .kernels import build
+from .kernels import launch
 
 __all__ = ["chain", "plain_chain", "scale", "plain_scale", "flops",
            "launches", "T", "K", "REPS", "ROWS", "KERNELS"]
@@ -39,7 +38,8 @@ __all__ = ["chain", "plain_chain", "scale", "plain_scale", "flops",
 ROWS, T = 8, 3072             # P1's block
 K = 200                       # chain length (dependent multiply-adds)
 REPS = 100                    # repeats per launch (the TPU grid)
-SCALE_SHAPE = (8, 128)        # P2's array
+SCALE_SHAPE = torch.Size((8, 128))    # P2's array
+SCALE_N = 8 * 128
 SOURCE = "pylatticedso_tpu_torch/csrc/probes.cu"
 # (kernel name, what it replaces) by wrapper
 KERNELS = {
@@ -48,29 +48,13 @@ KERNELS = {
 }
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
-_SIGS = {
-    "probe_chain": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p],
-    "probe_chain_length": [],
-    "probe_scale": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p],
-}
-
-
-def _fn(name: str):
-    fn = getattr(build.load("probes"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGS[name]
-        fn.restype = ctypes.c_int
-    return fn
+_CHAIN_SHAPE = (ROWS, T)
 
 
 def _check(x: torch.Tensor, shape, what: str) -> None:
-    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous():
-        raise ValueError(f"{what} takes a contiguous float32 {shape} tensor, "
-                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.dtype != torch.float32 or x.shape != shape or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous float32 {tuple(shape)} "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
 
 
 def flops(kind: str) -> int:
@@ -92,17 +76,19 @@ def chain(x: torch.Tensor, kind: str) -> torch.Tensor:
     launch."""
     if kind not in ("1d", "2d"):
         raise ValueError(f"kind is '1d' or '2d', got {kind!r}")
-    _check(x, (ROWS, T), "P1")
+    _check(x, _CHAIN_SHAPE, "P1")
     if x.device.type == "cpu":
         return plain_chain(x, kind)
-    if _fn("probe_chain_length")() != K:
+    if not x.is_cuda:
+        raise ValueError(f"P1 runs on a CPU or CUDA tensor, got {x.device}")
+    fns = launch.functions("probes")
+    if fns["probe_chain_length"]() != K:
         raise RuntimeError("probes.cu was built with another chain length")
     out = torch.empty_like(x)
-    rc = _fn("probe_chain")(x.data_ptr(), out.data_ptr(), ROWS, T,
-                            int(kind == "2d"), REPS,
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_chain launch failed: cudaError {rc}")
+    dev = x.get_device()
+    rc = fns["probe_chain"](x.data_ptr(), out.data_ptr(), ROWS, T,
+                            int(kind == "2d"), REPS, launch.stream(dev))
+    launch.check("probe_chain", rc)
     launches["chain"] += 1
     return out
 
@@ -113,17 +99,32 @@ def plain_scale(x: torch.Tensor) -> torch.Tensor:
 
 
 def scale(x: torch.Tensor) -> torch.Tensor:
-    """P2: x * 2.0 on an (8, 128) float32 array in one launch."""
-    _check(x, SCALE_SHAPE, "P2")
-    if x.device.type == "cpu":
-        return plain_scale(x)
+    """P2: x * 2.0 on an (8, 128) float32 array in one launch.  Its host
+    path is the launch floor the other wrappers share: a few attribute
+    checks, one allocation, one bound ctypes call on the raw stream."""
+    if x.dtype is not torch.float32 or x.shape != SCALE_SHAPE \
+            or not x.is_contiguous():
+        _check(x, SCALE_SHAPE, "P2")
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return plain_scale(x)
+        raise ValueError(f"P2 runs on a CPU or CUDA tensor, got {x.device}")
     out = torch.empty_like(x)
-    rc = _fn("probe_scale")(x.data_ptr(), out.data_ptr(), x.numel(),
-                            torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"probe_scale launch failed: cudaError {rc}")
+    rc = (_SCALE or _bind_scale())(x.data_ptr(), out.data_ptr(), SCALE_N,
+                                   launch.stream(x.get_device()))
+    if rc:
+        launch.check("probe_scale", rc)
     launches["scale"] += 1
     return out
+
+
+_SCALE = None
+
+
+def _bind_scale():
+    global _SCALE
+    _SCALE = launch.functions("probes")["probe_scale"]
+    return _SCALE
 
 
 def inputs(device) -> Dict[str, torch.Tensor]:

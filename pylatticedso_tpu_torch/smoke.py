@@ -22,8 +22,10 @@ imposed displacement against a central finite difference, (c) the same
 problem in float32 on the fused bf16 route under bench.py's protocol.  The
 probes P1 and P2 run through their own entry (``probes.main``).
 
-``run(device, n)`` runs every phase and returns a report; it raises on the
-first failure.  ``chip_smoke.py`` calls it with ``device="cuda"``, n = 50;
+B5 is also run under every cluster size and layout of d the card can hold
+(``_b5_sweep``: the same bits as its plan's, each timed by CUDA events and
+by CUDA-graph replay).  ``run(device, n)`` runs every phase and returns a
+report; it raises on the first failure.  ``chip_smoke.py`` calls it with ``device="cuda"``, n = 50;
 the CPU tests rehearse it at n = 4, where each wrapper runs its plain
 version and nothing is timed as a device number.
 """
@@ -44,7 +46,8 @@ from . import probes
 from .fem.solve import pcg
 from .kernels import build
 from .kernels.fused import KERNELS as FUSED_KERNELS
-from .kernels.fused import FusedSmoother, cheb_static
+from .kernels.fused import (B5_CLUSTERS, B5_LAYOUTS, FusedSmoother,
+                            cheb_static)
 from .kernels.stencil import StencilMatvec
 from .parallel.multigrid import _coarsen_cells, _estimate_lmax, mg_apply
 from .parallel.structured import (StructuredLattice,
@@ -160,6 +163,48 @@ def _median_ms(fn: Callable, device: torch.device, reps: int,
                 fn()
             times.append(1e3 * (time.perf_counter() - t) / batch)
     return float(np.median(times))
+
+
+def _graph_ms(fn: Callable, device: torch.device, calls: int = 20,
+              reps: int = 5) -> Optional[float]:
+    """Device time per call of ``fn`` without the host's cost per call:
+    ``calls`` calls captured once in a CUDA graph, the graph replayed
+    between CUDA events (median of ``reps``).  ``fn`` runs once first (its
+    launch state is cached then); None off the card."""
+    if device.type != "cuda":
+        return None
+    fn()
+    _sync(device)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    _sync(device)
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return float(np.median(times))
+
+
+def _paired_ms(fa: Callable, fb: Callable, device: torch.device, reps: int,
+               batch: int) -> tuple:
+    """(median ms of ``fa``, of ``fb``) per call, their samples taken in
+    turns (a, b, b, a, ...) as ``_median_ms`` takes one."""
+    a, b = [], []
+    for k in range(reps):
+        first, second = (fa, fb) if k % 2 == 0 else (fb, fa)
+        t1 = _median_ms(first, device, reps=1, batch=batch)
+        t2 = _median_ms(second, device, reps=1, batch=batch)
+        a.append(t1 if k % 2 == 0 else t2)
+        b.append(t2 if k % 2 == 0 else t1)
+    return float(np.median(a)), float(np.median(b))
 
 
 def device_phase(device: torch.device) -> Dict:
@@ -373,14 +418,80 @@ def fused_kernel_phase(device: torch.device, n: int,
                 variants.append((MG_OPTS["coarse_degree"], 1.0 / 64.0, None))
             for dg, fr, x0 in variants:
                 scv = fz.sc(lmax, fr)
-                check("B5", label, storage,
-                      f"degree {dg}{', x0' if x0 is not None else ''}",
-                      lambda: fz.cheb_full(bp, x0, fdp, scv, r2s, fr, dg),
+                variant = f"degree {dg}{', x0' if x0 is not None else ''}"
+                run = lambda **kw: fz.cheb_full(bp, x0, fdp, scv, r2s, fr,
+                                                dg, **kw)
+                check("B5", label, storage, variant, run,
                       lambda: fz.plain_cheb_full(bp, x0, fdp, scv, r2s, fr,
                                                  dg),
                       fz.work("cheb_full", nbytes, degree=dg,
                               with_x0=x0 is not None))
+                out[-1].update(_b5_sweep(fz, run, io, x0 is not None, device,
+                                         label, storage, variant))
     return out
+
+
+# B5 before its redesign for Hopper clusters: the one-block kernel's times
+# (ms, CUDA-event medians of back-to-back launches) as chip_smoke.py of
+# commit 9cba2c9 measured them on an NVIDIA H100 80GB HBM3, 700.00 W; the
+# smoke prints each case's time beside its entry here
+B5_BEFORE_MS = {
+    ("Octet 7^3 (MG level 3)", "f32", "degree 2"): 0.1208,
+    ("Octet 7^3 (MG level 3)", "f32", "degree 2, x0"): 0.1565,
+    ("Octet 7^3 (MG level 3)", "bf16", "degree 2"): 0.1168,
+    ("Octet 7^3 (MG level 3)", "bf16", "degree 2, x0"): 0.1528,
+    ("Octet 4^3 (MG level 4)", "f32", "degree 2"): 0.0422,
+    ("Octet 4^3 (MG level 4)", "f32", "degree 2, x0"): 0.0557,
+    ("Octet 4^3 (MG level 4)", "bf16", "degree 2"): 0.0507,
+    ("Octet 4^3 (MG level 4)", "bf16", "degree 2, x0"): 0.0561,
+    ("Octet 2^3 (MG level 5)", "f32", "degree 2"): 0.0481,
+    ("Octet 2^3 (MG level 5)", "f32", "degree 2, x0"): 0.0507,
+    ("Octet 2^3 (MG level 5)", "f32", "degree 24"): 0.1945,
+    ("Octet 2^3 (MG level 5)", "bf16", "degree 2"): 0.0487,
+    ("Octet 2^3 (MG level 5)", "bf16", "degree 2, x0"): 0.0495,
+    ("Octet 2^3 (MG level 5)", "bf16", "degree 24"): 0.1890,
+}
+
+
+def _b5_sweep(fz, run, io, with_x0, device, label, storage,
+              variant) -> Dict:
+    """B5 under every cluster size and layout of d the card can run on
+    this level: each gives the plan's bits (and so does a repeat), and
+    each is timed on the card.  The plan's own choice is recorded beside
+    the time before the redesign."""
+    cuda = device.type == "cuda"
+    index = (device.index or 0) if cuda else None
+    plan = fz.b5_plan(io, with_x0, device=index)
+    want = run()
+    same = lambda got: torch.equal(got, want)
+    if not same(run()):
+        raise AssertionError(f"B5 on {label} ({storage}, {variant}): two "
+                             f"identical launches differ bitwise")
+    sweep = []
+    for layout in B5_LAYOUTS:
+        for cluster in B5_CLUSTERS:
+            try:
+                fz.b5_plan(io, with_x0, cluster, layout, index)
+            except ValueError:
+                continue          # too few items, too many, or no room
+            kw = {"cluster": cluster, "layout": layout}
+            got = run(**kw)
+            _sync(device)
+            if not same(got):
+                raise AssertionError(
+                    f"B5 on {label} ({storage}, {variant}): cluster "
+                    f"{cluster}, layout {layout} differs bitwise from the "
+                    f"plan's (cluster {plan['cluster']}, {plan['layout']})")
+            ms = _median_ms(lambda: run(**kw), device, reps=5, batch=20) \
+                if cuda else None
+            sweep.append({"cluster": cluster, "layout": layout, "ms": ms,
+                          "device_ms": _graph_ms(lambda: run(**kw), device)})
+    if not any(c["layout"] == "global" for c in sweep):
+        raise AssertionError(f"B5 on {label}: the global-d layout never ran")
+    return {"plan": {k: plan[k] for k in ("cluster", "layout", "threads",
+                                          "ipt", "r2_smem", "smem_bytes")},
+            "sweep": sweep, "device_ms": _graph_ms(run, device),
+            "before_ms": B5_BEFORE_MS.get((label, storage, variant))}
 
 
 def _bench_problem(n: int, device, dtype):
@@ -429,6 +540,7 @@ def _zero(ctr) -> None:
                 setattr(w, attr, 0)
             for k in w.fused.launches:
                 w.fused.launches[k] = 0
+            w.fused.b5_launches.clear()
     for op in ctr["ops"]:
         op.plain_calls = 0
 
@@ -440,6 +552,18 @@ def _read(ctr) -> Dict[str, List[int]]:
                      ("B5", "cheb_full")):
         out[tag] = [sum(w.fused.launches[key] for w in ws)
                     for ws in ctr["mvs"]]
+    return out
+
+
+def _b5_clusters(ctr) -> List[Dict[int, int]]:
+    """Per MG level, B5's launches by the cluster size it ran with."""
+    out = []
+    for ws in ctr["mvs"]:
+        per: Dict[int, int] = {}
+        for w in ws:
+            for cl, k in w.fused.b5_launches.items():
+                per[cl] = per.get(cl, 0) + k
+        out.append(dict(sorted(per.items())))
     return out
 
 
@@ -526,6 +650,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         _sync(device)
         window_s.append(time.perf_counter() - t1)
     counts = _read(ctr)
+    b5_clusters = _b5_clusters(ctr)
 
     # true residual of the last solve, with the plain operator in f64
     sl64 = StructuredLattice("Octet", (n, n, n), (1.0, 1.0, 1.0), E_MOD, NU,
@@ -592,7 +717,8 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         "reference_rel_residual": ref_res, "compliance_reference": c_ref,
         "compliance_rel_err": c_err, "u_rel_err": u_err, "bitwise": bitwise,
         "finite": finite, "launches_per_level": counts["B1"],
-        "kernel_launches": counts, "grad_shape": list(gg.shape),
+        "kernel_launches": counts, "b5_clusters": b5_clusters,
+        "grad_shape": list(gg.shape),
     }
     if not finite:
         raise AssertionError(f"non-finite main-path result: {report}")
@@ -776,12 +902,13 @@ def probe_phase(device: torch.device) -> Dict:
     rec = {"kernel": "P2", "case": "8x128", "max_abs_err": 0.0,
            "max_rel_err": 0.0, **_bound_of((2 * x.numel() * 4, x.numel()))}
     if cuda:
-        rec["ms"] = _median_ms(lambda: probes.scale(x), device, reps=7,
-                               batch=50)
+        # P2 and torch.mul in turns, one sample of each per round, so that
+        # the host's load moves both alike
+        rec["ms"], rec["library_ms"] = _paired_ms(
+            lambda: probes.scale(x), lambda: torch.mul(x, 2.0), device,
+            reps=15, batch=50)
         rec["plain_ms"] = _median_ms(lambda: probes.plain_scale(x), device,
                                      reps=7, batch=50)
-        rec["library_ms"] = _median_ms(lambda: torch.mul(x, 2.0), device,
-                                       reps=7, batch=50)
     else:
         rec["ms"] = rec["library_ms"] = None
         rec["plain_ms"] = _median_ms(lambda: probes.plain_scale(x), device,
@@ -979,6 +1106,7 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
         _sync(device)
         window_s.append(time.perf_counter() - t1)
     counts = _read(ctr)
+    b5_clusters = _b5_clusters(ctr)
     plain_calls = _plain_calls(ctr)
     _abs, g_err = _err(g.to(torch.float64), g_ref)
     finite = bool(torch.isfinite(cc) and torch.isfinite(gg).all()
@@ -988,7 +1116,7 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
            "cold_iterations": cold, "warm_iterations": iters,
            "window_s": window_s, "s_per_step": min(window_s) / steps,
            "single_levels": single, "kernel_launches": counts,
-           "plain_gather_calls": plain_calls}
+           "b5_clusters": b5_clusters, "plain_gather_calls": plain_calls}
     if not finite:
         raise AssertionError(f"(c) non-finite result: {rep}")
     if not bitwise:
@@ -1016,6 +1144,7 @@ def profile_phase(device: torch.device, n: int, route: str = "f32",
     iterations.  The profiler's own host cost lengthens the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_phase = time.perf_counter()
     with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
         if route == "design":
             step, _ = _design_step(n, device, torch.float32, "fused", 1e-6,
@@ -1049,11 +1178,15 @@ def profile_phase(device: torch.device, n: int, route: str = "f32",
     rows.sort(key=lambda x: -x[1])
     busy_ms = sum(x[1] for x in rows)
     events = sum(x[2] for x in rows)
+    b5 = [x for x in rows if "mg_cheb_full" in x[0]]
     return {"route": route, "steps": steps, "iterations": iters,
             "wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (1e3 * wall),
             "device_events": events,
             "events_per_iteration": events / max(sum(iters), 1),
+            "b5_ms": sum(x[1] for x in b5),
+            "b5_launches": sum(x[2] for x in b5),
+            "phase_s": time.perf_counter() - t_phase,
             "top": [{"name": k, "ms": ms, "count": c}
                     for k, ms, c in rows[:20]]}
 
@@ -1070,11 +1203,13 @@ def _entry(name, source, replaces, launches, recs, head, per_level,
         "max_rel_err": max(c["max_rel_err"] for c in recs),
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": library_ms, "launches_per_level": per_level,
+        "library_ms": library_ms, "device_ms": head.get("device_ms"),
+        "launches_per_level": per_level,
         "cases": [{k: c.get(k) for k in (
             "case", "storage", "variant", "ms", "ms_cold", "wrapper_ms",
-            "plain_ms", "autograd_ms", "library_ms", "bound_ms", "bound_by",
-            "max_rel_err")} for c in recs],
+            "device_ms", "before_ms", "plain_ms", "autograd_ms",
+            "library_ms", "bound_ms", "bound_by", "max_rel_err")}
+            for c in recs],
     }
 
 
@@ -1179,6 +1314,19 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{_ms(c['ms'])} (after L2 flush {_ms(c['ms_cold'])}), plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
             f"({c['bound_by']}) [{card}]")
+        if c["kernel"] == "B5":
+            p = c["plan"]
+            log(f"B5 {c['case']} {c['storage']} {c['variant']}: plan cluster "
+                f"{p['cluster']} x {p['threads']} threads x {p['ipt']} "
+                f"items, d {p['layout']}, r^2 in shared memory "
+                f"{p['r2_smem']} ({p['smem_bytes']} bytes) | "
+                f"{_ms(c['ms'])} (device, graph replay "
+                f"{_ms(c['device_ms'])}) vs before the redesign "
+                f"{_ms(c['before_ms'])} | bitwise equal across, "
+                f"cluster/layout event (graph) times: "
+                + ", ".join(f"{x['cluster']}/{x['layout']} {_ms(x['ms'])} "
+                            f"({_ms(x['device_ms'])})"
+                            for x in c["sweep"]) + f" [{card}]")
     budget.check("kernels B2-B5")
 
     cases64 = kernel64_phase(dev, n)
@@ -1205,7 +1353,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         rate = "" if c.get("gflops") is None \
             else f", {c['gflops']:.1f} GFLOP/s"
         lib = "" if c["library_ms"] is None \
-            else f", torch.mul {_ms(c['library_ms'])}"
+            else (f", torch.mul {_ms(c['library_ms'])} (P2 / torch.mul "
+                  f"{c['ms'] / c['library_ms']:.3f}, not gated)")
         log(f"{c['kernel']} {c['case']}: bitwise equal to plain | kernel "
             f"{_ms(c['ms'])}{rate}, plain {c['plain_ms']:.4f} ms{lib}, "
             f"bound {c['bound_ms']:.6f} ms ({c['bound_by']}) [{card}]")
@@ -1229,7 +1378,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{m['recurrence_rel_residual']:.2e}); vs f64 reference: "
             f"compliance {m['compliance_rel_err']:.2e}, u "
             f"{m['u_rel_err']:.2e}; bitwise {m['bitwise']}; launches per "
-            f"level {m['kernel_launches']} [{card}]")
+            f"level {m['kernel_launches']}; B5 launches per level by "
+            f"cluster size {m['b5_clusters']} [{card}]")
         budget.check(f"main path {route}")
     # the timed (warm-started) steps must converge like the f32 route's;
     # the cold solve's count is printed beside the f32 route's: with bf16
@@ -1275,7 +1425,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{FUSED_VS_F64_TOL:.0e}); bitwise {c['bitwise']}; cold CG "
         f"iterations {c['cold_iterations']}; warm {c['warm_iterations']}; "
         f"plain gather calls {c['plain_gather_calls']}; launches "
-        f"{c['kernel_launches']} [{card}]")
+        f"{c['kernel_launches']}; B5 launches per level by cluster size "
+        f"{c['b5_clusters']} [{card}]")
     budget.check("design gradient")
     return {"device": info, "build": built, "cases": cases,
             "fused_cases": fused_cases, "cases64": cases64,

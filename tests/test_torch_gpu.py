@@ -219,3 +219,119 @@ def test_routes_small_on_card(route):
                                 steps=3, windows=1)
     assert rep["bitwise"] and rep["finite"]
     assert rep["compliance_rel_err"] <= 1e-5
+
+
+def _b5_level(cells, storage):
+    """An Octet level of ``cells``^3 with the smoother's inputs, as the
+    V-cycle holds them (its own diagonal and lmax keep the polynomial
+    bounded), ghost-padded in ``storage``."""
+    from pylatticedso_tpu_torch.parallel.multigrid import _estimate_lmax
+    io = smoke.STORAGE[storage]
+    ts = StructuredLattice("Octet", (cells,) * 3, (1.0, 1.0, 1.0), 1013.0,
+                           0.3, dtype=torch.float32, device="cuda")
+    tm, diag = ts.make_matvec()
+    fz = tm.apply.fused
+    g = torch.Generator(device="cuda").manual_seed(cells)
+    shape = (ts.nc, 6) + ts.grid
+    fixed = ts.select_nodes(lambda x, y, z: z == 0.0)
+    fm = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+        (ts.node_valid & ~fixed)[:, None], shape), np.float32), device="cuda")
+    u = torch.randn(shape, generator=g, device="cuda")
+    b = torch.randn(shape, generator=g, device="cuda") * fm
+    r = 0.04 + 0.05 * torch.rand((ts.n_geom, cells, cells, cells),
+                                 generator=g, device="cuda")
+    aux = tm.prepare(r)
+    D = fm * diag(r) + (1.0 - fm)
+    D = torch.where(D == 0, torch.ones_like(D), D)
+    lmax = _estimate_lmax(lambda v: fm * tm.apply(fm * v, aux)
+                          + (1.0 - fm) * v, D, shape, torch.float32, iters=5)
+    P = lambda a: torch.nn.functional.pad(a, (1,) * 6).to(io)
+    return fz, io, lmax, P(b), P(u * fm), P(fm / D), aux.to(io)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("cells", [7, 4, 2])
+def test_b5_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
+    """B5 on the 50^3 hierarchy's single levels (7^3, 4^3, 2^3): within
+    STORAGE_TOL of its plain version, bitwise on repeat, and the same bits
+    under every cluster size and layout of d the card can run, the
+    global-d layout included; at 7^3 the plan spreads the level over more
+    than one SM."""
+    _need_card()
+    from pylatticedso_tpu_torch.kernels import launch
+    from pylatticedso_tpu_torch.kernels.fused import (B5_CLUSTERS,
+                                                      B5_LAYOUTS,
+                                                      B5_MAX_DEGREE,
+                                                      B5_SMEM_LIMIT)
+    fz, io, lmax, b, x, fd, r2 = _b5_level(cells, storage)
+    assert fz.single_ok
+    tol = smoke.STORAGE_TOL[storage]["B5"]
+    fns = launch.functions("mg_fused")
+    assert fns["mg_cheb_full_smem_limit"]() == B5_SMEM_LIMIT
+    assert fns["mg_cheb_full_max_degree"]() == B5_MAX_DEGREE
+    cases = [(None, 2, 0.35), (x, 2, 0.35)]
+    if cells == 2:
+        cases.append((None, 24, 1.0 / 64.0))
+    for x0, deg, frac in cases:
+        sc = fz.sc(lmax, frac)
+        run = lambda **kw: fz.cheb_full(b, x0, fd, sc, r2, frac, deg, **kw)
+        want = run()
+        plain = fz.plain_cheb_full(b, x0, fd, sc, r2, frac, deg)
+        err = float((want.float() - plain.float()).abs().max()
+                    / plain.float().abs().max())
+        assert err <= tol, err
+        assert torch.equal(want, run())
+        plan = fz.b5_plan(io, x0 is not None, device=0)
+        if cells == 7:
+            assert plan["cluster"] > 1
+        ran = set()
+        for layout in B5_LAYOUTS:
+            for cluster in B5_CLUSTERS:
+                try:
+                    p = fz.b5_plan(io, x0 is not None, cluster, layout, 0)
+                except ValueError:
+                    continue
+                assert fns["mg_cheb_full_smem_bytes"](
+                    int(io == torch.bfloat16), B5_LAYOUTS[layout], fz.nc,
+                    *fz.grid, p["n_sides"], p["n_e"], int(p["r2_smem"])) \
+                    == p["smem_bytes"]
+                got = run(cluster=cluster, layout=layout)
+                assert torch.equal(got, want), (cluster, layout)
+                ran.add((cluster, layout))
+        assert any(lay == "global" for _, lay in ran)
+        assert len({c for c, _ in ran}) >= (3 if cells > 2 else 2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_p2_bitwise_on_card():
+    """P2 is x * 2 bit for bit, on values other than ones too."""
+    _need_card()
+    from pylatticedso_tpu_torch import probes
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(probes.SCALE_SHAPE, generator=g, device="cuda") * 1e30
+    assert torch.equal(probes.scale(x), x * 2)
+
+
+@pytest.mark.gpu
+def test_launch_stream_follows_a_side_stream_on_card():
+    """The launch helper's stream handle is the public current stream's,
+    on a side stream too, and a kernel launched there runs after the
+    producer queued before it on that stream."""
+    _need_card()
+    from pylatticedso_tpu_torch import probes
+    from pylatticedso_tpu_torch.kernels import launch
+    x = torch.zeros(probes.SCALE_SHAPE, device="cuda")
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    assert launch.stream(0) == torch.cuda.current_stream().cuda_stream
+    with torch.cuda.stream(side):
+        assert launch.stream(0) == torch.cuda.current_stream().cuda_stream \
+            == side.cuda_stream
+        torch.cuda._sleep(50_000_000)      # keep the side stream busy
+        x.fill_(3.0)                       # the producer
+        y = probes.scale(x)                # must see the 3s
+    side.synchronize()
+    assert torch.equal(y, torch.full_like(x, 6.0))
+    assert launch.stream(0) == torch.cuda.current_stream().cuda_stream

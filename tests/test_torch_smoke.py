@@ -39,6 +39,21 @@ def test_phases_rehearse_on_cpu():
     assert {c["variant"] for c in fc if c["kernel"] == "B4"} == \
         {"step", "final"}
     assert all(c["max_rel_err"] == 0.0 for c in fc)
+    # B5: its plan, every cluster size and layout swept, the time before
+    # the redesign where one was recorded (the 50^3 levels only)
+    for c in fc:
+        if c["kernel"] != "B5":
+            continue
+        assert set(c["plan"]) == {"cluster", "layout", "threads", "ipt",
+                                  "r2_smem", "smem_bytes"}
+        assert c["plan"]["layout"] == "bcast"
+        swept = {(x["cluster"], x["layout"]) for x in c["sweep"]}
+        assert (c["plan"]["cluster"], "bcast") in swept
+        assert any(lay == "global" for _, lay in swept)
+        assert all(x["ms"] is None for x in c["sweep"])       # no card
+        assert c["before_ms"] is None                        # n = 4
+    assert smoke.B5_BEFORE_MS[("Octet 7^3 (MG level 3)", "bf16",
+                               "degree 2, x0")] > 0
     assert set(rep["mains"]) == {"fused", "lo", "f32"}
     for route, main in rep["mains"].items():
         assert main["route"] == route
@@ -50,6 +65,7 @@ def test_phases_rehearse_on_cpu():
         assert main["kernel_launches"] == {
             k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4",
                                 "B5")}
+        assert main["b5_clusters"] == [{}, {}]
     # B1's float64 instance at every MG level, its VJP in both precisions
     assert [c["case"] for c in rep["cases64"]] == \
         ["Octet 4^3 (MG level 0)", "Octet 2^3 (MG level 1)"]
@@ -59,6 +75,8 @@ def test_phases_rehearse_on_cpu():
     assert all(c["max_rel_err"] <= c["tol"] for c in rep["vjp_cases"])
     assert [(c["kernel"], c["case"]) for c in rep["probe"]["cases"]] == \
         [("P1", "1d"), ("P1", "2d"), ("P2", "8x128")]
+    p2 = rep["probe"]["cases"][-1]
+    assert p2["ms"] is None and p2["library_ms"] is None     # no card
     # the design-gradient paths under their gates
     design = rep["design"]
     assert design["a"]["grad_rel_err"] <= smoke.IMPLICIT_VS_ANALYTIC_TOL
@@ -70,6 +88,7 @@ def test_phases_rehearse_on_cpu():
         [smoke.DESIGN_TOL64, smoke.FD_SOLVE_TOL]
     c = design["c"]
     assert c["bitwise"] and c["finite"] and c["plain_gather_calls"] == 0
+    assert c["b5_clusters"] == [{}, {}]
     assert c["grad_rel_err_vs_f64"] <= smoke.FUSED_VS_F64_TOL
     assert len(c["warm_iterations"]) == 2
     names = [k["name"] for k in rep["kernels"]]
@@ -93,6 +112,27 @@ def test_phases_rehearse_on_cpu():
         assert any(line.startswith(f"design ({path})") for line in lines)
     assert all("[CPU rehearsal, host clock]" in line for line in lines
                if " ms" in line)
+
+
+def test_profile_phase_reports_busy_share_and_b5():
+    """The profile phase's fields (on the CPU no device event: busy 0)."""
+    prof = smoke.profile_phase(torch.device("cpu"), 4, "fused", steps=1)
+    assert prof["route"] == "fused" and len(prof["iterations"]) == 1
+    assert prof["device_busy_ms"] == 0.0 and prof["idle_share"] == 1.0
+    assert prof["b5_ms"] == 0.0 and prof["b5_launches"] == 0
+    assert prof["wall_ms"] > 0 and prof["phase_s"] >= prof["wall_ms"] / 1e3
+
+
+def test_paired_timing_takes_both_in_turns():
+    calls = []
+    a, b = smoke._paired_ms(lambda: calls.append("a"),
+                            lambda: calls.append("b"), torch.device("cpu"),
+                            reps=4, batch=2)
+    assert a >= 0 and b >= 0
+    # each sample warms up once, then runs its batch: a first, then b
+    # first, in turns
+    assert calls[:6] == ["a"] * 3 + ["b"] * 3
+    assert calls[6:12] == ["b"] * 3 + ["a"] * 3
 
 
 def test_launch_gates_name_the_missing_kernel():
