@@ -12,8 +12,8 @@ the unfused f32 V-cycle; then the design-gradient step (the implicit
 adjoint through B1's VJP) on its three paths: float64 implicit against
 analytic, a float64 displacement objective with an imposed displacement
 against a central difference, and the same problem in float32 on the
-fused bf16 route (pylatticedso_tpu_torch/smoke.py); last, two warm steps
-of each route and of the design path under torch.profiler (device busy
+fused bf16 route (pylatticedso_tpu_torch/smoke.py); each of these steps,
+once checked, takes two more warm steps under torch.profiler (device busy
 time and idle share).  Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
@@ -31,7 +31,7 @@ def main() -> int:
     ap.add_argument("--out", help="write the full report (JSON) here")
     ap.add_argument("--profile", help="write the profile tables (two warm "
                     "steps of each route and of the design-gradient path (c) "
-                    "under torch.profiler, run after the phases) here")
+                    "under torch.profiler) here")
     args = ap.parse_args()
     try:
         import torch
@@ -48,20 +48,11 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1, default=str)
-    profs = {route: smoke.profile_phase(torch.device("cuda"), 50, route)
-             for route in (*smoke.ROUTES, "design")}
     if args.profile:
+        profs = {route: m["profile"] for route, m in report["mains"].items()}
+        profs["design"] = report["design"]["c"]["profile"]
         with open(args.profile, "w") as fh:
             json.dump(profs, fh, indent=1)
-    for route, prof in profs.items():
-        print(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device "
-              f"busy {prof['device_busy_ms']:.1f} ms (idle share "
-              f"{prof['idle_share']:.3f}), iterations {prof['iterations']}, "
-              f"device events per CG iteration "
-              f"{prof['events_per_iteration']:.0f}; B5 "
-              f"{prof['b5_ms']:.1f} ms over {prof['b5_launches']} launches; "
-              f"phase {prof['phase_s']:.1f} s "
-              f"[{report['device']['nvidia_smi']}]", flush=True)
     print(f"wall: {report['wall_s']:.1f} s "
           f"[{report['device']['nvidia_smi']}]")
     print(report["device"]["nvidia_smi"])

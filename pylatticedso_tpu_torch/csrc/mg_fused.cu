@@ -178,18 +178,6 @@ __host__ __device__ inline long long align16(long long n) {
   return (n + 15) & ~15LL;
 }
 
-// dynamic shared memory of one block: [sides][class_start][d][r^2]
-__host__ __device__ inline long long b5_smem_bytes(int layout, int nc,
-                                                   long long Fp, int n_sides,
-                                                   int n_e, int r2_smem,
-                                                   int itemsize) {
-  long long n = align16((long long)n_sides * sizeof(Side))
-              + align16(4LL * (nc + 1));
-  if (layout == B5_BCAST) n += align16(4LL * nc * 6 * Fp);
-  if (r2_smem) n += align16((long long)itemsize * n_e * Fp);
-  return n;
-}
-
 // copy `bytes` from global to shared memory, 16 bytes a thread when src
 // is 16-byte aligned (dst always is)
 __device__ __forceinline__ void b5_stage(void* dst, const void* src,
@@ -280,10 +268,17 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
     sp += align16(4LL * nc * 6 * Fp);
   }
   const T* r2 = p.r2_smem ? (const T*)sp : r2g;
+  if (p.r2_smem) sp += align16((long long)sizeof(T) * p.n_e * Fp);
+  // the host sized the dynamic shared memory (kernels/fused.py
+  // b5_smem_bytes): a launch given less than this carve-up is a fault
+  unsigned dyn_smem;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn_smem));
+  if (sp - smem > (long long)dyn_smem) __trap();
 
   b5_stage(sides, s.sides, (long long)p.n_sides * sizeof(Side));
   b5_stage(cstart, s.class_start, 4LL * (nc + 1));
-  if (p.r2_smem) b5_stage(sp, r2g, (long long)sizeof(T) * p.n_e * Fp);
+  if (p.r2_smem)
+    b5_stage((void*)r2, r2g, (long long)sizeof(T) * p.n_e * Fp);
   if (LAYOUT == B5_BCAST) {
     const int n = nc * 6 * Fp;          // zero d, ghosts included
     for (int i = tid; i < (n >> 2); i += nthr)
@@ -544,27 +539,19 @@ static B5Plan make_plan(int cluster, int threads, int ipt, int per_block,
 }
 
 // a plan the kernel can run: the partition covers n_items, the sizes are
-// within the kernel's limits and its shared memory fits one block
-static bool plan_ok(int layout, const B5Plan& p, long long smem) {
+// within the kernel's limits and the shared memory the host sized for it
+// fits one block
+static bool plan_ok(int layout, const B5Plan& p, int smem) {
   return (layout == B5_BCAST || layout == B5_GLOBAL) && p.cluster >= 1
       && p.cluster <= B5_MAX_CLUSTER && p.threads >= 1
       && p.threads <= B5_MAX_THREADS && p.ipt >= 1 && p.ipt <= B5_MAX_IPT
       && p.per_block <= p.threads * p.ipt
       && (long long)p.per_block * p.cluster >= p.n_items
-      && smem <= MAX_SMEM;
+      && smem >= 0 && smem <= MAX_SMEM;
 }
 
-// dynamic shared memory of one block of a plan (bytes), as the launch
-// requests it
-extern "C" int mg_cheb_full_smem_bytes(int dtype, int layout, int nc, int X,
-                                       int Y, int Z, int n_sides, int n_e,
-                                       int r2_smem) {
-  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
-  return (int)b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
-                            dtype == 0 ? 4 : 2);
-}
-
-// B5: plan fields as the host planned them (kernels/fused.py b5_plan);
+// B5: plan fields as the host planned them (kernels/fused.py b5_plan),
+// smem the dynamic shared memory of one block (bytes, b5_smem_bytes there);
 // c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg: float scratch
 // of nc * 6 * Fp (layout B5_GLOBAL only, else null); items: the interior
 // list
@@ -575,15 +562,14 @@ extern "C" int mg_cheb_full(int dtype, int with_x0, int layout, const void* b,
                             const float* c2, int degree,
                             int cluster, int threads, int ipt, int per_block,
                             int n_items, int n_sides, int n_e, int r2_smem,
-                            const void* sides, const void* class_start,
-                            int nc, int X, int Y, int Z, float E, float kG,
-                            float G2, void* stream) {
+                            int smem, const void* sides,
+                            const void* class_start, int nc, int X, int Y,
+                            int Z, float E, float kG, float G2,
+                            void* stream) {
   if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
   const B5Plan p = make_plan(cluster, threads, ipt, per_block, n_items,
                              n_sides, n_e, r2_smem);
   const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
-  const long long smem = b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
-                                       dtype == 0 ? 4 : 2);
   if (!plan_ok(layout, p, smem) || Fp >= (1 << B5_Q_BITS)
       || (layout == B5_GLOBAL && dg == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -624,17 +610,13 @@ static int max_clusters_layout(int layout, const B5Plan& p, size_t smem) {
   return max_clusters<T, WITH_X0, B5_GLOBAL>(p, smem);
 }
 
-// how many clusters of this plan the card can hold at once (0: it cannot
-// run one); a negative value is -cudaError
+// how many clusters of `cluster` blocks of `threads` threads and
+// `smem` bytes of dynamic shared memory the card can hold at once (0: it
+// cannot run one); a negative value is -cudaError
 extern "C" int mg_cheb_full_max_clusters(int dtype, int with_x0, int layout,
-                                         int cluster, int threads, int nc,
-                                         int X, int Y, int Z, int n_sides,
-                                         int n_e, int r2_smem) {
-  const B5Plan p = make_plan(cluster, threads, 1, threads, threads, n_sides,
-                             n_e, r2_smem);
-  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
-  const long long smem = b5_smem_bytes(layout, nc, Fp, n_sides, n_e, r2_smem,
-                                       dtype == 0 ? 4 : 2);
+                                         int cluster, int threads,
+                                         int smem) {
+  const B5Plan p = make_plan(cluster, threads, 1, threads, threads, 0, 0, 0);
   if (!plan_ok(layout, p, smem)) return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
     return with_x0 ? max_clusters_layout<float, true>(layout, p, smem)
@@ -644,5 +626,3 @@ extern "C" int mg_cheb_full_max_clusters(int dtype, int with_x0, int layout,
                  : max_clusters_layout<bf, false>(layout, p, smem);
 }
 
-extern "C" int mg_cheb_full_smem_limit() { return MAX_SMEM; }
-extern "C" int mg_cheb_full_max_degree() { return MAX_DEGREE; }

@@ -212,8 +212,8 @@ B5_CLUSTERS = (1, 2, 4, 8, 16)  # 16 needs the non-portable cluster size
 B5_ITEMS_PER_BLOCK = 256
 B5_MAX_THREADS = 256            # csrc's B5_MAX_THREADS
 B5_MAX_IPT = 4                  # items per thread, csrc's B5_MAX_IPT
-B5_Q_BITS = 22                  # items[i] = (class << 22) | padded point
-B5_SMEM_LIMIT = 227 * 1024      # dynamic shared memory of one block, sm_90
+B5_Q_BITS = 22                  # csrc's B5_Q_BITS: (class << 22) | point
+B5_SMEM_LIMIT = 227 * 1024      # csrc's MAX_SMEM: one block's dynamic, sm_90
 B5_MAX_DEGREE = 64              # csrc's MAX_DEGREE (Chebyshev coefficients)
 
 
@@ -223,9 +223,10 @@ def _align16(n: int) -> int:
 
 def b5_smem_bytes(layout: str, nc: int, Fp: int, n_sides: int, n_e: int,
                   r2_smem: bool, itemsize: int) -> int:
-    """Dynamic shared memory of one B5 block (csrc ``b5_smem_bytes``):
-    the sides table, class_start, d in float (layout ``bcast``) and r^2 in
-    the storage type."""
+    """Dynamic shared memory of one B5 block, as the kernel carves it up
+    (the one place its size is decided; the launch passes it): the sides
+    table, class_start, d in float (layout ``bcast``) and r^2 in the
+    storage type."""
     n = _align16(n_sides * SIDE_DTYPE.itemsize) + _align16(4 * (nc + 1))
     if layout == "bcast":
         n += _align16(4 * nc * 6 * Fp)
@@ -506,11 +507,9 @@ class FusedSmoother:
                 cluster: Optional[int] = None, layout: Optional[str] = None,
                 device: Optional[int] = None) -> Dict:
         """B5's plan on this level (``b5_plan``) for storage ``io``.  On a
-        card (``device``), a cluster the card cannot hold with this
-        plan's shared memory is halved until it can (the rule's cluster is
-        not re-asked per launch: plans are cached); a requested
-        ``cluster`` or ``layout`` is taken as given and raises if the card
-        cannot run it."""
+        card (``device``) the plan is asked of the card once, before its
+        first launch there (plans are cached), and raises if the card
+        cannot hold one such cluster."""
         key = (io, with_x0, cluster, layout, device)
         plan = self.b5_plans.get(key)
         if plan is not None:
@@ -518,22 +517,17 @@ class FusedSmoother:
         itemsize = torch.finfo(io).bits // 8
         plan = b5_plan(self.nc, self.grid, self.n_e, self.mv.n_sides,
                        itemsize, cluster, layout)
-        while device is not None:
+        if device is not None:
             fits = launch.functions("mg_fused")["mg_cheb_full_max_clusters"](
                 int(io == torch.bfloat16), int(with_x0),
                 B5_LAYOUTS[plan["layout"]], plan["cluster"], plan["threads"],
-                self.nc, *self.grid, plan["n_sides"], self.n_e,
-                int(plan["r2_smem"]))
+                plan["smem_bytes"])
             if fits < 0:
                 raise RuntimeError(f"B5 cluster query failed: cudaError "
                                    f"{-fits}")
-            if fits > 0:
-                break
-            if cluster is not None or plan["cluster"] == 1:
+            if fits == 0:
                 raise ValueError(f"B5: the card cannot hold a cluster of "
                                  f"{plan['cluster']} for grid {self.grid}")
-            plan = b5_plan(self.nc, self.grid, self.n_e, self.mv.n_sides,
-                           itemsize, plan["cluster"] // 2, layout)
         self.b5_plans[key] = plan
         return plan
 
@@ -595,7 +589,8 @@ class FusedSmoother:
             None if dg is None else dg.data_ptr(), items, c1, c2,
             degree, plan["cluster"], plan["threads"], plan["ipt"],
             plan["per_block"], plan["n_items"], plan["n_sides"], self.n_e,
-            int(plan["r2_smem"]), *self._static(dev), launch.stream(dev))
+            int(plan["r2_smem"]), plan["smem_bytes"], *self._static(dev),
+            launch.stream(dev))
         launch.check("mg_cheb_full", rc)
         self.launches["cheb_full"] += 1
         self.b5_launches[plan["cluster"]] = \

@@ -35,11 +35,8 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     "mg_fused": {
         "mg_residual": "ipppppppiiiifffp",
         "mg_cheb_run": "iipppppppppffppiiiifffp",
-        "mg_cheb_full": "iii" + "p" * 10 + "i" * 9 + "ppiiiifffp",
-        "mg_cheb_full_smem_bytes": "iiiiiiiii",
-        "mg_cheb_full_max_clusters": "iiiiiiiiiiii",
-        "mg_cheb_full_smem_limit": "",
-        "mg_cheb_full_max_degree": "",
+        "mg_cheb_full": "iii" + "p" * 10 + "i" * 10 + "ppiiiifffp",
+        "mg_cheb_full_max_clusters": "iiiiii",
     },
     "probes": {
         "probe_chain": "ppiiiip",

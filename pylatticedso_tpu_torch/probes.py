@@ -99,32 +99,19 @@ def plain_scale(x: torch.Tensor) -> torch.Tensor:
 
 
 def scale(x: torch.Tensor) -> torch.Tensor:
-    """P2: x * 2.0 on an (8, 128) float32 array in one launch.  Its host
-    path is the launch floor the other wrappers share: a few attribute
-    checks, one allocation, one bound ctypes call on the raw stream."""
-    if x.dtype is not torch.float32 or x.shape != SCALE_SHAPE \
-            or not x.is_contiguous():
-        _check(x, SCALE_SHAPE, "P2")
+    """P2: x * 2.0 on an (8, 128) float32 array in one launch, through the
+    launch path every wrapper shares."""
+    _check(x, SCALE_SHAPE, "P2")
+    if x.device.type == "cpu":
+        return plain_scale(x)
     if not x.is_cuda:
-        if x.device.type == "cpu":
-            return plain_scale(x)
         raise ValueError(f"P2 runs on a CPU or CUDA tensor, got {x.device}")
     out = torch.empty_like(x)
-    rc = (_SCALE or _bind_scale())(x.data_ptr(), out.data_ptr(), SCALE_N,
-                                   launch.stream(x.get_device()))
-    if rc:
-        launch.check("probe_scale", rc)
+    rc = launch.functions("probes")["probe_scale"](
+        x.data_ptr(), out.data_ptr(), SCALE_N, launch.stream(x.get_device()))
+    launch.check("probe_scale", rc)
     launches["scale"] += 1
     return out
-
-
-_SCALE = None
-
-
-def _bind_scale():
-    global _SCALE
-    _SCALE = launch.functions("probes")["probe_scale"]
-    return _SCALE
 
 
 def inputs(device) -> Dict[str, torch.Tensor]:

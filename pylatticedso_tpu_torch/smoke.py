@@ -24,10 +24,12 @@ probes P1 and P2 run through their own entry (``probes.main``).
 
 B5 is also run under every cluster size and layout of d the card can hold
 (``_b5_sweep``: the same bits as its plan's, each timed by CUDA events and
-by CUDA-graph replay).  ``run(device, n)`` runs every phase and returns a
-report; it raises on the first failure.  ``chip_smoke.py`` calls it with ``device="cuda"``, n = 50;
-the CPU tests rehearse it at n = 4, where each wrapper runs its plain
-version and nothing is timed as a device number.
+by CUDA-graph replay).  Each route's step and path (c) then take two more
+warm steps under ``torch.profiler`` (``profile_phase``: device busy time
+and idle share).  ``run(device, n)`` runs every phase and returns a report;
+it raises on the first failure.  ``chip_smoke.py`` calls it with
+``device="cuda"``, n = 50; the CPU tests rehearse it at n = 4, where each
+wrapper runs its plain version and nothing is timed as a device number.
 """
 
 from __future__ import annotations
@@ -433,8 +435,9 @@ def fused_kernel_phase(device: torch.device, n: int,
 
 # B5 before its redesign for Hopper clusters: the one-block kernel's times
 # (ms, CUDA-event medians of back-to-back launches) as chip_smoke.py of
-# commit 9cba2c9 measured them on an NVIDIA H100 80GB HBM3, 700.00 W; the
-# smoke prints each case's time beside its entry here
+# commit 9cba2c9 measured them on an NVIDIA H100 80GB HBM3, 700.00 W.  They
+# are records, not measurements of this run: the smoke's log prints each
+# case's time beside its entry here, and no report field carries them
 B5_BEFORE_MS = {
     ("Octet 7^3 (MG level 3)", "f32", "degree 2"): 0.1208,
     ("Octet 7^3 (MG level 3)", "f32", "degree 2, x0"): 0.1565,
@@ -457,8 +460,7 @@ def _b5_sweep(fz, run, io, with_x0, device, label, storage,
               variant) -> Dict:
     """B5 under every cluster size and layout of d the card can run on
     this level: each gives the plan's bits (and so does a repeat), and
-    each is timed on the card.  The plan's own choice is recorded beside
-    the time before the redesign."""
+    each is timed on the card."""
     cuda = device.type == "cuda"
     index = (device.index or 0) if cuda else None
     plan = fz.b5_plan(io, with_x0, device=index)
@@ -490,8 +492,7 @@ def _b5_sweep(fz, run, io, with_x0, device, label, storage,
         raise AssertionError(f"B5 on {label}: the global-d layout never ran")
     return {"plan": {k: plan[k] for k in ("cluster", "layout", "threads",
                                           "ipt", "r2_smem", "smem_bytes")},
-            "sweep": sweep, "device_ms": _graph_ms(run, device),
-            "before_ms": B5_BEFORE_MS.get((label, storage, variant))}
+            "sweep": sweep, "device_ms": _graph_ms(run, device)}
 
 
 def _bench_problem(n: int, device, dtype):
@@ -603,7 +604,8 @@ def main_path_phase(device: torch.device, n: int, route: str = "f32",
                     tol: float = 1e-6, maxiter: int = 6000) -> Dict:
     """``bench.py``'s protocol on the port's step, on ``route``; the launch
     counts of every level's wrappers are zeroed just before the drive and
-    read just after it."""
+    read just after it.  After every check, two more warm steps of the same
+    step run under the profiler (``profile_phase``)."""
     with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
         return _main_path(device, n, route, steps, windows, refresh, tol,
                           maxiter)
@@ -621,7 +623,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
 
     r0 = torch.full((n, n, n), 0.05, dtype=torch.float32, device=device)
     t_cold = time.perf_counter()
-    pstate = step.precond_state(r0)
+    pstate0 = pstate = step.precond_state(r0)
     c, g, u = step(r0, None, pstate)
     _sync(device)
     cold_s = time.perf_counter() - t_cold
@@ -746,6 +748,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         raise AssertionError("two identical steps differ bitwise in c or g")
     if device.type == "cuda":
         _check_launches(route, counts, single)
+    report["profile"] = profile_phase(step, r0, u, pstate0, device, route)
     return report
 
 
@@ -983,7 +986,8 @@ def design_phase(device: torch.device, n: int, steps: int = 8,
                  windows: int = 3, maxiter: int = 6000,
                  fd_h: float = 1e-4, seed: int = 4) -> Dict:
     """The design-gradient step at n^3 Octet on its three paths; each path's
-    launch counts are zeroed just before its drive and read just after."""
+    launch counts are zeroed just before its drive and read just after.
+    Path (c) then takes two more warm steps under the profiler."""
     cuda = device.type == "cuda"
     f64 = torch.float64
     r64 = torch.full((n, n, n), 0.05, dtype=f64, device=device)
@@ -1130,40 +1134,33 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
         if plain_calls:
             raise AssertionError(f"(c) the plain gather form ran "
                                  f"{plain_calls} times as an operator")
+    rep["profile"] = profile_phase(st, r0, u, pstate, device, "design")
     return rep
 
 
-def profile_phase(device: torch.device, n: int, route: str = "f32",
-                  steps: int = 2) -> Dict:
-    """Device time by kernel over ``steps`` warm-started steps of the main
-    path on ``route`` (frozen state), from ``torch.profiler``: the busy
-    share of the window's wall clock, the device events (kernels, copies,
-    fills) per CG iteration and the kernels that take the most device time.
-    ``route="design"`` profiles path (c) of ``design_phase`` (the fused
-    route's implicit displacement step), counting the forward and adjoint
-    iterations.  The profiler's own host cost lengthens the wall clock."""
+def profile_phase(step, r: torch.Tensor, u: torch.Tensor, pstate,
+                  device: torch.device, route: str, steps: int = 2) -> Dict:
+    """Device time by kernel over ``steps`` warm-started steps of a built
+    main-path ``step`` (frozen ``pstate``, warm start ``u``, radii near
+    ``r``), from ``torch.profiler``: the busy share of the window's wall
+    clock, the device events (kernels, copies, fills) per CG iteration and
+    the kernels that take the most device time.  ``route="design"`` names
+    path (c) of ``design_phase``, whose iterations count the forward and
+    adjoint solves.  The profiler's own host cost lengthens the wall
+    clock."""
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
-    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
-        if route == "design":
-            step, _ = _design_step(n, device, torch.float32, "fused", 1e-6,
-                                   6000)
-        else:
-            step, _, _ = _route_step(n, device, route, 1e-6, 6000)
-        r = torch.full((n, n, n), 0.05, dtype=torch.float32, device=device)
-        pstate = step.precond_state(r)
-        _, _, u = step(r, None, pstate)
+    _sync(device)
+    iters = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for k in range(steps):
+            step(r * (1.0 + 1e-3 * (k + 1)), u, pstate)
+            iters.append(sum(v or 0 for v in _solves(step).values()))
         _sync(device)
-        iters = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            for k in range(steps):
-                step(r * (1.0 + 1e-3 * (k + 1)), u, pstate)
-                iters.append(sum(v or 0 for v in _solves(step).values()))
-            _sync(device)
-            wall = time.perf_counter() - t
+        wall = time.perf_counter() - t
     rows = []
     for e in prof.key_averages():
         # device-side events only (kernels, copies, fills): the host ops
@@ -1207,7 +1204,7 @@ def _entry(name, source, replaces, launches, recs, head, per_level,
         "launches_per_level": per_level,
         "cases": [{k: c.get(k) for k in (
             "case", "storage", "variant", "ms", "ms_cold", "wrapper_ms",
-            "device_ms", "before_ms", "plain_ms", "autograd_ms",
+            "device_ms", "plain_ms", "autograd_ms",
             "library_ms", "bound_ms", "bound_by", "max_rel_err")}
             for c in recs],
     }
@@ -1316,13 +1313,16 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"({c['bound_by']}) [{card}]")
         if c["kernel"] == "B5":
             p = c["plan"]
+            was = B5_BEFORE_MS.get((c["case"], c["storage"], c["variant"]))
+            was = "not recorded" if was is None \
+                else f"{was:.4f} ms (recorded from commit 9cba2c9)"
             log(f"B5 {c['case']} {c['storage']} {c['variant']}: plan cluster "
                 f"{p['cluster']} x {p['threads']} threads x {p['ipt']} "
                 f"items, d {p['layout']}, r^2 in shared memory "
                 f"{p['r2_smem']} ({p['smem_bytes']} bytes) | "
                 f"{_ms(c['ms'])} (device, graph replay "
-                f"{_ms(c['device_ms'])}) vs before the redesign "
-                f"{_ms(c['before_ms'])} | bitwise equal across, "
+                f"{_ms(c['device_ms'])}) vs before the redesign {was} | "
+                f"bitwise equal across, "
                 f"cluster/layout event (graph) times: "
                 + ", ".join(f"{x['cluster']}/{x['layout']} {_ms(x['ms'])} "
                             f"({_ms(x['device_ms'])})"
@@ -1428,6 +1428,16 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{c['kernel_launches']}; B5 launches per level by cluster size "
         f"{c['b5_clusters']} [{card}]")
     budget.check("design gradient")
+    profs = {route: mains[route]["profile"] for route in mains}
+    profs["design"] = c["profile"]
+    for route, prof in profs.items():
+        log(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device busy "
+            f"{prof['device_busy_ms']:.1f} ms (idle share "
+            f"{prof['idle_share']:.3f}), iterations {prof['iterations']}, "
+            f"device events per CG iteration "
+            f"{prof['events_per_iteration']:.0f}; B5 {prof['b5_ms']:.1f} ms "
+            f"over {prof['b5_launches']} launches; phase "
+            f"{prof['phase_s']:.1f} s [{card}]")
     return {"device": info, "build": built, "cases": cases,
             "fused_cases": fused_cases, "cases64": cases64,
             "vjp_cases": vjp_cases, "probe": probe, "mains": mains,

@@ -5,15 +5,18 @@ the plan as it is, so a plan that lost or repeated an item would give a
 wrong smoother on the card; these run on the CPU, at the levels of the
 50^3 hierarchies (host build only, no kernel)."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.fused import (
-    B5_CLUSTERS, B5_ITEMS_PER_BLOCK, B5_MAX_IPT, B5_MAX_THREADS, B5_Q_BITS,
-    B5_SMEM_LAYOUT, B5_SMEM_LIMIT, b5_items, b5_partition, b5_plan,
-    b5_smem_bytes, route)
+    B5_CLUSTERS, B5_ITEMS_PER_BLOCK, B5_LAYOUTS, B5_MAX_DEGREE, B5_MAX_IPT,
+    B5_MAX_THREADS, B5_Q_BITS, B5_SMEM_LAYOUT, B5_SMEM_LIMIT, SOURCE,
+    b5_items, b5_partition, b5_plan, b5_smem_bytes, route)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
@@ -140,3 +143,24 @@ def test_plan_refuses_what_the_kernel_cannot_run():
     assert big["layout"] == "global"
     with pytest.raises(ValueError, match="shared memory"):
         b5_plan(1, (20, 20, 20), 3, 6, 4, layout=B5_SMEM_LAYOUT)
+
+
+def test_plan_limits_are_the_kernel_source_limits():
+    """The plan's limits are the ones the kernel is compiled with (the
+    launcher refuses a plan beyond them, and the item encoding must
+    agree)."""
+    text = (Path(__file__).resolve().parents[1] / SOURCE).read_text()
+    define = lambda name: int(re.search(rf"#define {name} (\d+)",
+                                        text).group(1))
+    assert define("B5_MAX_THREADS") == B5_MAX_THREADS
+    assert define("B5_MAX_IPT") == B5_MAX_IPT
+    assert define("B5_Q_BITS") == B5_Q_BITS
+    assert define("B5_MAX_CLUSTER") == B5_CLUSTERS[-1]
+    assert define("MAX_DEGREE") == B5_MAX_DEGREE
+    a, b = re.search(r"static const int MAX_SMEM = (\d+) \* (\d+);",
+                     text).groups()
+    assert int(a) * int(b) == B5_SMEM_LIMIT
+    enum = dict(re.findall(r"(B5_\w+) = (\d+)",
+                           re.search(r"enum \{([^}]*)\}", text).group(1)))
+    assert {k: int(v) for k, v in enum.items()} == \
+        {f"B5_{k.upper()}": v for k, v in B5_LAYOUTS.items()}

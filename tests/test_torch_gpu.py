@@ -259,17 +259,10 @@ def test_b5_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
     global-d layout included; at 7^3 the plan spreads the level over more
     than one SM."""
     _need_card()
-    from pylatticedso_tpu_torch.kernels import launch
-    from pylatticedso_tpu_torch.kernels.fused import (B5_CLUSTERS,
-                                                      B5_LAYOUTS,
-                                                      B5_MAX_DEGREE,
-                                                      B5_SMEM_LIMIT)
+    from pylatticedso_tpu_torch.kernels.fused import B5_CLUSTERS, B5_LAYOUTS
     fz, io, lmax, b, x, fd, r2 = _b5_level(cells, storage)
     assert fz.single_ok
     tol = smoke.STORAGE_TOL[storage]["B5"]
-    fns = launch.functions("mg_fused")
-    assert fns["mg_cheb_full_smem_limit"]() == B5_SMEM_LIMIT
-    assert fns["mg_cheb_full_max_degree"]() == B5_MAX_DEGREE
     cases = [(None, 2, 0.35), (x, 2, 0.35)]
     if cells == 2:
         cases.append((None, 24, 1.0 / 64.0))
@@ -289,13 +282,9 @@ def test_b5_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
         for layout in B5_LAYOUTS:
             for cluster in B5_CLUSTERS:
                 try:
-                    p = fz.b5_plan(io, x0 is not None, cluster, layout, 0)
+                    fz.b5_plan(io, x0 is not None, cluster, layout, 0)
                 except ValueError:
                     continue
-                assert fns["mg_cheb_full_smem_bytes"](
-                    int(io == torch.bfloat16), B5_LAYOUTS[layout], fz.nc,
-                    *fz.grid, p["n_sides"], p["n_e"], int(p["r2_smem"])) \
-                    == p["smem_bytes"]
                 got = run(cluster=cluster, layout=layout)
                 assert torch.equal(got, want), (cluster, layout)
                 ran.add((cluster, layout))

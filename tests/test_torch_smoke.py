@@ -39,8 +39,9 @@ def test_phases_rehearse_on_cpu():
     assert {c["variant"] for c in fc if c["kernel"] == "B4"} == \
         {"step", "final"}
     assert all(c["max_rel_err"] == 0.0 for c in fc)
-    # B5: its plan, every cluster size and layout swept, the time before
-    # the redesign where one was recorded (the 50^3 levels only)
+    # B5: its plan, every cluster size and layout swept; the time before
+    # the redesign, a record and not a measurement, only in the log (the
+    # 50^3 levels only)
     for c in fc:
         if c["kernel"] != "B5":
             continue
@@ -51,9 +52,12 @@ def test_phases_rehearse_on_cpu():
         assert (c["plan"]["cluster"], "bcast") in swept
         assert any(lay == "global" for _, lay in swept)
         assert all(x["ms"] is None for x in c["sweep"])       # no card
-        assert c["before_ms"] is None                        # n = 4
+        assert "before_ms" not in c
     assert smoke.B5_BEFORE_MS[("Octet 7^3 (MG level 3)", "bf16",
                                "degree 2, x0")] > 0
+    assert any(line.startswith("B5 Octet 4^3")
+               and "before the redesign not recorded |" in line
+               for line in lines)
     assert set(rep["mains"]) == {"fused", "lo", "f32"}
     for route, main in rep["mains"].items():
         assert main["route"] == route
@@ -105,6 +109,14 @@ def test_phases_rehearse_on_cpu():
         assert k["bound_ms"] > 0 and k["library_ms"] is None  # no card
         assert k["launches"] == 0
     json.dumps(rep["kernels"])
+    assert not any("before_ms" in c for k in rep["kernels"]
+                   for c in k["cases"])
+    # the profile of each route's own step and of path (c)'s
+    for route, main in rep["mains"].items():
+        assert main["profile"]["route"] == route
+        assert any(line.startswith(f"profile [{route}]") for line in lines)
+    assert rep["design"]["c"]["profile"]["route"] == "design"
+    assert any(line.startswith("profile [design]") for line in lines)
     for route in ("fused", "lo", "f32"):
         assert any(line.startswith(f"main path [{route}] 4^3 Octet")
                    for line in lines)
@@ -115,8 +127,16 @@ def test_phases_rehearse_on_cpu():
 
 
 def test_profile_phase_reports_busy_share_and_b5():
-    """The profile phase's fields (on the CPU no device event: busy 0)."""
-    prof = smoke.profile_phase(torch.device("cpu"), 4, "fused", steps=1)
+    """The profile phase's fields on a built step (on the CPU no device
+    event: busy 0)."""
+    dev = torch.device("cpu")
+    with smoke._env(PLDSO_MG_FUSED_DTYPE=smoke.FUSED_STORAGE):
+        step, _, _ = smoke._route_step(4, dev, "fused", 1e-6, 6000)
+        r = torch.full((4, 4, 4), 0.05)
+        pstate = step.precond_state(r)
+        _, _, u = step(r, None, pstate)
+        prof = smoke.profile_phase(step, r, u, pstate, dev, "fused",
+                                   steps=1)
     assert prof["route"] == "fused" and len(prof["iterations"]) == 1
     assert prof["device_busy_ms"] == 0.0 and prof["idle_share"] == 1.0
     assert prof["b5_ms"] == 0.0 and prof["b5_launches"] == 0
