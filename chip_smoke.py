@@ -12,9 +12,9 @@ the unfused f32 V-cycle; then the design-gradient step (the implicit
 adjoint through B1's VJP) on its three paths: float64 implicit against
 analytic, a float64 displacement objective with an imposed displacement
 against a central difference, and the same problem in float32 on the
-fused bf16 route (pylatticedso_tpu_torch/smoke.py); each of these steps,
-once checked, takes two more warm steps under torch.profiler (device busy
-time and idle share).  Prints the card's
+fused bf16 route (pylatticedso_tpu_torch/smoke.py); last, each of these
+steps takes two more warm steps under torch.profiler (device busy time
+and idle share).  Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
 there is no card (exit 1) or the port cannot be imported (exit 2: the

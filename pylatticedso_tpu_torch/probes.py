@@ -100,11 +100,15 @@ def plain_scale(x: torch.Tensor) -> torch.Tensor:
 
 def scale(x: torch.Tensor) -> torch.Tensor:
     """P2: x * 2.0 on an (8, 128) float32 array in one launch, through the
-    launch path every wrapper shares."""
-    _check(x, SCALE_SHAPE, "P2")
-    if x.device.type == "cpu":
-        return plain_scale(x)
+    launch path every wrapper shares.  The checks are ordered so that a
+    valid CUDA tensor pays only attribute reads (``_check`` is called only
+    to raise; ``x.device`` builds an object)."""
+    if x.dtype is not torch.float32 or x.shape != SCALE_SHAPE \
+            or not x.is_contiguous():
+        _check(x, SCALE_SHAPE, "P2")
     if not x.is_cuda:
+        if x.device.type == "cpu":
+            return plain_scale(x)
         raise ValueError(f"P2 runs on a CPU or CUDA tensor, got {x.device}")
     out = torch.empty_like(x)
     rc = launch.functions("probes")["probe_scale"](

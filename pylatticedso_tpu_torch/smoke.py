@@ -24,9 +24,9 @@ probes P1 and P2 run through their own entry (``probes.main``).
 
 B5 is also run under every cluster size and layout of d the card can hold
 (``_b5_sweep``: the same bits as its plan's, each timed by CUDA events and
-by CUDA-graph replay).  Each route's step and path (c) then take two more
-warm steps under ``torch.profiler`` (``profile_phase``: device busy time
-and idle share).  ``run(device, n)`` runs every phase and returns a report;
+by CUDA-graph replay).  Last, each route's step and path (c)'s take two
+more warm steps under ``torch.profiler`` (``profile_phase``: device busy
+time and idle share).  ``run(device, n)`` runs every phase and returns a report;
 it raises on the first failure.  ``chip_smoke.py`` calls it with
 ``device="cuda"``, n = 50; the CPU tests rehearse it at n = 4, where each
 wrapper runs its plain version and nothing is timed as a device number.
@@ -604,8 +604,9 @@ def main_path_phase(device: torch.device, n: int, route: str = "f32",
                     tol: float = 1e-6, maxiter: int = 6000) -> Dict:
     """``bench.py``'s protocol on the port's step, on ``route``; the launch
     counts of every level's wrappers are zeroed just before the drive and
-    read just after it.  After every check, two more warm steps of the same
-    step run under the profiler (``profile_phase``)."""
+    read just after it.  ``profile_inputs`` holds the built step, the
+    radii, the cold solution and the frozen state, for ``profile_phase``
+    once every phase has run (``run`` pops it)."""
     with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
         return _main_path(device, n, route, steps, windows, refresh, tol,
                           maxiter)
@@ -748,7 +749,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         raise AssertionError("two identical steps differ bitwise in c or g")
     if device.type == "cuda":
         _check_launches(route, counts, single)
-    report["profile"] = profile_phase(step, r0, u, pstate0, device, route)
+    report["profile_inputs"] = (step, r0, u, pstate0)
     return report
 
 
@@ -987,7 +988,8 @@ def design_phase(device: torch.device, n: int, steps: int = 8,
                  fd_h: float = 1e-4, seed: int = 4) -> Dict:
     """The design-gradient step at n^3 Octet on its three paths; each path's
     launch counts are zeroed just before its drive and read just after.
-    Path (c) then takes two more warm steps under the profiler."""
+    Path (c)'s report holds its ``profile_inputs`` as ``main_path_phase``'s
+    does."""
     cuda = device.type == "cuda"
     f64 = torch.float64
     r64 = torch.full((n, n, n), 0.05, dtype=f64, device=device)
@@ -1134,7 +1136,7 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
         if plain_calls:
             raise AssertionError(f"(c) the plain gather form ran "
                                  f"{plain_calls} times as an operator")
-    rep["profile"] = profile_phase(st, r0, u, pstate, device, "design")
+    rep["profile_inputs"] = (st, r0, u, pstate)
     return rep
 
 
@@ -1428,9 +1430,13 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{c['kernel_launches']}; B5 launches per level by cluster size "
         f"{c['b5_clusters']} [{card}]")
     budget.check("design gradient")
-    profs = {route: mains[route]["profile"] for route in mains}
-    profs["design"] = c["profile"]
-    for route, prof in profs.items():
+    # the profiles come last: once torch.profiler has traced the card, the
+    # process's later launches cost the host more (on an H100 the phases
+    # run after the profiles read 30-50% more s/step)
+    reps = dict(mains, design=c)
+    for route, rep in reps.items():
+        rep["profile"] = prof = profile_phase(*rep.pop("profile_inputs"),
+                                              dev, route)
         log(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device busy "
             f"{prof['device_busy_ms']:.1f} ms (idle share "
             f"{prof['idle_share']:.3f}), iterations {prof['iterations']}, "

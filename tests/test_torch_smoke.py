@@ -111,12 +111,17 @@ def test_phases_rehearse_on_cpu():
     json.dumps(rep["kernels"])
     assert not any("before_ms" in c for k in rep["kernels"]
                    for c in k["cases"])
-    # the profile of each route's own step and of path (c)'s
+    # the profile of each route's own step and of path (c)'s, taken after
+    # every phase
     for route, main in rep["mains"].items():
         assert main["profile"]["route"] == route
+        assert "profile_inputs" not in main
         assert any(line.startswith(f"profile [{route}]") for line in lines)
     assert rep["design"]["c"]["profile"]["route"] == "design"
+    assert "profile_inputs" not in rep["design"]["c"]
     assert any(line.startswith("profile [design]") for line in lines)
+    assert lines.index(next(x for x in lines if x.startswith("profile ["))) \
+        > lines.index(next(x for x in lines if x.startswith("design (c)")))
     for route in ("fused", "lo", "f32"):
         assert any(line.startswith(f"main path [{route}] 4^3 Octet")
                    for line in lines)
