@@ -97,48 +97,106 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
 }
 
 // ------------------------------------------------------------------ B4
-template <typename T, bool FINAL>
-__global__ void __launch_bounds__(256)
+// One block per brick of PADDED points (ghosts included), every class:
+// d is staged in the brick's tile (stencil_body.cuh, "tiles"); x, r and
+// fd are read once from global at the point; interior points run the
+// stencil body on the tile and update their own values, ghost points
+// write zeros, so outputs can come from torch.empty and every neighbour
+// read of the next launch sees zero ghosts.
+#define B4_MAX_THREADS 512
+
+template <int LAYOUT, class B, typename T, bool FINAL>
+__global__ void __launch_bounds__(B4_MAX_THREADS)
 mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const T* __restrict__ d, const T* __restrict__ fd,
                    const float* __restrict__ sc, const T* __restrict__ r2,
                    T* __restrict__ x1o, T* __restrict__ r1o,
-                   T* __restrict__ d1o, float c1, float c2, Stencil s) {
-  const long long Fp = padded_points(s);
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)s.nc * Fp) return;
-  const int c = (int)(idx / Fp);
-  const long long q = idx - (long long)c * Fp;
-  const long long row0 = (long long)c * 6 * Fp + q;
-  if (!interior(q, s.X, s.Y, s.Z)) {
+                   T* __restrict__ d1o, float c1, float c2, Stencil s,
+                   const int* __restrict__ shifts, int n_sides, int bz,
+                   int groups) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nc = s.nc;
+  const TileTables<Side> tb = carve_tables<Side>(smem, n_sides, nc);
+  T* tile = (T*)tb.end;
+  constexpr bool tiled = LAYOUT == TILE_SMEM || LAYOUT == TILE_SMEM_PIPE;
+  constexpr bool pipe = LAYOUT == TILE_SMEM_PIPE || LAYOUT == TILE_GLOBAL_PIPE;
+  if constexpr (tiled)
+    check_smem(tb.end + align16((long long)sizeof(T) * nc * 6 * B::TPTS),
+               smem);
+  const int Xp = s.X + 2, Yp = s.Y + 2, Zp = s.Z + 2;
+  const int Fp = Xp * Yp * Zp;
+  // the brick's first point, padded coordinates
+  const int x0 = blockIdx.z * B::BX, y0 = blockIdx.y * B::BY,
+            z0 = blockIdx.x * bz;
+  // the global layouts read the host's table (offsets already in the
+  // padded field): no staging and no barrier
+  const Side* tsides = s.sides;
+  const int* tcs = s.class_start;
+  if constexpr (tiled) {
+    stage_tables<LAYOUT, B>(tb, s.sides, s.class_start, shifts, n_sides, nc,
+                            Fp);
+    stage_tile<B>(tile, d, nc * 6, Fp, Xp, Yp, Zp, x0 - TILE_HALO,
+                  y0 - TILE_HALO, z0 - TILE_HALO);
+    __syncthreads();
+    tsides = tb.sides;
+    tcs = tb.cstart;
+  }
+  BrickPoint bp;
+  int px, py, pz;
+  if constexpr (LAYOUT == TILE_FLAT) {
+    // a slab of BX planes x a run of BY * BZ points of the plane's flat
+    // (y, z) order
+    constexpr int L = B::BY * B::BZ;
+    const int t = threadIdx.x, r = t % (B::BX * L);
+    const int f = blockIdx.x * L + r % L;
+    bp = {0, 0, 0, t / (B::BX * L)};
+    px = blockIdx.z * B::BX + r / L;
+    py = f / Zp;
+    pz = f - py * Zp;
+    if (px >= Xp || py >= Yp) return;
+  } else {
+    bp = brick_point<B>(bz);
+    px = x0 + bp.lx; py = y0 + bp.ly; pz = z0 + bp.lz;
+    if (px >= Xp || py >= Yp || pz >= Zp) return;
+  }
+  const int q = (px * Yp + py) * Zp + pz;
+  if (px < 1 || px > s.X || py < 1 || py > s.Y || pz < 1 || pz > s.Z) {
+    for (int c = bp.g; c < nc; c += groups) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const long long o = row0 + k * Fp;
-      st(x1o + o, 0.f);
-      if (!FINAL) {
-        st(r1o + o, 0.f);
-        st(d1o + o, 0.f);
+      for (int k = 0; k < 6; ++k) {
+        const int o = (c * 6 + k) * Fp + q;
+        st(x1o + o, 0.f);
+        if (!FINAL) {
+          st(r1o + o, 0.f);
+          st(d1o + o, 0.f);
+        }
       }
     }
     return;
   }
-  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  stencil_acc(d, r2, Fp, q, c, s.sides, s.class_start[c],
-              s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  const int tq = ((bp.lx + TILE_HALO) * B::TY + bp.ly + TILE_HALO) * B::TZ
+               + bp.lz + TILE_HALO;
+  const T* src = tiled ? tile : d;
+  const int rs = tiled ? B::TPTS : Fp, sq = tiled ? tq : q;
   const float c2i = c2 * sc[1];
+  for (int c = bp.g; c < nc; c += groups) {
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    brick_acc<pipe, float, Side>(src, rs, sq, r2 + q, c, tsides, tcs[c],
+                                 tcs[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    const long long o = row0 + k * Fp;
-    const float dc = ld(d + o);
-    const float x1 = ld(x + o) + dc;
-    const float r1 = ld(r + o) - acc[k];
-    const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
-    if (FINAL) {
-      st(x1o + o, x1 + d1);
-    } else {
-      st(x1o + o, x1);
-      st(r1o + o, r1);
-      st(d1o + o, d1);
+    for (int k = 0; k < 6; ++k) {
+      const int o = (c * 6 + k) * Fp + q;
+      const float dc = ld(src + (c * 6 + k) * rs + sq);
+      const float x1 = ld(x + o) + dc;
+      const float r1 = ld(r + o) - acc[k];
+      const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
+      if (FINAL) {
+        st(x1o + o, x1 + d1);
+      } else {
+        st(x1o + o, x1);
+        st(r1o + o, r1);
+        st(d1o + o, d1);
+      }
     }
   }
 }
@@ -173,10 +231,6 @@ enum { B5_BCAST = 0, B5_GLOBAL = 1 };
 struct B5Plan {
   int cluster, threads, ipt, per_block, n_items, n_sides, n_e, r2_smem;
 };
-
-__host__ __device__ inline long long align16(long long n) {
-  return (n + 15) & ~15LL;
-}
 
 // copy `bytes` from global to shared memory, 16 bytes a thread when src
 // is 16-byte aligned (dst always is)
@@ -418,40 +472,119 @@ extern "C" int mg_residual(int dtype, const void* x, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static void cheb_run(int final_, const void* x, const void* r, const void* d,
-                     const void* fd, const void* sc, const void* r2,
-                     void* x1, void* r1, void* d1, float c1, float c2,
-                     const Stencil& s, cudaStream_t stream) {
-  const int threads = 256;
-  if (final_) {
-    mg_cheb_run_kernel<T, true><<<blocks_for(s, threads), threads, 0,
-                                  stream>>>(
-        (const T*)x, (const T*)r, (const T*)d, (const T*)fd,
-        (const float*)sc, (const T*)r2, (T*)x1, nullptr, nullptr, c1, c2, s);
-  } else {
-    mg_cheb_run_kernel<T, false><<<blocks_for(s, threads), threads, 0,
-                                   stream>>>(
-        (const T*)x, (const T*)r, (const T*)d, (const T*)fd,
-        (const float*)sc, (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s);
+// one launch (or occupancy query) of B4 on the brick of a plan's shape
+struct ChebRunArgs {
+  const void *x, *r, *d, *fd, *sc, *r2;
+  void *x1, *r1, *d1;
+  float c1, c2;
+  const void* shifts;
+  int layout, shape, bz, groups, n_sides, smem;
+};
+
+template <typename T, bool FINAL>
+struct ChebRunLaunch {
+  const ChebRunArgs& a;
+  const Stencil& s;
+  cudaStream_t stream;
+  int* occupancy;              // non-null: report blocks per SM, no launch
+  int rc;
+
+  template <class B> void run() {
+    if (a.layout == TILE_SMEM)
+      go<TILE_SMEM, B>();
+    else if (a.layout == TILE_GLOBAL)
+      go<TILE_GLOBAL, B>();
+    else if (a.layout == TILE_SMEM_PIPE)
+      go<TILE_SMEM_PIPE, B>();
+    else if (a.layout == TILE_GLOBAL_PIPE)
+      go<TILE_GLOBAL_PIPE, B>();
+    else
+      go<TILE_FLAT, B>();
   }
+
+  template <int LAYOUT, class B> void go() {
+    static bool done[TILE_MAX_DEVICES] = {};
+    auto kern = mg_cheb_run_kernel<LAYOUT, B, T, FINAL>;
+    if (!tile_plan_ok<B, T, Side>(a.bz, a.groups, a.n_sides, s.nc, a.smem,
+                                  a.layout, B4_MAX_THREADS)) {
+      rc = (int)cudaErrorInvalidValue;
+      return;
+    }
+    rc = (int)allow_smem_once(kern, done);
+    if (rc) return;
+    const int threads = a.groups * B::BX * B::BY
+                      * (LAYOUT == TILE_FLAT ? B::BZ : a.bz);
+    if (occupancy) {
+      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          occupancy, kern, threads, a.smem);
+      return;
+    }
+    const int plane = (s.Y + 2) * (s.Z + 2), L = B::BY * B::BZ;
+    const dim3 grid = LAYOUT == TILE_FLAT
+        ? dim3((plane + L - 1) / L, 1, (s.X + 2 + B::BX - 1) / B::BX)
+        : dim3((s.Z + 2 + a.bz - 1) / a.bz, (s.Y + 2 + B::BY - 1) / B::BY,
+               (s.X + 2 + B::BX - 1) / B::BX);
+    kern<<<grid, threads, a.smem, stream>>>(
+        (const T*)a.x, (const T*)a.r, (const T*)a.d, (const T*)a.fd,
+        (const float*)a.sc, (const T*)a.r2, (T*)a.x1, (T*)a.r1, (T*)a.d1,
+        a.c1, a.c2, s, (const int*)a.shifts, a.n_sides, a.bz, a.groups);
+    rc = (int)cudaGetLastError();
+  }
+};
+
+template <typename T, bool FINAL>
+static int cheb_run(const ChebRunArgs& a, const Stencil& s,
+                    cudaStream_t stream, int* occupancy) {
+  ChebRunLaunch<T, FINAL> f{a, s, stream, occupancy, 0};
+  if (!with_brick(a.shape, f)) return (int)cudaErrorInvalidValue;
+  return f.rc;
 }
 
+static int cheb_run_any(int dtype, int final_, const ChebRunArgs& a,
+                        const Stencil& s, cudaStream_t stream,
+                        int* occupancy) {
+  typedef __nv_bfloat16 bf;
+  if (dtype == 0)
+    return final_ ? cheb_run<float, true>(a, s, stream, occupancy)
+                  : cheb_run<float, false>(a, s, stream, occupancy);
+  if (dtype == 1)
+    return final_ ? cheb_run<bf, true>(a, s, stream, occupancy)
+                  : cheb_run<bf, false>(a, s, stream, occupancy);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B4: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
+// shifts [n_sides, 4] int (dx, dy, dz, 0) of each side's other endpoint;
+// layout, shape, bz, groups and smem as the host planned them
+// (kernels/stencil.py tile_plan, bricks of padded points)
 extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
                            const void* r, const void* d, const void* fd,
                            const void* sc, const void* r2, void* x1,
                            void* r1, void* d1, float c1, float c2,
                            const void* sides, const void* class_start,
-                           int nc, int X, int Y, int Z,
-                           float E, float kG, float G2, void* stream) {
+                           const void* shifts, int layout, int shape, int bz,
+                           int groups, int n_sides, int smem, int nc, int X,
+                           int Y, int Z, float E, float kG, float G2,
+                           void* stream) {
   const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
-  if (dtype == 0)
-    cheb_run<float>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s,
-                    (cudaStream_t)stream);
-  else
-    cheb_run<__nv_bfloat16>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1, c2,
-                            s, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  const ChebRunArgs a = {x, r, d, fd, sc, r2, x1, r1, d1, c1, c2,
+                         shifts, layout, shape, bz, groups, n_sides, smem};
+  return cheb_run_any(dtype, final_, a, s, (cudaStream_t)stream, nullptr);
+}
+
+// blocks of B4 that one SM holds at once on the current device under a
+// plan; a negative value is -cudaError
+extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int layout,
+                                     int shape, int bz, int groups,
+                                     int n_sides, int smem, int nc) {
+  const Stencil s = make_stencil(nullptr, nullptr, nc, 0, 0, 0, 0.f, 0.f,
+                                 0.f);
+  const ChebRunArgs a = {nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, 0.f, 0.f,
+                         nullptr, layout, shape, bz, groups, n_sides, smem};
+  int n = 0;
+  const int rc = cheb_run_any(dtype, final_, a, s, nullptr, &n);
+  return rc ? -rc : n;
 }
 
 // largest dynamic shared memory one block may use on sm_90 (232,448 bytes)

@@ -26,7 +26,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-struct Side {
+struct __align__(16) Side {
   int co;        // other endpoint's class
   int du;        // flat shift of the other endpoint in the padded u grid
   int dr;        // flat shift of the instance anchor in the padded r^2 grid
@@ -40,7 +40,7 @@ struct Side {
 static_assert(sizeof(Side) == 64, "Side must match the host table layout");
 
 // the float64 instance's record: the same fields with a double frame
-struct SideD {
+struct __align__(16) SideD {
   int co, du, dr, ei, side;
   int pad;
   double t[3], a1[3], a2[3];
@@ -108,13 +108,17 @@ __device__ __forceinline__ void side_acc(const SideT& sd, const C us[6],
   const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
   const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
   const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
-  if (sd.side == 0) {        // fA = [-fu, msh - mdf]
-    acc[0] += -fu0; acc[1] += -fu1; acc[2] += -fu2;
-    acc[3] += ms0 - md0; acc[4] += ms1 - md1; acc[5] += ms2 - md2;
-  } else {                   // fB = [fu, msh + mdf]
-    acc[0] += fu0; acc[1] += fu1; acc[2] += fu2;
-    acc[3] += ms0 + md0; acc[4] += ms1 + md1; acc[5] += ms2 + md2;
-  }
+  // side A: fA = [-fu, msh - mdf]; side B: fB = [fu, msh + mdf].  A
+  // product by +-1 is exact, so each fma rounds once, as the sum of the
+  // signed term does: the same bits as the two-branch form, with no
+  // branch or select per value
+  const C sf = -sg;
+  acc[0] = fma(sf, fu0, acc[0]);
+  acc[1] = fma(sf, fu1, acc[1]);
+  acc[2] = fma(sf, fu2, acc[2]);
+  acc[3] += fma(sf, md0, ms0);
+  acc[4] += fma(sf, md1, ms1);
+  acc[5] += fma(sf, md2, ms2);
 }
 
 template <typename C, typename SideT, typename TU, typename TR>
@@ -153,4 +157,296 @@ __device__ __forceinline__ bool interior(long long q, int X, int Y, int Z) {
   const int y = (int)((q / Zp) % Yp);
   const int x = (int)(q / ((long long)Yp * Zp));
   return x >= 1 && x <= X && y >= 1 && y <= Y && z >= 1 && z <= Z;
+}
+
+// ------------------------------------------------------------------ tiles
+// The tiled kernels (B1 in stencil_matvec.cu, B4 in mg_fused.cu): a block
+// owns a brick of BX x BY x bz output points (bz <= BZ along z, sized by
+// the host so that the bricks fit the grid's z extent closely) for every
+// class, and stages the brick plus a halo of TILE_HALO points on every
+// axis of the vector the stencil reads, all nc * 6 rows, in shared memory:
+// tile[row][TX][TY][TZ], TX = BX + 2 TILE_HALO, ..., in the storage type
+// (float, __nv_bfloat16 or double), widened on use.  Every neighbour and
+// self value then comes from the tile; r^2 stays a global read.  The host
+// plans the brick (kernels/stencil.py tile_plan): one shape of TILE_SHAPES
+// by its index, bz, and `groups` threads per point, thread t computing
+// point t % (BX BY bz) for the classes t / (BX BY bz), + groups, ...  The
+// halo is the ghost padding, so a template whose reach passes it is
+// refused on the host.
+#define TILE_HALO 1
+// the layouts the neighbours are read from: the brick's tile in shared
+// memory, or the padded field in global memory through L1 (the same
+// brick-shaped blocks)
+#define TILE_SMEM 0
+#define TILE_GLOBAL 1
+#define TILE_SMEM_PIPE 2
+#define TILE_GLOBAL_PIPE 3
+#define TILE_FLAT 4               // slabs: BX planes x BY * BZ flat points
+#define TILE_MAX_THREADS 1024
+#define TILE_N_SHAPES 5
+// (BX, BY, BZ) of each shape, by index: 2x4x32, 2x2x32, 1x2x32, 1x1x16,
+// 1x1x8 (kernels/stencil.py TILE_SHAPES, in this order)
+
+template <int BX_, int BY_, int BZ_>
+struct Brick {
+  static constexpr int BX = BX_, BY = BY_, BZ = BZ_;
+  static constexpr int TX = BX + 2 * TILE_HALO, TY = BY + 2 * TILE_HALO,
+                       TZ = BZ + 2 * TILE_HALO;
+  static constexpr int TPTS = TX * TY * TZ;       // tile points of one row
+};
+
+__host__ __device__ inline long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
+
+// The block's copy of the side table and class_start, carved from the
+// front of the dynamic shared memory.  In the copy, each record's du is
+// the flat offset from an output point to the other endpoint's first row
+// (co * 6 * rows + its shift, in the tile or in the padded field), and dr
+// the offset from the point's own r^2 position to the side's r^2
+// (ei * Fp + dr): one load and one add per side find each operand.
+template <typename SideT>
+struct TileTables {
+  SideT* sides;
+  int* cstart;
+  unsigned char* end;          // first byte after them (16-byte aligned)
+};
+
+template <typename SideT>
+__device__ __forceinline__ TileTables<SideT> carve_tables(unsigned char* sp,
+                                                          int n_sides,
+                                                          int nc) {
+  TileTables<SideT> t;
+  t.sides = (SideT*)sp;
+  sp += align16((long long)n_sides * sizeof(SideT));
+  t.cstart = (int*)sp;
+  sp += align16(4LL * (nc + 1));
+  t.end = sp;
+  return t;
+}
+
+// copy the side table (du and dr rewritten, above; shifts[4 s .. 4 s + 2]
+// is side s's (dx, dy, dz)) and class_start
+template <int LAYOUT, class B, typename SideT>
+__device__ __forceinline__ void stage_tables(const TileTables<SideT>& t,
+                                             const SideT* __restrict__ sides,
+                                             const int* __restrict__ cstart,
+                                             const int* __restrict__ shifts,
+                                             int n_sides, int nc, int Fp) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int s = tid; s < n_sides; s += nt) {
+    SideT sd = sides[s];
+    if (LAYOUT == TILE_GLOBAL || LAYOUT == TILE_GLOBAL_PIPE)
+      sd.du += sd.co * 6 * Fp;
+    else
+      sd.du = sd.co * 6 * B::TPTS
+            + (shifts[4 * s] * B::TY + shifts[4 * s + 1]) * B::TZ
+            + shifts[4 * s + 2];
+    sd.dr += sd.ei * Fp;
+    t.sides[s] = sd;
+  }
+  for (int i = tid; i <= nc; i += nt) t.cstart[i] = cstart[i];
+}
+
+// the bits of a storage value, and the i-th of a 16-byte chunk's
+template <int SZ> struct Word;
+template <> struct Word<2> { typedef unsigned short type; };
+template <> struct Word<4> { typedef unsigned int type; };
+template <> struct Word<8> { typedef unsigned long long type; };
+
+template <int SZ>
+__device__ __forceinline__ typename Word<SZ>::type chunk_word(const uint4& v,
+                                                              int i) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (SZ == 2)
+    return (unsigned short)(w[i >> 1] >> (16 * (i & 1)));
+  else if constexpr (SZ == 4)
+    return w[i];
+  else
+    return ((unsigned long long)w[2 * i + 1] << 32) | w[2 * i];
+}
+
+// Copy rows [0, rows) of the ghost-padded field src [rows, Xp, Yp, Zp]
+// over the tile whose point (0, 0, 0) is the padded point (gx0, gy0, gz0)
+// into tile[row][TX][TY][TZ].  Each thread reads aligned 16-byte chunks
+// of one tile line (a run of TZ points along z) and writes the chunk's
+// points that lie on the line and inside the padded grid; a chunk with no
+// such point is not read, so no read leaves the field's 16-byte blocks.
+// Tile points outside the padded grid are not written: only ghost outputs,
+// which read nothing, lie next to them.
+template <class B, typename T>
+__device__ __forceinline__ void stage_tile(T* __restrict__ tile,
+                                           const T* __restrict__ src,
+                                           int rows, int Fp, int Xp, int Yp,
+                                           int Zp, int gx0, int gy0,
+                                           int gz0) {
+  constexpr int V = 16 / (int)sizeof(T);               // points per chunk
+  constexpr int CPL = (B::TZ + 2 * V - 2) / V;         // chunks per line
+  const int zlo = max(0, -gz0), zhi = min(B::TZ, Zp - gz0);
+  const int items = rows * B::TX * B::TY * CPL;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int line = it / CPL, j = it - line * CPL;
+    const int iy = line % B::TY, rx = line / B::TY;
+    const int ix = rx % B::TX, row = rx / B::TX;
+    const int gx = gx0 + ix, gy = gy0 + iy;
+    if (gx < 0 || gx >= Xp || gy < 0 || gy >= Yp) continue;
+    const T* l = src + row * Fp + (gx * Yp + gy) * Zp + gz0;
+    const int k0 = j * V - (int)((((size_t)l) & 15) / sizeof(T));
+    if (k0 + V <= zlo || k0 >= zhi) continue;
+    const uint4 v = __ldg((const uint4*)(l + k0));
+    typedef typename Word<sizeof(T)>::type W;
+    W* dst = (W*)(tile + line * B::TZ);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int k = k0 + i;
+      if (k >= zlo && k < zhi) dst[k] = chunk_word<sizeof(T)>(v, i);
+    }
+  }
+}
+
+// K.u at one output point of class c: self values at src + q (row stride
+// rs; the tile, or the padded field), a side's other endpoint at
+// src + q + du and its r^2 at r2q + dr (r2q: the point's own r^2
+// position), du and dr as the block's table holds them.  The sides of
+// class c in table order, each through side_acc.  PIPE: each side's
+// operands are loaded while the previous side's arithmetic runs, so no
+// side waits for its loads (the last side's loads are repeated once).
+template <bool PIPE, typename C, typename SideT, typename T, typename TR>
+__device__ __forceinline__ void brick_acc(
+    const T* src, int rs, int q, const TR* r2q, int c, const SideT* sides,
+    int s_begin, int s_end, C E, C kG, C G2, C acc[6]) {
+  C us[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) us[k] = ld(src + (c * 6 + k) * rs + q);
+#ifdef TILE_DIAG
+  if (TILE_DIAG == 1) {        // loads only: the operands summed
+    for (int s = s_begin; s < s_end; ++s) {
+      const SideT& sd = sides[s];
+      const T* ub = src + q + sd.du;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) acc[k] += ld(ub + k * rs);
+      acc[0] += ld(r2q + sd.dr) + (C)sd.t[0] + (C)sd.a1[1] + (C)sd.a2[2];
+    }
+    return;
+  }
+  if (TILE_DIAG == 2) {        // arithmetic only: operands from registers
+    for (int s = s_begin; s < s_end; ++s) {
+      const SideT& sd = sides[s];
+      C uo[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) uo[k] = us[k] + (C)s;
+      side_acc<C, SideT>(sd, us, uo, us[0] * us[1], E, kG, G2, acc);
+    }
+    return;
+  }
+#endif
+  if (!PIPE) {
+    for (int s = s_begin; s < s_end; ++s) {
+      const SideT& sd = sides[s];
+      const T* ub = src + q + sd.du;
+      C uo[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) uo[k] = ld(ub + k * rs);
+      const C r2 = ld(r2q + sd.dr);
+      side_acc<C, SideT>(sd, us, uo, r2, E, kG, G2, acc);
+    }
+    return;
+  }
+  if (s_begin >= s_end) return;
+  C uo[6], r2;
+  {
+    const SideT& sd = sides[s_begin];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) uo[k] = ld(src + q + sd.du + k * rs);
+    r2 = ld(r2q + sd.dr);
+  }
+  for (int s = s_begin; s < s_end; ++s) {
+    const SideT& nx = sides[min(s + 1, s_end - 1)];
+    C un[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) un[k] = ld(src + q + nx.du + k * rs);
+    const C r2n = ld(r2q + nx.dr);
+    side_acc<C, SideT>(sides[s], us, uo, r2, E, kG, G2, acc);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) uo[k] = un[k];
+    r2 = r2n;
+  }
+}
+
+// The thread's point in its brick: lx, ly, lz; group g
+struct BrickPoint {
+  int lx, ly, lz, g;
+};
+
+template <class B>
+__device__ __forceinline__ BrickPoint brick_point(int bz) {
+  const int pts = B::BX * B::BY * bz;
+  const int t = threadIdx.x, p = t % pts;
+  const int r = p / bz;
+  return {r / B::BY, r % B::BY, p - r * bz, t / pts};
+}
+
+// the dispatch over TILE_SHAPES: calls f.template run<Brick<...>>() for
+// the shape of index `shape`; false for an unknown index
+template <class F>
+__host__ bool with_brick(int shape, F& f) {
+  switch (shape) {
+    case 0: f.template run<Brick<2, 4, 32>>(); return true;
+    case 1: f.template run<Brick<2, 2, 32>>(); return true;
+    case 2: f.template run<Brick<1, 2, 32>>(); return true;
+    case 3: f.template run<Brick<1, 1, 16>>(); return true;
+    case 4: f.template run<Brick<1, 1, 8>>(); return true;
+    default: return false;
+  }
+}
+
+// largest dynamic shared memory one block may use on sm_90 (232,448 bytes)
+#define TILE_MAX_SMEM (227 * 1024)
+#define TILE_MAX_DEVICES 64
+
+// raise `kern`'s dynamic shared memory limit to TILE_MAX_SMEM on the
+// current device, once per device (`done`: the kernel's own flags)
+template <typename K>
+static cudaError_t allow_smem_once(K kern, bool* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= TILE_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           TILE_MAX_SMEM);
+  if (e == cudaSuccess) done[dev] = true;
+  return e;
+}
+
+// the dynamic shared memory a tiled kernel carves (kernels/stencil.py
+// tile_smem_bytes sizes it; a launch given less is refused)
+template <class B, typename T, typename SideT>
+__host__ __device__ inline long long tile_smem_need(int n_sides, int nc,
+                                                    int layout) {
+  if (layout != TILE_SMEM && layout != TILE_SMEM_PIPE) return 0;
+  return align16((long long)n_sides * sizeof(SideT)) + align16(4LL * (nc + 1))
+       + align16((long long)sizeof(T) * nc * 6 * B::TPTS);
+}
+
+// a tile plan the kernels can run: bz within the brick, threads within
+// the kernel's limit, every class covered, and the shared memory the host
+// sized within the limit and no less than the carve-up
+template <class B, typename T, typename SideT>
+__host__ inline bool tile_plan_ok(int bz, int groups, int n_sides, int nc,
+                                  int smem, int layout, int max_threads) {
+  return bz >= 1 && bz <= B::BZ && groups >= 1 && groups <= nc
+      && layout >= 0 && layout <= 4
+      && groups * B::BX * B::BY * (layout == TILE_FLAT ? B::BZ : bz)
+             <= max_threads
+      && smem <= TILE_MAX_SMEM
+      && smem >= tile_smem_need<B, T, SideT>(n_sides, nc, layout);
+}
+
+// the kernel checks the carve-up against what it was given
+__device__ __forceinline__ void check_smem(const unsigned char* end,
+                                           const unsigned char* smem) {
+  unsigned dyn_smem;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn_smem));
+  if (end - smem > (long long)dyn_smem) __trap();
 }
