@@ -21,11 +21,12 @@
 //
 // Layout: every vector is ghost-padded [nc, 6, Xp, Yp, Zp] (B1's layout,
 // not the TPU kernels' align8 [rows, Fp] flats) and r^2 is
-// [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point): interior
-// threads run the shared stencil body (stencil_body.cuh) and update their
-// own 6 values; ghost threads write zeros, so outputs can come from
-// torch.empty and every neighbour read of the next launch sees zero ghosts.
-// Sides are summed in table order: repeats are bitwise equal.
+// [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point) (B4 in
+// B1's slabs, stencil_body.cuh): interior threads run the shared stencil
+// body and update their own 6 values; ghost threads write zeros, so
+// outputs can come from torch.empty and every neighbour read of the next
+// launch sees zero ghosts.  Sides are summed in table order: repeats are
+// bitwise equal.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), 50^3 Octet level 0
 // (24 rows, F = 53^3 padded points, N = 51^3 interior, 48 sides), bf16
@@ -39,8 +40,10 @@
 //       bound by the latency of its `degree` dependent phases.
 // B3 and B4 are B1's thread layout plus a pointwise epilogue on values the
 // thread already holds, so they add no pass over memory around the
-// stencil.  Re-reads of d (13 per value) are left to L1/L2, as in B1;
-// shared-memory tiles of d and TMA are later work.  B5 spreads the level
+// stencil.  Re-reads of d (13 per value) go through L1, as in B1: a
+// shared-memory tile of d per brick measured slower than B4's slabs on an
+// H100 (PERF.md); B3 keeps the flat layout it was ported with, one block
+// per 256 consecutive (class, padded point) items.  B5 spreads the level
 // over a thread-block cluster (up to 16 SMs) so that each thread owns one
 // to four interior items and keeps their x, r, d and fd in registers; d,
 // the one vector that neighbours read, is exchanged through distributed
@@ -97,71 +100,30 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
 }
 
 // ------------------------------------------------------------------ B4
-// One block per brick of PADDED points (ghosts included), every class:
-// d is staged in the brick's tile (stencil_body.cuh, "tiles"); x, r and
-// fd are read once from global at the point; interior points run the
-// stencil body on the tile and update their own values, ghost points
-// write zeros, so outputs can come from torch.empty and every neighbour
-// read of the next launch sees zero ghosts.
+// One block per slab of PADDED points (stencil_body.cuh): blockIdx.y is
+// the padded plane, blockIdx.x the run of its flat (y, z) points, every
+// class.  Interior points run the stencil on d and update their own
+// values (x, r, fd and the centre d read once); ghost points write zeros,
+// so outputs can come from torch.empty and every neighbour read of the
+// next launch sees zero ghosts.  `sides` holds the grid's offsets.
 #define B4_MAX_THREADS 512
 
-template <int LAYOUT, class B, typename T, bool FINAL>
+template <typename T, bool FINAL>
 __global__ void __launch_bounds__(B4_MAX_THREADS)
 mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const T* __restrict__ d, const T* __restrict__ fd,
                    const float* __restrict__ sc, const T* __restrict__ r2,
                    T* __restrict__ x1o, T* __restrict__ r1o,
                    T* __restrict__ d1o, float c1, float c2, Stencil s,
-                   const int* __restrict__ shifts, int n_sides, int bz,
-                   int groups) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nc = s.nc;
-  const TileTables<Side> tb = carve_tables<Side>(smem, n_sides, nc);
-  T* tile = (T*)tb.end;
-  constexpr bool tiled = LAYOUT == TILE_SMEM || LAYOUT == TILE_SMEM_PIPE;
-  constexpr bool pipe = LAYOUT == TILE_SMEM_PIPE || LAYOUT == TILE_GLOBAL_PIPE;
-  if constexpr (tiled)
-    check_smem(tb.end + align16((long long)sizeof(T) * nc * 6 * B::TPTS),
-               smem);
-  const int Xp = s.X + 2, Yp = s.Y + 2, Zp = s.Z + 2;
-  const int Fp = Xp * Yp * Zp;
-  // the brick's first point, padded coordinates
-  const int x0 = blockIdx.z * B::BX, y0 = blockIdx.y * B::BY,
-            z0 = blockIdx.x * bz;
-  // the global layouts read the host's table (offsets already in the
-  // padded field): no staging and no barrier
-  const Side* tsides = s.sides;
-  const int* tcs = s.class_start;
-  if constexpr (tiled) {
-    stage_tables<LAYOUT, B>(tb, s.sides, s.class_start, shifts, n_sides, nc,
-                            Fp);
-    stage_tile<B>(tile, d, nc * 6, Fp, Xp, Yp, Zp, x0 - TILE_HALO,
-                  y0 - TILE_HALO, z0 - TILE_HALO);
-    __syncthreads();
-    tsides = tb.sides;
-    tcs = tb.cstart;
-  }
-  BrickPoint bp;
-  int px, py, pz;
-  if constexpr (LAYOUT == TILE_FLAT) {
-    // a slab of BX planes x a run of BY * BZ points of the plane's flat
-    // (y, z) order
-    constexpr int L = B::BY * B::BZ;
-    const int t = threadIdx.x, r = t % (B::BX * L);
-    const int f = blockIdx.x * L + r % L;
-    bp = {0, 0, 0, t / (B::BX * L)};
-    px = blockIdx.z * B::BX + r / L;
-    py = f / Zp;
-    pz = f - py * Zp;
-    if (px >= Xp || py >= Yp) return;
-  } else {
-    bp = brick_point<B>(bz);
-    px = x0 + bp.lx; py = y0 + bp.ly; pz = z0 + bp.lz;
-    if (px >= Xp || py >= Yp || pz >= Zp) return;
-  }
-  const int q = (px * Yp + py) * Zp + pz;
+                   int run, int groups) {
+  const int Yp = s.Y + 2, Zp = s.Z + 2, Fp = (s.X + 2) * Yp * Zp;
+  const int g = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - g * run);
+  if (f >= Yp * Zp) return;
+  const int px = blockIdx.y, py = f / Zp, pz = f - py * Zp;
+  const int q = px * Yp * Zp + f;
   if (px < 1 || px > s.X || py < 1 || py > s.Y || pz < 1 || pz > s.Z) {
-    for (int c = bp.g; c < nc; c += groups) {
+    for (int c = g; c < s.nc; c += groups) {
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
         const int o = (c * 6 + k) * Fp + q;
@@ -174,19 +136,15 @@ mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
     }
     return;
   }
-  const int tq = ((bp.lx + TILE_HALO) * B::TY + bp.ly + TILE_HALO) * B::TZ
-               + bp.lz + TILE_HALO;
-  const T* src = tiled ? tile : d;
-  const int rs = tiled ? B::TPTS : Fp, sq = tiled ? tq : q;
   const float c2i = c2 * sc[1];
-  for (int c = bp.g; c < nc; c += groups) {
+  for (int c = g; c < s.nc; c += groups) {
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    brick_acc<pipe, float, Side>(src, rs, sq, r2 + q, c, tsides, tcs[c],
-                                 tcs[c + 1], s.E, s.kG, s.G2, acc);
+    slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       const int o = (c * 6 + k) * Fp + q;
-      const float dc = ld(src + (c * 6 + k) * rs + sq);
+      const float dc = ld(d + o);
       const float x1 = ld(x + o) + dc;
       const float r1 = ld(r + o) - acc[k];
       const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
@@ -231,6 +189,10 @@ enum { B5_BCAST = 0, B5_GLOBAL = 1 };
 struct B5Plan {
   int cluster, threads, ipt, per_block, n_items, n_sides, n_e, r2_smem;
 };
+
+__host__ __device__ inline long long align16(long long n) {
+  return (n + 15) & ~15LL;
+}
 
 // copy `bytes` from global to shared memory, 16 bytes a thread when src
 // is 16-byte aligned (dst always is)
@@ -472,119 +434,69 @@ extern "C" int mg_residual(int dtype, const void* x, const void* b,
   return (int)cudaGetLastError();
 }
 
-// one launch (or occupancy query) of B4 on the brick of a plan's shape
-struct ChebRunArgs {
-  const void *x, *r, *d, *fd, *sc, *r2;
-  void *x1, *r1, *d1;
-  float c1, c2;
-  const void* shifts;
-  int layout, shape, bz, groups, n_sides, smem;
-};
-
 template <typename T, bool FINAL>
-struct ChebRunLaunch {
-  const ChebRunArgs& a;
-  const Stencil& s;
-  cudaStream_t stream;
-  int* occupancy;              // non-null: report blocks per SM, no launch
-  int rc;
-
-  template <class B> void run() {
-    if (a.layout == TILE_SMEM)
-      go<TILE_SMEM, B>();
-    else if (a.layout == TILE_GLOBAL)
-      go<TILE_GLOBAL, B>();
-    else if (a.layout == TILE_SMEM_PIPE)
-      go<TILE_SMEM_PIPE, B>();
-    else if (a.layout == TILE_GLOBAL_PIPE)
-      go<TILE_GLOBAL_PIPE, B>();
-    else
-      go<TILE_FLAT, B>();
-  }
-
-  template <int LAYOUT, class B> void go() {
-    static bool done[TILE_MAX_DEVICES] = {};
-    auto kern = mg_cheb_run_kernel<LAYOUT, B, T, FINAL>;
-    if (!tile_plan_ok<B, T, Side>(a.bz, a.groups, a.n_sides, s.nc, a.smem,
-                                  a.layout, B4_MAX_THREADS)) {
-      rc = (int)cudaErrorInvalidValue;
-      return;
-    }
-    rc = (int)allow_smem_once(kern, done);
-    if (rc) return;
-    const int threads = a.groups * B::BX * B::BY
-                      * (LAYOUT == TILE_FLAT ? B::BZ : a.bz);
-    if (occupancy) {
-      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          occupancy, kern, threads, a.smem);
-      return;
-    }
-    const int plane = (s.Y + 2) * (s.Z + 2), L = B::BY * B::BZ;
-    const dim3 grid = LAYOUT == TILE_FLAT
-        ? dim3((plane + L - 1) / L, 1, (s.X + 2 + B::BX - 1) / B::BX)
-        : dim3((s.Z + 2 + a.bz - 1) / a.bz, (s.Y + 2 + B::BY - 1) / B::BY,
-               (s.X + 2 + B::BX - 1) / B::BX);
-    kern<<<grid, threads, a.smem, stream>>>(
-        (const T*)a.x, (const T*)a.r, (const T*)a.d, (const T*)a.fd,
-        (const float*)a.sc, (const T*)a.r2, (T*)a.x1, (T*)a.r1, (T*)a.d1,
-        a.c1, a.c2, s, (const int*)a.shifts, a.n_sides, a.bz, a.groups);
-    rc = (int)cudaGetLastError();
-  }
-};
-
-template <typename T, bool FINAL>
-static int cheb_run(const ChebRunArgs& a, const Stencil& s,
-                    cudaStream_t stream, int* occupancy) {
-  ChebRunLaunch<T, FINAL> f{a, s, stream, occupancy, 0};
-  if (!with_brick(a.shape, f)) return (int)cudaErrorInvalidValue;
-  return f.rc;
-}
-
-static int cheb_run_any(int dtype, int final_, const ChebRunArgs& a,
-                        const Stencil& s, cudaStream_t stream,
-                        int* occupancy) {
-  typedef __nv_bfloat16 bf;
-  if (dtype == 0)
-    return final_ ? cheb_run<float, true>(a, s, stream, occupancy)
-                  : cheb_run<float, false>(a, s, stream, occupancy);
-  if (dtype == 1)
-    return final_ ? cheb_run<bf, true>(a, s, stream, occupancy)
-                  : cheb_run<bf, false>(a, s, stream, occupancy);
-  return (int)cudaErrorInvalidValue;
+static void cheb_run(const void* x, const void* r, const void* d,
+                     const void* fd, const void* sc, const void* r2,
+                     void* x1, void* r1, void* d1, float c1, float c2,
+                     const Stencil& s, int run, int groups,
+                     cudaStream_t stream) {
+  const dim3 grid(((s.Y + 2) * (s.Z + 2) + run - 1) / run, s.X + 2);
+  mg_cheb_run_kernel<T, FINAL><<<grid, groups * run, 0, stream>>>(
+      (const T*)x, (const T*)r, (const T*)d, (const T*)fd, (const float*)sc,
+      (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s, run, groups);
 }
 
 // B4: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
-// shifts [n_sides, 4] int (dx, dy, dz, 0) of each side's other endpoint;
-// layout, shape, bz, groups and smem as the host planned them
-// (kernels/stencil.py tile_plan, bricks of padded points)
+// sides and class_start the table with the grid's offsets; run and groups
+// as the host planned them (kernels/stencil.py slab_plan)
 extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
                            const void* r, const void* d, const void* fd,
                            const void* sc, const void* r2, void* x1,
                            void* r1, void* d1, float c1, float c2,
                            const void* sides, const void* class_start,
-                           const void* shifts, int layout, int shape, int bz,
-                           int groups, int n_sides, int smem, int nc, int X,
-                           int Y, int Z, float E, float kG, float G2,
-                           void* stream) {
+                           int run, int groups, int nc, int X, int Y, int Z,
+                           float E, float kG, float G2, void* stream) {
+  if ((dtype != 0 && dtype != 1)
+      || !slab_plan_ok(run, groups, nc, B4_MAX_THREADS))
+    return (int)cudaErrorInvalidValue;
   const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
-  const ChebRunArgs a = {x, r, d, fd, sc, r2, x1, r1, d1, c1, c2,
-                         shifts, layout, shape, bz, groups, n_sides, smem};
-  return cheb_run_any(dtype, final_, a, s, (cudaStream_t)stream, nullptr);
+  cudaStream_t st_ = (cudaStream_t)stream;
+  typedef __nv_bfloat16 bf;
+  if (dtype == 0 && final_)
+    cheb_run<float, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                          groups, st_);
+  else if (dtype == 0)
+    cheb_run<float, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                           groups, st_);
+  else if (final_)
+    cheb_run<bf, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                       groups, st_);
+  else
+    cheb_run<bf, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                        groups, st_);
+  return (int)cudaGetLastError();
 }
 
-// blocks of B4 that one SM holds at once on the current device under a
-// plan; a negative value is -cudaError
-extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int layout,
-                                     int shape, int bz, int groups,
-                                     int n_sides, int smem, int nc) {
-  const Stencil s = make_stencil(nullptr, nullptr, nc, 0, 0, 0, 0.f, 0.f,
-                                 0.f);
-  const ChebRunArgs a = {nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, nullptr, nullptr, nullptr, 0.f, 0.f,
-                         nullptr, layout, shape, bz, groups, n_sides, smem};
+template <typename T, bool FINAL>
+static int cheb_run_occupancy(int run, int groups) {
   int n = 0;
-  const int rc = cheb_run_any(dtype, final_, a, s, nullptr, &n);
-  return rc ? -rc : n;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, mg_cheb_run_kernel<T, FINAL>, groups * run, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// blocks of B4 of groups * run threads that one SM holds at once on the
+// current device; a negative value is -cudaError
+extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int run,
+                                     int groups) {
+  typedef __nv_bfloat16 bf;
+  if (dtype == 0)
+    return final_ ? cheb_run_occupancy<float, true>(run, groups)
+                  : cheb_run_occupancy<float, false>(run, groups);
+  if (dtype == 1)
+    return final_ ? cheb_run_occupancy<bf, true>(run, groups)
+                  : cheb_run_occupancy<bf, false>(run, groups);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // largest dynamic shared memory one block may use on sm_90 (232,448 bytes)

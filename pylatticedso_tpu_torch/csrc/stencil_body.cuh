@@ -159,294 +159,54 @@ __device__ __forceinline__ bool interior(long long q, int X, int Y, int Z) {
   return x >= 1 && x <= X && y >= 1 && y <= Y && z >= 1 && z <= Z;
 }
 
-// ------------------------------------------------------------------ tiles
-// The tiled kernels (B1 in stencil_matvec.cu, B4 in mg_fused.cu): a block
-// owns a brick of BX x BY x bz output points (bz <= BZ along z, sized by
-// the host so that the bricks fit the grid's z extent closely) for every
-// class, and stages the brick plus a halo of TILE_HALO points on every
-// axis of the vector the stencil reads, all nc * 6 rows, in shared memory:
-// tile[row][TX][TY][TZ], TX = BX + 2 TILE_HALO, ..., in the storage type
-// (float, __nv_bfloat16 or double), widened on use.  Every neighbour and
-// self value then comes from the tile; r^2 stays a global read.  The host
-// plans the brick (kernels/stencil.py tile_plan): one shape of TILE_SHAPES
-// by its index, bz, and `groups` threads per point, thread t computing
-// point t % (BX BY bz) for the classes t / (BX BY bz), + groups, ...  The
-// halo is the ghost padding, so a template whose reach passes it is
-// refused on the host.
-#define TILE_HALO 1
-// the layouts the neighbours are read from: the brick's tile in shared
-// memory, or the padded field in global memory through L1 (the same
-// brick-shaped blocks)
-#define TILE_SMEM 0
-#define TILE_GLOBAL 1
-#define TILE_SMEM_PIPE 2
-#define TILE_GLOBAL_PIPE 3
-#define TILE_FLAT 4               // slabs: BX planes x BY * BZ flat points
-#define TILE_MAX_THREADS 1024
-#define TILE_N_SHAPES 5
-// (BX, BY, BZ) of each shape, by index: 2x4x32, 2x2x32, 1x2x32, 1x1x16,
-// 1x1x8 (kernels/stencil.py TILE_SHAPES, in this order)
+// ------------------------------------------------------------------ slabs
+// B1 (stencil_matvec.cu) and B4 (mg_fused.cu) run one block per slab: a
+// run of `run` consecutive points of one padded x-plane, in the plane's
+// flat (y, z) order, for every class.  Thread t computes point t % run of
+// the slab for the classes t / run, t / run + groups, ... (the host's
+// rule gives each class of a point its own thread, groups = nc,
+// kernels/stencil.py slab_plan).  Consecutive threads then read
+// consecutive addresses for every operand, ghost columns included, and a
+// block's classes share their neighbours in L1.  The side table the slab
+// kernels read holds offsets for the launch's grid (the host writes them,
+// StencilMatvec.tables): du = co * 6 * Fp + du is the other endpoint's
+// first row from the output point, dr = ei * Fp + dr the side's r^2 from
+// the point's own r^2 position, so each operand is one add and one load;
+// the records are 16-byte aligned and load as four (seven) 16-byte words,
+// the same address in every thread of a warp.  Index arithmetic is
+// 32-bit (the host refuses a grid whose rows pass 2^31 points).  A side's
+// shift reaches at most SLAB_HALO points per axis, the ghost padding (the
+// host refuses a template that reaches farther).
+#define SLAB_HALO 1
+#define SLAB_MAX_RUN 256
 
-template <int BX_, int BY_, int BZ_>
-struct Brick {
-  static constexpr int BX = BX_, BY = BY_, BZ = BZ_;
-  static constexpr int TX = BX + 2 * TILE_HALO, TY = BY + 2 * TILE_HALO,
-                       TZ = BZ + 2 * TILE_HALO;
-  static constexpr int TPTS = TX * TY * TZ;       // tile points of one row
-};
-
-__host__ __device__ inline long long align16(long long n) {
-  return (n + 15) & ~15LL;
-}
-
-// The block's copy of the side table and class_start, carved from the
-// front of the dynamic shared memory.  In the copy, each record's du is
-// the flat offset from an output point to the other endpoint's first row
-// (co * 6 * rows + its shift, in the tile or in the padded field), and dr
-// the offset from the point's own r^2 position to the side's r^2
-// (ei * Fp + dr): one load and one add per side find each operand.
-template <typename SideT>
-struct TileTables {
-  SideT* sides;
-  int* cstart;
-  unsigned char* end;          // first byte after them (16-byte aligned)
-};
-
-template <typename SideT>
-__device__ __forceinline__ TileTables<SideT> carve_tables(unsigned char* sp,
-                                                          int n_sides,
-                                                          int nc) {
-  TileTables<SideT> t;
-  t.sides = (SideT*)sp;
-  sp += align16((long long)n_sides * sizeof(SideT));
-  t.cstart = (int*)sp;
-  sp += align16(4LL * (nc + 1));
-  t.end = sp;
-  return t;
-}
-
-// copy the side table (du and dr rewritten, above; shifts[4 s .. 4 s + 2]
-// is side s's (dx, dy, dz)) and class_start
-template <int LAYOUT, class B, typename SideT>
-__device__ __forceinline__ void stage_tables(const TileTables<SideT>& t,
-                                             const SideT* __restrict__ sides,
-                                             const int* __restrict__ cstart,
-                                             const int* __restrict__ shifts,
-                                             int n_sides, int nc, int Fp) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int s = tid; s < n_sides; s += nt) {
-    SideT sd = sides[s];
-    if (LAYOUT == TILE_GLOBAL || LAYOUT == TILE_GLOBAL_PIPE)
-      sd.du += sd.co * 6 * Fp;
-    else
-      sd.du = sd.co * 6 * B::TPTS
-            + (shifts[4 * s] * B::TY + shifts[4 * s + 1]) * B::TZ
-            + shifts[4 * s + 2];
-    sd.dr += sd.ei * Fp;
-    t.sides[s] = sd;
-  }
-  for (int i = tid; i <= nc; i += nt) t.cstart[i] = cstart[i];
-}
-
-// the bits of a storage value, and the i-th of a 16-byte chunk's
-template <int SZ> struct Word;
-template <> struct Word<2> { typedef unsigned short type; };
-template <> struct Word<4> { typedef unsigned int type; };
-template <> struct Word<8> { typedef unsigned long long type; };
-
-template <int SZ>
-__device__ __forceinline__ typename Word<SZ>::type chunk_word(const uint4& v,
-                                                              int i) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-  if constexpr (SZ == 2)
-    return (unsigned short)(w[i >> 1] >> (16 * (i & 1)));
-  else if constexpr (SZ == 4)
-    return w[i];
-  else
-    return ((unsigned long long)w[2 * i + 1] << 32) | w[2 * i];
-}
-
-// Copy rows [0, rows) of the ghost-padded field src [rows, Xp, Yp, Zp]
-// over the tile whose point (0, 0, 0) is the padded point (gx0, gy0, gz0)
-// into tile[row][TX][TY][TZ].  Each thread reads aligned 16-byte chunks
-// of one tile line (a run of TZ points along z) and writes the chunk's
-// points that lie on the line and inside the padded grid; a chunk with no
-// such point is not read, so no read leaves the field's 16-byte blocks.
-// Tile points outside the padded grid are not written: only ghost outputs,
-// which read nothing, lie next to them.
-template <class B, typename T>
-__device__ __forceinline__ void stage_tile(T* __restrict__ tile,
-                                           const T* __restrict__ src,
-                                           int rows, int Fp, int Xp, int Yp,
-                                           int Zp, int gx0, int gy0,
-                                           int gz0) {
-  constexpr int V = 16 / (int)sizeof(T);               // points per chunk
-  constexpr int CPL = (B::TZ + 2 * V - 2) / V;         // chunks per line
-  const int zlo = max(0, -gz0), zhi = min(B::TZ, Zp - gz0);
-  const int items = rows * B::TX * B::TY * CPL;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int line = it / CPL, j = it - line * CPL;
-    const int iy = line % B::TY, rx = line / B::TY;
-    const int ix = rx % B::TX, row = rx / B::TX;
-    const int gx = gx0 + ix, gy = gy0 + iy;
-    if (gx < 0 || gx >= Xp || gy < 0 || gy >= Yp) continue;
-    const T* l = src + row * Fp + (gx * Yp + gy) * Zp + gz0;
-    const int k0 = j * V - (int)((((size_t)l) & 15) / sizeof(T));
-    if (k0 + V <= zlo || k0 >= zhi) continue;
-    const uint4 v = __ldg((const uint4*)(l + k0));
-    typedef typename Word<sizeof(T)>::type W;
-    W* dst = (W*)(tile + line * B::TZ);
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int k = k0 + i;
-      if (k >= zlo && k < zhi) dst[k] = chunk_word<sizeof(T)>(v, i);
-    }
-  }
-}
-
-// K.u at one output point of class c: self values at src + q (row stride
-// rs; the tile, or the padded field), a side's other endpoint at
-// src + q + du and its r^2 at r2q + dr (r2q: the point's own r^2
-// position), du and dr as the block's table holds them.  The sides of
-// class c in table order, each through side_acc.  PIPE: each side's
-// operands are loaded while the previous side's arithmetic runs, so no
-// side waits for its loads (the last side's loads are repeated once).
-template <bool PIPE, typename C, typename SideT, typename T, typename TR>
-__device__ __forceinline__ void brick_acc(
-    const T* src, int rs, int q, const TR* r2q, int c, const SideT* sides,
-    int s_begin, int s_end, C E, C kG, C G2, C acc[6]) {
+// K.u at the padded point q (flat in the padded field, row stride Fp) of
+// class c: self values at u + q, a side's other endpoint at u + q + du
+// and its r^2 at r2q + dr (r2q = r^2 + q), the sides of class c in table
+// order, each through side_acc.
+template <typename C, typename SideT, typename T, typename TR>
+__device__ __forceinline__ void slab_acc(
+    const T* __restrict__ u, int Fp, int q, const TR* __restrict__ r2q,
+    int c, const SideT* __restrict__ sides, int s_begin, int s_end, C E,
+    C kG, C G2, C acc[6]) {
   C us[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) us[k] = ld(src + (c * 6 + k) * rs + q);
-#ifdef TILE_DIAG
-  if (TILE_DIAG == 1) {        // loads only: the operands summed
-    for (int s = s_begin; s < s_end; ++s) {
-      const SideT& sd = sides[s];
-      const T* ub = src + q + sd.du;
-#pragma unroll
-      for (int k = 0; k < 6; ++k) acc[k] += ld(ub + k * rs);
-      acc[0] += ld(r2q + sd.dr) + (C)sd.t[0] + (C)sd.a1[1] + (C)sd.a2[2];
-    }
-    return;
-  }
-  if (TILE_DIAG == 2) {        // arithmetic only: operands from registers
-    for (int s = s_begin; s < s_end; ++s) {
-      const SideT& sd = sides[s];
-      C uo[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) uo[k] = us[k] + (C)s;
-      side_acc<C, SideT>(sd, us, uo, us[0] * us[1], E, kG, G2, acc);
-    }
-    return;
-  }
-#endif
-  if (!PIPE) {
-    for (int s = s_begin; s < s_end; ++s) {
-      const SideT& sd = sides[s];
-      const T* ub = src + q + sd.du;
-      C uo[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) uo[k] = ld(ub + k * rs);
-      const C r2 = ld(r2q + sd.dr);
-      side_acc<C, SideT>(sd, us, uo, r2, E, kG, G2, acc);
-    }
-    return;
-  }
-  if (s_begin >= s_end) return;
-  C uo[6], r2;
-  {
-    const SideT& sd = sides[s_begin];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) uo[k] = ld(src + q + sd.du + k * rs);
-    r2 = ld(r2q + sd.dr);
-  }
+  for (int k = 0; k < 6; ++k) us[k] = ld(u + (c * 6 + k) * Fp + q);
   for (int s = s_begin; s < s_end; ++s) {
-    const SideT& nx = sides[min(s + 1, s_end - 1)];
-    C un[6];
+    const SideT& sd = sides[s];
+    const T* ub = u + q + sd.du;
+    C uo[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) un[k] = ld(src + q + nx.du + k * rs);
-    const C r2n = ld(r2q + nx.dr);
-    side_acc<C, SideT>(sides[s], us, uo, r2, E, kG, G2, acc);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) uo[k] = un[k];
-    r2 = r2n;
+    for (int k = 0; k < 6; ++k) uo[k] = ld(ub + k * Fp);
+    const C r2 = ld(r2q + sd.dr);
+    side_acc<C, SideT>(sd, us, uo, r2, E, kG, G2, acc);
   }
 }
 
-// The thread's point in its brick: lx, ly, lz; group g
-struct BrickPoint {
-  int lx, ly, lz, g;
-};
-
-template <class B>
-__device__ __forceinline__ BrickPoint brick_point(int bz) {
-  const int pts = B::BX * B::BY * bz;
-  const int t = threadIdx.x, p = t % pts;
-  const int r = p / bz;
-  return {r / B::BY, r % B::BY, p - r * bz, t / pts};
-}
-
-// the dispatch over TILE_SHAPES: calls f.template run<Brick<...>>() for
-// the shape of index `shape`; false for an unknown index
-template <class F>
-__host__ bool with_brick(int shape, F& f) {
-  switch (shape) {
-    case 0: f.template run<Brick<2, 4, 32>>(); return true;
-    case 1: f.template run<Brick<2, 2, 32>>(); return true;
-    case 2: f.template run<Brick<1, 2, 32>>(); return true;
-    case 3: f.template run<Brick<1, 1, 16>>(); return true;
-    case 4: f.template run<Brick<1, 1, 8>>(); return true;
-    default: return false;
-  }
-}
-
-// largest dynamic shared memory one block may use on sm_90 (232,448 bytes)
-#define TILE_MAX_SMEM (227 * 1024)
-#define TILE_MAX_DEVICES 64
-
-// raise `kern`'s dynamic shared memory limit to TILE_MAX_SMEM on the
-// current device, once per device (`done`: the kernel's own flags)
-template <typename K>
-static cudaError_t allow_smem_once(K kern, bool* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= TILE_MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           TILE_MAX_SMEM);
-  if (e == cudaSuccess) done[dev] = true;
-  return e;
-}
-
-// the dynamic shared memory a tiled kernel carves (kernels/stencil.py
-// tile_smem_bytes sizes it; a launch given less is refused)
-template <class B, typename T, typename SideT>
-__host__ __device__ inline long long tile_smem_need(int n_sides, int nc,
-                                                    int layout) {
-  if (layout != TILE_SMEM && layout != TILE_SMEM_PIPE) return 0;
-  return align16((long long)n_sides * sizeof(SideT)) + align16(4LL * (nc + 1))
-       + align16((long long)sizeof(T) * nc * 6 * B::TPTS);
-}
-
-// a tile plan the kernels can run: bz within the brick, threads within
-// the kernel's limit, every class covered, and the shared memory the host
-// sized within the limit and no less than the carve-up
-template <class B, typename T, typename SideT>
-__host__ inline bool tile_plan_ok(int bz, int groups, int n_sides, int nc,
-                                  int smem, int layout, int max_threads) {
-  return bz >= 1 && bz <= B::BZ && groups >= 1 && groups <= nc
-      && layout >= 0 && layout <= 4
-      && groups * B::BX * B::BY * (layout == TILE_FLAT ? B::BZ : bz)
-             <= max_threads
-      && smem <= TILE_MAX_SMEM
-      && smem >= tile_smem_need<B, T, SideT>(n_sides, nc, layout);
-}
-
-// the kernel checks the carve-up against what it was given
-__device__ __forceinline__ void check_smem(const unsigned char* end,
-                                           const unsigned char* smem) {
-  unsigned dyn_smem;
-  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn_smem));
-  if (end - smem > (long long)dyn_smem) __trap();
+// a slab plan the kernels can run: a run of at most SLAB_MAX_RUN points,
+// a power of two, every class covered, threads within the kernel's limit
+__host__ inline bool slab_plan_ok(int run, int groups, int nc,
+                                  int max_threads) {
+  return run >= 1 && run <= SLAB_MAX_RUN && (run & (run - 1)) == 0
+      && groups >= 1 && groups <= nc && groups * run <= max_threads;
 }

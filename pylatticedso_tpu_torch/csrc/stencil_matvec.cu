@@ -41,25 +41,34 @@
 // Edge sides come from a device table (struct Side, built by
 // pylatticedso_tpu_torch/kernels/stencil.py), sorted by self class with
 // class_start[c]..class_start[c+1] the sides of class c, in the order of
-// the gather form's accumulation.  Nothing of the template is baked into
-// the source, so one build serves every template (the 16-class hybrid too).
+// the gather form's accumulation; B1 reads the table with the launch
+// grid's offsets written in (stencil_body.cuh, "slabs").  Nothing of the
+// template is baked into the source, so one build serves every template
+// (the 16-class hybrid too).
 //
-// Threads: one thread per (class, interior point), z fastest.  Each thread
-// keeps its own 6 u values and 6 sums in registers and loops over its
-// class's sides in table order.  No atomics and a fixed summation order:
-// repeated runs are bitwise equal.
+// Threads: one block per slab (stencil_body.cuh): a run of consecutive
+// points of one padded x-plane, every class, one thread per (class,
+// point) by the host's rule.  Each thread keeps its own 6 u values and 6
+// sums in registers and loops over its class's sides in table order.  No
+// atomics and a fixed summation order: repeated runs are bitwise equal,
+// whatever the slab.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 without tensor cores),
 // 50^3 Octet (nc = 4, 48 sides, F = 53^3 = 148,877 padded points,
 // N = 51^3 = 132,651 interior points): operations ~ 110 * 48 * N =
 // 0.70 GFLOP -> 10.5 us for both.  B1 moves 4 * (24 F + 24 F + 24 N) =
 // 41.3 MB -> 12.3 us, so it is bound by bytes, barely; B2 moves half of
-// that, 20.7 MB -> 6.2 us, so it is bound by operations.  This first
-// version relies on L1/L2 for the ~13x re-reads of each u value (each
-// point's 12 neighbours per class) instead of staging tiles in shared
-// memory; with ~110 flops per side per point in registers it trades some
-// of the bound for simplicity.  Shared-memory tiles, TMA and fusing the
-// masks around it are later work.
+// that, 20.7 MB -> 6.2 us, so it is bound by operations.  What holds the
+// kernel back on the card is neither: the side loop issues ~120
+// instructions a side a thread (95 of them float32 arithmetic), its loads
+// alone take ~32 us at 50^3 and its arithmetic alone ~36 us, and the two
+// overlap only in part (PERF.md).  The slab keeps every warp's
+// reads contiguous and shares a block's neighbours across its classes in
+// L1; the layouts measured against it and dropped were a shared-memory
+// tile of u per 3-D brick of output points (its staging and halo cost
+// more than the L1 re-reads it saves, at 1.2-1.5x the slab's time) and
+// 3-D brick blocks reading global memory (warps spanning two z-lines,
+// 1.1-1.2x).
 
 #include "stencil_body.cuh"
 
@@ -68,66 +77,27 @@
 template <typename C>
 constexpr int b1_max_threads() { return sizeof(C) == 8 ? 512 : 1024; }
 
-template <int LAYOUT, class B, typename T, typename C, typename SideT>
+// One block per slab (stencil_body.cuh): blockIdx.y is the interior plane
+// x, blockIdx.x the run of the padded plane's flat (y, z) points; threads
+// on ghost columns idle.  `sides` holds the grid's offsets (du, dr).
+template <typename T, typename C, typename SideT>
 __global__ void __launch_bounds__(b1_max_threads<C>())
 stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
                       T* __restrict__ out, const SideT* __restrict__ sides,
-                      const int* __restrict__ class_start,
-                      const int* __restrict__ shifts, int n_sides, int bz,
+                      const int* __restrict__ class_start, int run,
                       int groups, int nc, int X, int Y, int Z,
                       C E, C kG, C G2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const TileTables<SideT> tb = carve_tables<SideT>(smem, n_sides, nc);
-  T* tile = (T*)tb.end;
-  constexpr bool tiled = LAYOUT == TILE_SMEM || LAYOUT == TILE_SMEM_PIPE;
-  constexpr bool pipe = LAYOUT == TILE_SMEM_PIPE || LAYOUT == TILE_GLOBAL_PIPE;
-  if constexpr (tiled)
-    check_smem(tb.end + align16((long long)sizeof(T) * nc * 6 * B::TPTS),
-               smem);
-  const int Xp = X + 2, Yp = Y + 2, Zp = Z + 2;
-  const int Fp = Xp * Yp * Zp;
-  // the brick's first output point, interior coordinates
-  const int x0 = blockIdx.z * B::BX, y0 = blockIdx.y * B::BY,
-            z0 = blockIdx.x * bz;
-  // the global layouts read the host's table (offsets already in the
-  // padded field): no staging and no barrier
-  const SideT* tsides = sides;
-  const int* tcs = class_start;
-  if constexpr (tiled) {
-    stage_tables<LAYOUT, B>(tb, sides, class_start, shifts, n_sides, nc, Fp);
-    stage_tile<B>(tile, up, nc * 6, Fp, Xp, Yp, Zp, x0 + 1 - TILE_HALO,
-                  y0 + 1 - TILE_HALO, z0 + 1 - TILE_HALO);
-    __syncthreads();
-    tsides = tb.sides;
-    tcs = tb.cstart;
-  }
-  BrickPoint bp;
-  int x, y, z;
-  if constexpr (LAYOUT == TILE_FLAT) {
-    // a slab of BX interior planes x a run of BY * BZ padded points of
-    // the plane's flat (y, z) order; ghosts idle
-    constexpr int L = B::BY * B::BZ;
-    const int t = threadIdx.x, r = t % (B::BX * L);
-    const int f = blockIdx.x * L + r % L;
-    bp = {0, 0, 0, t / (B::BX * L)};
-    x = blockIdx.z * B::BX + r / L;
-    y = f / Zp - 1;
-    z = f - (y + 1) * Zp - 1;
-    if (x >= X || y < 0 || y >= Y || z < 0 || z >= Z) return;
-  } else {
-    bp = brick_point<B>(bz);
-    x = x0 + bp.lx; y = y0 + bp.ly; z = z0 + bp.lz;
-    if (x >= X || y >= Y || z >= Z) return;
-  }
-  const int gq = ((x + 1) * Yp + y + 1) * Zp + z + 1;
-  const int tq = ((bp.lx + TILE_HALO) * B::TY + bp.ly + TILE_HALO) * B::TZ
-               + bp.lz + TILE_HALO;
+  const int Yp = Y + 2, Zp = Z + 2, Fp = (X + 2) * Yp * Zp;
+  const int g = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - g * run);
+  const int x = blockIdx.y, y = f / Zp - 1, z = f - (y + 1) * Zp - 1;
+  if (y < 0 || y >= Y || z < 0 || z >= Z) return;
+  const int q = (x + 1) * Yp * Zp + f;
   const int N = X * Y * Z, pt = (x * Y + y) * Z + z;
-  for (int c = bp.g; c < nc; c += groups) {
+  for (int c = g; c < nc; c += groups) {
     C acc[6] = {0, 0, 0, 0, 0, 0};
-    brick_acc<pipe, C, SideT>(tiled ? tile : up, tiled ? B::TPTS : Fp,
-                        tiled ? tq : gq, r2p + gq, c, tsides,
-                        tcs[c], tcs[c + 1], E, kG, G2, acc);
+    slab_acc<C, SideT>(up, Fp, q, r2p + q, c, sides, class_start[c],
+                       class_start[c + 1], E, kG, G2, acc);
 #pragma unroll
     for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
   }
@@ -229,111 +199,54 @@ static int launch_vjp(const void* up, const void* gp, const void* r2p,
   return (int)cudaGetLastError();
 }
 
-// one launch (or occupancy query) of B1 on the brick of a plan's shape
-template <typename T, typename C, typename SideT>
-struct MatvecLaunch {
-  const void *up, *r2p, *sides, *class_start, *shifts;
-  void* out;
-  int layout, bz, groups, n_sides, smem, nc, X, Y, Z;
-  C E, kG, G2;
-  cudaStream_t stream;
-  int* occupancy;              // non-null: report blocks per SM, no launch
-  int rc;
-
-  template <class B> void run() {
-    if (layout == TILE_SMEM)
-      go<TILE_SMEM, B>();
-    else if (layout == TILE_GLOBAL)
-      go<TILE_GLOBAL, B>();
-    else if (layout == TILE_SMEM_PIPE)
-      go<TILE_SMEM_PIPE, B>();
-    else if (layout == TILE_GLOBAL_PIPE)
-      go<TILE_GLOBAL_PIPE, B>();
-    else
-      go<TILE_FLAT, B>();
-  }
-
-  template <int LAYOUT, class B> void go() {
-    static bool done[TILE_MAX_DEVICES] = {};
-    auto kern = stencil_matvec_kernel<LAYOUT, B, T, C, SideT>;
-    if (!tile_plan_ok<B, T, SideT>(bz, groups, n_sides, nc, smem, layout,
-                                   b1_max_threads<C>())) {
-      rc = (int)cudaErrorInvalidValue;
-      return;
-    }
-    rc = (int)allow_smem_once(kern, done);
-    if (rc) return;
-    const int threads = groups * B::BX * B::BY
-                      * (LAYOUT == TILE_FLAT ? B::BZ : bz);
-    if (occupancy) {
-      rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          occupancy, kern, threads, smem);
-      return;
-    }
-    const int plane = (Y + 2) * (Z + 2), L = B::BY * B::BZ;
-    const dim3 grid = LAYOUT == TILE_FLAT
-        ? dim3((plane + L - 1) / L, 1, (X + B::BX - 1) / B::BX)
-        : dim3((Z + bz - 1) / bz, (Y + B::BY - 1) / B::BY,
-               (X + B::BX - 1) / B::BX);
-    kern<<<grid, threads, smem, stream>>>(
-        (const T*)up, (const T*)r2p, (T*)out, (const SideT*)sides,
-        (const int*)class_start, (const int*)shifts, n_sides, bz, groups, nc,
-        X, Y, Z, E, kG, G2);
-    rc = (int)cudaGetLastError();
-  }
-};
-
 template <typename T, typename C, typename SideT>
 static int launch(const void* up, const void* r2p, void* out,
-                  const void* sides, const void* class_start,
-                  const void* shifts, int layout, int shape, int bz,
-                  int groups, int n_sides, int smem, int nc, int X, int Y,
-                  int Z, C E, C kG, C G2, void* stream,
-                  int* occupancy = nullptr) {
-  MatvecLaunch<T, C, SideT> f{up, r2p, sides, class_start, shifts, out,
-                              layout, bz, groups, n_sides, smem, nc, X, Y,
-                              Z, E, kG, G2, (cudaStream_t)stream, occupancy,
-                              0};
-  if (!with_brick(shape, f)) return (int)cudaErrorInvalidValue;
-  return f.rc;
+                  const void* sides, const void* class_start, int run,
+                  int groups, int nc, int X, int Y, int Z, C E, C kG, C G2,
+                  void* stream) {
+  if (!slab_plan_ok(run, groups, nc, b1_max_threads<C>()))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X);
+  stencil_matvec_kernel<T, C, SideT><<<grid, groups * run, 0,
+                                       (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)r2p, (T*)out, (const SideT*)sides,
+      (const int*)class_start, run, groups, nc, X, Y, Z, E, kG, G2);
+  return (int)cudaGetLastError();
 }
 
 // B1 and B2: u and r^2 ghost-padded [nc, 6, Xp, Yp, Zp] and [n_e, Xp, Yp,
 // Zp] in the storage type, out [nc, 6, X, Y, Z]; sides and class_start the
-// table (Side, or SideD for the float64 instance), shifts [n_sides, 4]
-// int (dx, dy, dz, 0) of each side's other endpoint; layout, shape, bz,
-// groups and smem as the host planned them (kernels/stencil.py tile_plan)
+// table with the grid's offsets (Side, or SideD for the float64
+// instance); run and groups as the host planned them (kernels/stencil.py
+// slab_plan)
 extern "C" int stencil_matvec_f32(const void* up, const void* r2p, void* out,
-                                 const void* sides, const void* class_start,
-                                 const void* shifts, int layout, int shape,
-                                 int bz, int groups, int n_sides, int smem,
-                                 int nc, int X, int Y, int Z, float E, float kG,
-                                 float G2, void* stream) {
-  return launch<float, float, Side>(up, r2p, out, sides, class_start, shifts,
-                                layout, shape, bz, groups, n_sides, smem, nc, X,
-                                Y, Z, E, kG, G2, stream);
+                                  const void* sides, const void* class_start,
+                                  int run, int groups, int nc, int X, int Y,
+                                  int Z, float E, float kG, float G2,
+                                  void* stream) {
+  return launch<float, float, Side>(up, r2p, out, sides, class_start, run,
+                                    groups, nc, X, Y, Z, E, kG, G2, stream);
 }
 
-extern "C" int stencil_matvec_bf16(const void* up, const void* r2p, void* out,
-                                  const void* sides, const void* class_start,
-                                  const void* shifts, int layout, int shape,
-                                  int bz, int groups, int n_sides, int smem,
-                                  int nc, int X, int Y, int Z, float E, float kG,
-                                  float G2, void* stream) {
-  return launch<__nv_bfloat16, float, Side>(up, r2p, out, sides, class_start, shifts,
-                                        layout, shape, bz, groups, n_sides, smem, nc, X,
-                                        Y, Z, E, kG, G2, stream);
+extern "C" int stencil_matvec_bf16(const void* up, const void* r2p,
+                                   void* out, const void* sides,
+                                   const void* class_start, int run,
+                                   int groups, int nc, int X, int Y, int Z,
+                                   float E, float kG, float G2,
+                                   void* stream) {
+  return launch<__nv_bfloat16, float, Side>(up, r2p, out, sides, class_start,
+                                            run, groups, nc, X, Y, Z, E, kG,
+                                            G2, stream);
 }
 
 extern "C" int stencil_matvec_f64(const void* up, const void* r2p, void* out,
-                                 const void* sides, const void* class_start,
-                                 const void* shifts, int layout, int shape,
-                                 int bz, int groups, int n_sides, int smem,
-                                 int nc, int X, int Y, int Z, double E, double kG,
-                                 double G2, void* stream) {
-  return launch<double, double, SideD>(up, r2p, out, sides, class_start, shifts,
-                                   layout, shape, bz, groups, n_sides, smem, nc, X,
-                                   Y, Z, E, kG, G2, stream);
+                                  const void* sides, const void* class_start,
+                                  int run, int groups, int nc, int X, int Y,
+                                  int Z, double E, double kG, double G2,
+                                  void* stream) {
+  return launch<double, double, SideD>(up, r2p, out, sides, class_start, run,
+                                       groups, nc, X, Y, Z, E, kG, G2,
+                                       stream);
 }
 
 extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
@@ -355,27 +268,20 @@ extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
                                            n_e, X, Y, Z, E, kG, G2, stream);
 }
 
-// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) that one SM holds at
-// once on the current device under a plan; a negative value is -cudaError
-extern "C" int stencil_matvec_occupancy(int dtype, int layout, int shape,
-                                        int bz, int groups, int n_sides,
-                                        int smem, int nc) {
-  int n = 0, rc;
-  if (dtype == 0)
-    rc = launch<float, float, Side>(nullptr, nullptr, nullptr, nullptr,
-                                    nullptr, nullptr, layout, shape, bz,
-                                    groups, n_sides, smem, nc, 0, 0, 0, 0.f,
-                                    0.f, 0.f, nullptr, &n);
-  else if (dtype == 1)
-    rc = launch<__nv_bfloat16, float, Side>(
-        nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, layout, shape,
-        bz, groups, n_sides, smem, nc, 0, 0, 0, 0.f, 0.f, 0.f, nullptr, &n);
-  else if (dtype == 2)
-    rc = launch<double, double, SideD>(nullptr, nullptr, nullptr, nullptr,
-                                       nullptr, nullptr, layout, shape, bz,
-                                       groups, n_sides, smem, nc, 0, 0, 0,
-                                       0.0, 0.0, 0.0, nullptr, &n);
-  else
-    rc = (int)cudaErrorInvalidValue;
-  return rc ? -rc : n;
+template <typename T, typename C, typename SideT>
+static int occupancy(int run, int groups) {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, stencil_matvec_kernel<T, C, SideT>, groups * run, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) of groups * run
+// threads that one SM holds at once on the current device; a negative
+// value is -cudaError
+extern "C" int stencil_matvec_occupancy(int dtype, int run, int groups) {
+  if (dtype == 0) return occupancy<float, float, Side>(run, groups);
+  if (dtype == 1) return occupancy<__nv_bfloat16, float, Side>(run, groups);
+  if (dtype == 2) return occupancy<double, double, SideD>(run, groups);
+  return -(int)cudaErrorInvalidValue;
 }

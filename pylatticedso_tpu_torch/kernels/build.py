@@ -25,8 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil_matvec", "mg_fused", "probes")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"] \
-    + os.environ.get("PLDSO_NVCC_EXTRA", "").split()
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

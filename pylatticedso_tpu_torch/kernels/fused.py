@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from . import launch
-from .stencil import (FLOPS_PER_SIDE, SIDE_DTYPE, TILE_LAYOUT, TILE_LAYOUTS,
+from .stencil import (FLOPS_PER_SIDE, SIDE_DTYPE, SLAB_MAX_THREADS,
                       StencilMatvec, edge_sides)
 
 __all__ = ["FusedSmoother", "route", "has_kernel_matvec", "cheb_static",
@@ -216,7 +216,6 @@ B5_MAX_IPT = 4                  # items per thread, csrc's B5_MAX_IPT
 B5_Q_BITS = 22                  # csrc's B5_Q_BITS: (class << 22) | point
 B5_SMEM_LIMIT = 227 * 1024      # csrc's MAX_SMEM: one block's dynamic, sm_90
 B5_MAX_DEGREE = 64              # csrc's MAX_DEGREE (Chebyshev coefficients)
-B4_MAX_THREADS = 512            # csrc's B4_MAX_THREADS
 
 
 def _align16(n: int) -> int:
@@ -483,50 +482,42 @@ class FusedSmoother:
         return out
 
     def b4_plan(self, io: torch.dtype, final: bool,
-                layout: str = TILE_LAYOUT, shape: Optional[int] = None,
-                device: Optional[int] = None,
-                groups: Optional[int] = None) -> Dict:
-        """B4's tile plan on this level: the stencil's (``StencilMatvec.
-        tile_plan``, float side records, storage ``io``) over bricks of
-        padded points; on a card its blocks per SM come from B4's own
+                run: Optional[int] = None, groups: Optional[int] = None,
+                device: Optional[int] = None) -> Dict:
+        """B4's slab plan on this level (``StencilMatvec.slab_plan`` over
+        the padded planes); on a card its blocks per SM come from B4's own
         query (each variant's registers differ)."""
         dtype = int(io == torch.bfloat16)
         occ = lambda p: launch.functions("mg_fused")["mg_cheb_run_occupancy"](
-            dtype, int(final), TILE_LAYOUTS[p["layout"]], p["shape"],
-            p["bz"], p["groups"], self.mv.n_sides, p["smem_bytes"], self.nc)
-        return self.mv.tile_plan(io, layout, shape, device,
+            dtype, int(final), p["run"], p["groups"])
+        return self.mv.slab_plan(io, run, groups, device,
                                  kernel=f"B4{' final' if final else ''}",
-                                 occupancy=occ, groups=groups,
-                                 max_threads=B4_MAX_THREADS)
+                                 occupancy=occ,
+                                 max_threads=SLAB_MAX_THREADS["B4"])
 
     def _static_b4(self, index: int, io: torch.dtype, final: bool,
-                   layout: str, shape: Optional[int],
-                   groups: Optional[int]) -> tuple:
+                   run: Optional[int], groups: Optional[int]) -> tuple:
         """B4's launch arguments that never change on device ``index``:
-        the side table, class_start and tile shifts, its plan, grid and
-        material constants."""
-        key = ("B4", index, io, final, layout, shape, groups)
+        the side table with the grid's offsets, class_start, its plan,
+        grid and material constants."""
+        key = ("B4", index, io, final, run, groups)
         args = self._dev.get(key)
         if args is None:
-            dev = torch.device("cuda", index)
-            sides, class_start = self.mv.tables(
-                dev, padded_offsets=not layout.startswith("smem"))
-            p = self.b4_plan(io, final, layout, shape, index, groups)
-            args = (sides.data_ptr(), class_start.data_ptr(),
-                    self.mv.shifts(dev).data_ptr(),
-                    TILE_LAYOUTS[p["layout"]], p["shape"], p["bz"],
-                    p["groups"], self.mv.n_sides, p["smem_bytes"], self.nc,
-                    *self.grid, *self.mv.consts)
+            sides, class_start = self.mv.tables(torch.device("cuda", index),
+                                                grid_offsets=True)
+            p = self.b4_plan(io, final, run, groups, index)
+            args = (sides.data_ptr(), class_start.data_ptr(), p["run"],
+                    p["groups"], self.nc, *self.grid, *self.mv.consts)
             self._dev[key] = args
         return args
 
     def cheb_run(self, x, r, d, fd, sc, r2, c1: float, c2: float,
-                 final: bool, layout: str = TILE_LAYOUT,
-                 shape: Optional[int] = None, groups: Optional[int] = None):
+                 final: bool, run: Optional[int] = None,
+                 groups: Optional[int] = None):
         """B4: one Chebyshev step; (x1, r1, d1), or x1 + d1 when
-        ``final``.  ``shape`` forces a brick of TILE_SHAPES over the plan's
-        (the card tests run every one: the same bits whatever the
-        brick)."""
+        ``final``.  ``run`` and ``groups`` force a slab plan over the
+        rule's (the card tests run several: the same bits whatever the
+        slab)."""
         if not x.is_cuda:
             self._cpu_only(x)
             return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final)
@@ -541,7 +532,7 @@ class FusedSmoother:
             r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
             r2.data_ptr(), x1.data_ptr(), None if final else r1.data_ptr(),
             None if final else d1.data_ptr(), c1, c2,
-            *self._static_b4(dev, io, final, layout, shape, groups),
+            *self._static_b4(dev, io, final, run, groups),
             launch.stream(dev))
         launch.check("mg_cheb_run", rc)
         self.launches["cheb_run"] += 1

@@ -44,9 +44,9 @@ import torch.nn.functional as F
 
 from . import launch
 
-__all__ = ["StencilMatvec", "edge_sides", "side_table", "side_shifts",
-           "stencil_reach", "tile_plan", "tile_smem_bytes", "tile_blocks",
-           "SIDE_DTYPE", "SIDE_DTYPE_F64", "FLOPS_PER_SIDE", "TILE_SHAPES"]
+__all__ = ["StencilMatvec", "edge_sides", "side_table", "stencil_reach",
+           "slab_plan", "slab_blocks", "SIDE_DTYPE", "SIDE_DTYPE_F64",
+           "FLOPS_PER_SIDE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 
@@ -73,7 +73,7 @@ def edge_sides(slat, Yp: int, Zp: int) -> List[dict]:
     """Static per-edge-side records: self/other class, flat shifts in the
     padded grid, frame — the same records, in the same order, as
     ``stencil_pallas._edge_sides`` — and the shifts as (x, y, z) vectors
-    (``du3``, ``dr3``), which the tile plan reads."""
+    (``du3``, ``dr3``), from which the slab plan reads the reach."""
     recs = []
     flat = lambda v: int(v[0]) * (Yp * Zp) + int(v[1]) * Zp + int(v[2])
     for ei, e in enumerate(slat.edges):
@@ -111,25 +111,20 @@ def side_table(slat, dtype=SIDE_DTYPE) -> Tuple[np.ndarray, np.ndarray]:
     return table, class_start
 
 
-# ------------------------------------------------------------ tile plan
-# B1 and B4 stage a brick of the vector the stencil reads, plus a halo, in
-# shared memory (csrc/stencil_body.cuh, "tiles").  The plan is made here,
-# on the host: the brick's shape and z extent, the threads per point and
-# the dynamic shared memory; the kernels take it as it is and refuse a
-# plan whose carve-up does not fit what it was given.
-TILE_SHAPES = ((2, 4, 32), (2, 2, 32), (1, 2, 32), (1, 1, 16), (1, 1, 8))
-# (x, y, z) output points of each brick shape, csrc's TILE_SHAPES in order;
-# a plan's z extent bz is at most the shape's
-TILE_HALO = 1                   # csrc's TILE_HALO: the ghost padding
-TILE_MAX_THREADS = 1024         # csrc's TILE_MAX_THREADS
-TILE_MAX_SMEM = 227 * 1024      # csrc's TILE_MAX_SMEM: one block, sm_90
-# the rule's budget: two blocks on one SM (228 KB, 1 KB of it reserved
-# per block), of at most TILE_BLOCK_THREADS threads
-TILE_SMEM_BUDGET = 113 * 1024
-TILE_BLOCK_THREADS = 512
-TILE_LAYOUTS = {"smem": 0, "global": 1, "smem_pipe": 2, "global_pipe": 3,
-                "flat": 4}
-TILE_LAYOUT = "smem"
+# ------------------------------------------------------------ slab plan
+# B1 and B4 run one block per slab: a run of consecutive points of one
+# padded x-plane in its flat (y, z) order, for every class
+# (csrc/stencil_body.cuh, "slabs").  The plan is made here, on the host;
+# the kernels take it as it is and refuse a plan outside their limits.
+SLAB_HALO = 1                   # csrc's SLAB_HALO: the ghost padding
+SLAB_MAX_RUN = 256              # csrc's SLAB_MAX_RUN
+# the rule's block: each class of a point its own thread, nc * run threads
+# (Octet: runs of 32 points, the fastest or within 5% of it for every
+# kernel at 50^3 on an H100, scripts/slab_runs.py)
+SLAB_THREADS = 128
+# most threads of a block: csrc's b1_max_threads (float, double) and
+# B4_MAX_THREADS
+SLAB_MAX_THREADS = {"B1": 1024, "B1 f64": 512, "B4": 512}
 
 
 def stencil_reach(slat) -> Tuple[int, int, int]:
@@ -140,93 +135,42 @@ def stencil_reach(slat) -> Tuple[int, int, int]:
                  for a in range(3))
 
 
-def side_shifts(slat) -> np.ndarray:
-    """[n_sides, 4] int32 (dx, dy, dz, 0) of each side's other endpoint, in
-    the order of ``side_table``: the kernels turn them into shifts in their
-    tile."""
-    recs = edge_sides(slat, slat.grid[1] + 2, slat.grid[2] + 2)
-    order = sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
-    out = np.zeros((len(recs), 4), np.int32)
-    for j, i in enumerate(order):
-        out[j, :3] = recs[i]["du3"]
-    return out
-
-
-def tile_smem_bytes(shape: int, nc: int, n_sides: int, itemsize: int,
-                    side_itemsize: int, layout: str = TILE_LAYOUT) -> int:
-    """Dynamic shared memory of one tiled block, as the kernel carves it up
-    (the one place its size is decided; the launch passes it): the side
-    table, class_start and, for the ``smem`` layout, the tile of all
-    nc * 6 rows in the storage type."""
-    if layout not in ("smem", "smem_pipe"):
-        return 0
-    bx, by, bz = TILE_SHAPES[shape]
-    a16 = lambda n: (n + 15) // 16 * 16
-    tpts = (bx + 2 * TILE_HALO) * (by + 2 * TILE_HALO) * (bz + 2 * TILE_HALO)
-    return a16(n_sides * side_itemsize) + a16(4 * (nc + 1)) \
-        + a16(itemsize * nc * 6 * tpts)
-
-
-def tile_plan(nc: int, n_sides: int, itemsize: int, reach, zext: int,
-              side_itemsize: int = SIDE_DTYPE.itemsize,
-              layout: str = TILE_LAYOUT, shape: Optional[int] = None,
+def slab_plan(nc: int, reach, run: Optional[int] = None,
               groups: Optional[int] = None,
-              max_threads: int = TILE_MAX_THREADS) -> Dict:
-    """The tiled kernels' plan for a template of ``nc`` classes and
-    ``n_sides`` sides, in storage of ``itemsize`` bytes with side records
-    of ``side_itemsize``, over a launch extent of ``zext`` points along z.
-    The rule takes the first brick of TILE_SHAPES that gives every class
-    of a point its own thread (``groups`` = nc) within TILE_BLOCK_THREADS
-    threads and whose block fits TILE_SMEM_BUDGET (``shape`` and
-    ``groups`` force theirs, within TILE_MAX_SMEM and ``max_threads``);
-    its z extent ``bz`` splits ``zext`` into the fewest bricks, as evenly
-    as they go.  The halo is TILE_HALO on every axis, the ghost padding.
-    Raises ValueError for a template whose reach passes the halo, or a
-    tile that does not fit."""
+              max_threads: int = SLAB_MAX_THREADS["B1"]) -> Dict:
+    """The slab kernels' plan for a template of ``nc`` classes whose sides
+    reach ``reach`` points per axis: by the rule, runs of the largest
+    power of two of points with nc * run <= SLAB_THREADS, and ``groups``
+    = nc threads per point (``run`` and ``groups`` force theirs).  A side
+    reads at most SLAB_HALO points away, the ghost padding.  Raises
+    ValueError for a template that reaches farther, or a plan beyond the
+    kernel's limits (``max_threads``)."""
     reach = tuple(int(r) for r in reach)
-    if any(r > TILE_HALO for r in reach):
-        raise ValueError(f"tile plan: the stencil reaches {reach} points "
-                         f"per axis, beyond the tiles' halo of {TILE_HALO} "
-                         f"(the ghost padding)")
-    if layout not in TILE_LAYOUTS:
-        raise ValueError(f"tile plan: layout {layout!r}")
-    size = lambda i: tile_smem_bytes(i, nc, n_sides, itemsize,
-                                     side_itemsize, layout)
-    pts = lambda i: TILE_SHAPES[i][0] * TILE_SHAPES[i][1] * TILE_SHAPES[i][2]
-    if shape is None:
-        shape = next((i for i in range(len(TILE_SHAPES))
-                      if nc * pts(i) <= TILE_BLOCK_THREADS
-                      and size(i) <= TILE_SMEM_BUDGET), None)
-        if shape is None:
-            raise ValueError(
-                f"tile plan: no brick of {TILE_SHAPES} fits {nc} classes x "
-                f"6 rows of {itemsize}-byte values and {n_sides} sides in "
-                f"{TILE_SMEM_BUDGET} bytes of shared memory and "
-                f"{TILE_BLOCK_THREADS} threads (smallest: "
-                f"{size(len(TILE_SHAPES) - 1)} bytes)")
-    if not 0 <= shape < len(TILE_SHAPES) or size(shape) > TILE_MAX_SMEM:
-        raise ValueError(f"tile plan: shape {shape} does not fit "
-                         f"{TILE_MAX_SMEM} bytes of shared memory")
-    bx, by, bz_max = TILE_SHAPES[shape]
-    bz = -(-zext // -(-zext // bz_max))
-    groups = nc if groups is None else groups
-    if layout == "flat":
-        bz = bz_max
-    if not 1 <= groups <= nc or groups * bx * by * bz > max_threads:
-        raise ValueError(f"tile plan: {groups} groups of {bx} x {by} x {bz} "
-                         f"points pass {max_threads} threads")
-    return {"layout": layout, "shape": shape, "brick": (bx, by, bz_max),
-            "bz": bz, "halo": (TILE_HALO,) * 3, "reach": reach,
-            "groups": groups, "threads": groups * bx * by * bz,
-            "smem_bytes": size(shape)}
+    if any(r > SLAB_HALO for r in reach):
+        raise ValueError(f"slab plan: the stencil reaches {reach} points "
+                         f"per axis, beyond the ghost padding of "
+                         f"{SLAB_HALO} the kernels read within")
+    if run is None:
+        run = 1
+        while 2 * run <= SLAB_MAX_RUN and nc * 2 * run <= SLAB_THREADS:
+            run *= 2
+    if groups is None:
+        groups = min(nc, max(1, max_threads // run))
+    if run < 1 or run > SLAB_MAX_RUN or run & (run - 1) \
+            or not 1 <= groups <= nc or groups * run > max_threads:
+        raise ValueError(f"slab plan: {groups} threads per point for runs "
+                         f"of {run} points: runs must be powers of two up "
+                         f"to {SLAB_MAX_RUN}, at most {nc} threads per "
+                         f"point and {max_threads} a block")
+    return {"run": run, "groups": groups, "threads": groups * run,
+            "halo": (SLAB_HALO,) * 3, "reach": reach}
 
 
-def tile_blocks(plan: Dict, grid, padded: bool = False) -> Tuple[int, ...]:
-    """Blocks per axis (x, y, z) of a tiled launch over the interior points
-    of ``grid`` (B1), or over its padded points (``padded``: B4)."""
-    ext = [g + 2 if padded else g for g in grid]
-    bx, by, _ = plan["brick"]
-    return tuple(-(-e // b) for e, b in zip(ext, (bx, by, plan["bz"])))
+def slab_blocks(plan: Dict, grid, padded: bool = False) -> Tuple[int, int]:
+    """Blocks of a slab launch: (runs per plane, planes), over the interior
+    planes of ``grid`` (B1) or its padded planes (``padded``: B4)."""
+    X, Y, Z = grid
+    return (-(-((Y + 2) * (Z + 2)) // plan["run"]), X + 2 if padded else X)
 
 
 class _B1(torch.autograd.Function):
@@ -287,10 +231,9 @@ class StencilMatvec:
             [[row[2 * e], row[2 * e + 1], recs[2 * e]["cs"],
               recs[2 * e + 1]["cs"]] for e in range(self.n_e)], np.int32)
         self.reach = stencil_reach(slat)
-        self._shifts = side_shifts(slat)
-        # the tile plans (per storage dtype, layout and shape, and device
-        # where the card was asked), for the launches and the reports
-        self.tile_plans: Dict[tuple, Dict] = {}
+        # the slab plans (per kernel, storage dtype, forced run and groups,
+        # and device where the card was asked), for launches and reports
+        self.slab_plans: Dict[tuple, Dict] = {}
         self._dev: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._static_args: Dict[tuple, tuple] = {}
         padded = tuple(g + 2 for g in self.grid)
@@ -404,18 +347,18 @@ class StencilMatvec:
                           r2_lo.to(self.dtype)).to(torch.bfloat16)
 
     def tables(self, device, dtype=torch.float32, vjp: bool = False,
-               padded_offsets: bool = False):
+               grid_offsets: bool = False):
         """(sides, class_start) on ``device`` for the float32 (B1, B2) or
         float64 (B1's double instance) kernel, or (sides, edges) for the
-        r^2-cotangent kernel, uploaded once.  ``padded_offsets``: each
+        r^2-cotangent kernel, uploaded once.  ``grid_offsets``: each
         record's du is the offset of its other endpoint's first row from
         the output point (co * 6 * Fp + du) and dr the offset of its r^2
-        from the point's own r^2 position (ei * Fp + dr), as the tiled
-        kernels read them from global memory."""
-        key = (device, dtype, vjp, padded_offsets)
+        from the point's own r^2 position (ei * Fp + dr), as the slab
+        kernels (B1, B4) read them."""
+        key = (device, dtype, vjp, grid_offsets)
         if key not in self._dev:
             table, class_start = self._tables[dtype]
-            if padded_offsets:
+            if grid_offsets:
                 X, Y, Z = self.grid
                 Fp = (X + 2) * (Y + 2) * (Z + 2)
                 table = table.copy()
@@ -427,49 +370,36 @@ class StencilMatvec:
                               torch.from_numpy(index.reshape(-1)).to(device))
         return self._dev[key]
 
-    def shifts(self, device) -> torch.Tensor:
-        """``side_shifts`` on ``device`` (the tiled kernels' third table),
-        uploaded once."""
-        key = (device, "shifts")
-        if key not in self._dev:
-            self._dev[key] = torch.from_numpy(self._shifts).to(device)
-        return self._dev[key]
-
-    def tile_plan(self, io: torch.dtype, layout: str = TILE_LAYOUT,
-                  shape: Optional[int] = None,
+    def slab_plan(self, io: torch.dtype, run: Optional[int] = None,
+                  groups: Optional[int] = None,
                   device: Optional[int] = None, kernel: str = "B1",
                   occupancy: Optional[Callable[[Dict], int]] = None,
-                  groups: Optional[int] = None,
                   max_threads: Optional[int] = None) -> Dict:
-        """The tile plan (``tile_plan``) of this template for storage
+        """The slab plan (``slab_plan``) of this template for storage
         ``io``.  On a card (``device``) the plan is asked of the card once
         (plans are cached): ``occupancy(plan)`` (B1's own query by default)
         gives the blocks one SM holds, kept as ``blocks_per_sm``, and a
         plan the card cannot run raises."""
-        key = (kernel, io, layout, shape, device, groups)
-        padded = kernel != "B1"
-        plan = self.tile_plans.get(key)
+        key = (kernel, io, run, groups, device)
+        plan = self.slab_plans.get(key)
         if plan is not None:
             return plan
-        f64 = io == torch.float64
         X, Y, Z = self.grid
-        Fp = (X + 2) * (Y + 2) * (Z + 2)
-        if max(self.nc * 6, self.n_e) * Fp >= 1 << 31:
-            raise ValueError(f"tiled kernels index in 32 bits: grid "
-                             f"{self.grid} x {self.nc * 6} rows is too large")
-        plan = tile_plan(self.nc, self.n_sides, torch.finfo(io).bits // 8,
-                         self.reach, Z + 2 if padded else Z,
-                         (SIDE_DTYPE_F64 if f64 else SIDE_DTYPE).itemsize,
-                         layout, shape, groups,
-                         max_threads or (512 if f64 else TILE_MAX_THREADS))
+        if max(self.nc * 6, self.n_e) * (X + 2) * (Y + 2) * (Z + 2) \
+                >= 1 << 31:
+            raise ValueError(f"the slab kernels index in 32 bits: grid "
+                             f"{self.grid} x {self.nc * 6} rows is too "
+                             f"large")
+        f64 = io == torch.float64
+        if max_threads is None:
+            max_threads = SLAB_MAX_THREADS["B1 f64" if f64 else "B1"]
+        plan = slab_plan(self.nc, self.reach, run, groups, max_threads)
         if device is not None:
             if occupancy is None:
                 dtype = {torch.float32: 0, torch.bfloat16: 1,
                          torch.float64: 2}[io]
                 occupancy = lambda p: launch.functions("stencil_matvec")[
-                    "stencil_matvec_occupancy"](
-                    dtype, TILE_LAYOUTS[p["layout"]], p["shape"], p["bz"],
-                    p["groups"], self.n_sides, p["smem_bytes"], self.nc)
+                    "stencil_matvec_occupancy"](dtype, p["run"], p["groups"])
             n = occupancy(plan)
             if n < 0:
                 raise RuntimeError(f"{kernel} occupancy query failed: "
@@ -478,43 +408,39 @@ class StencilMatvec:
                 raise ValueError(f"{kernel}: the card cannot run a block of "
                                  f"plan {plan}")
             plan = dict(plan, blocks_per_sm=n)
-        self.tile_plans[key] = plan
+        self.slab_plans[key] = plan
         return plan
 
     def _static(self, index: int, io: torch.dtype, vjp: bool,
-                layout: str = TILE_LAYOUT, shape: Optional[int] = None,
+                run: Optional[int] = None,
                 groups: Optional[int] = None) -> tuple:
         """The launch arguments that never change on device ``index`` for
-        storage ``io``: the tables (``tables``; B1's tile shifts and plan
-        too, for ``layout`` and ``shape``), the count (classes, or edges
-        for the r^2-cotangent kernel), grid and constants."""
-        key = (index, io, vjp, layout, shape, groups)
+        storage ``io``: the tables (``tables``; B1 takes the grid's
+        offsets and its slab plan), the count (classes, or edges for the
+        r^2-cotangent kernel), grid and constants."""
+        key = (index, io, vjp, run, groups)
         args = self._static_args.get(key)
         if args is None:
             dev = torch.device("cuda", index)
             dt = torch.float64 if io == torch.float64 else torch.float32
-            table, index_ = self.tables(
-                dev, dt, vjp, not vjp and not layout.startswith("smem"))
+            table, index_ = self.tables(dev, dt, vjp, grid_offsets=not vjp)
             if vjp:
                 args = (table.data_ptr(), index_.data_ptr(), self.n_e,
                         *self.grid, *self.consts)
             else:
-                p = self.tile_plan(io, layout, shape, index, groups=groups)
-                args = (table.data_ptr(), index_.data_ptr(),
-                        self.shifts(dev).data_ptr(),
-                        TILE_LAYOUTS[p["layout"]], p["shape"], p["bz"],
-                        p["groups"], self.n_sides, p["smem_bytes"], self.nc,
-                        *self.grid, *self.consts)
+                p = self.slab_plan(io, run, groups, index)
+                args = (table.data_ptr(), index_.data_ptr(), p["run"],
+                        p["groups"], self.nc, *self.grid, *self.consts)
             self._static_args[key] = args
         return args
 
     def launch(self, up: torch.Tensor, r2p: torch.Tensor,
-               layout: str = TILE_LAYOUT, shape: Optional[int] = None,
+               run: Optional[int] = None,
                groups: Optional[int] = None) -> torch.Tensor:
         """Run B1 (float32 or float64 u and r^2) or B2 (bfloat16 u and r^2)
-        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]; ``shape`` forces
-        a brick of TILE_SHAPES over the plan's (the card tests run every
-        one: the result is the same bits whatever the brick)."""
+        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]; ``run`` and
+        ``groups`` force a slab plan over the rule's (the card tests run
+        several: the result is the same bits whatever the slab)."""
         X, Y, Z = self.grid
         if not up.is_cuda or r2p.get_device() != up.get_device():
             raise ValueError(f"B1/B2 need u and r^2 on one CUDA device, got "
@@ -535,8 +461,7 @@ class StencilMatvec:
         out = torch.empty((self.nc, 6, X, Y, Z), dtype=io, device=up.device)
         rc = launch.functions("stencil_matvec")[name](
             up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
-            *self._static(dev, io, False, layout, shape, groups),
-            launch.stream(dev))
+            *self._static(dev, io, False, run, groups), launch.stream(dev))
         launch.check(name, rc)
         if lo:
             self.launches_lo += 1

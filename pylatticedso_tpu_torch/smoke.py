@@ -243,6 +243,29 @@ def _bound(wrapper) -> Dict:
     return _bound_of(wrapper.work())
 
 
+def _index(device: torch.device) -> Optional[int]:
+    """The card's index for a plan's occupancy query; None off the card."""
+    return (device.index or 0) if device.type == "cuda" else None
+
+
+def _plan_rec(plan: Dict) -> Dict:
+    """A slab plan as the report keeps it: run, threads per point and per
+    block, blocks one SM holds (asked of the card; None off it), halo and
+    dynamic shared memory (none: the slab kernels read through L1)."""
+    return {"run": plan["run"], "groups": plan["groups"],
+            "threads": plan["threads"],
+            "blocks_per_sm": plan.get("blocks_per_sm"),
+            "halo": list(plan["halo"]), "smem_bytes": 0}
+
+
+def _plan_text(plan: Dict) -> str:
+    bps = plan["blocks_per_sm"]
+    return (f"slab plan: runs of {plan['run']} points x {plan['groups']} "
+            f"threads per point = {plan['threads']} threads a block, "
+            f"{'not asked' if bps is None else bps} blocks per SM, halo "
+            f"{plan['halo']}, {plan['smem_bytes']} bytes of shared memory")
+
+
 def level_cells(n: int, min_cells: int = 3) -> List[int]:
     """Cells per side of every multigrid level of an n^3 lattice (the
     coarsening rule of ``build_mg_hierarchy``)."""
@@ -291,13 +314,16 @@ def kernel_phase(device: torch.device, n: int, seed: int = 0) -> List[Dict]:
                                  f"{KERNEL_REL_TOL}")
         rec = {"case": label, "grid": list(sl.grid), "nc": sl.nc,
                "n_sides": mv.apply.n_sides, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, **_bound(mv.apply)}
+               "max_rel_err": rel_err, **_bound(mv.apply),
+               "plan": _plan_rec(mv.apply.slab_plan(
+                   torch.float32, device=_index(device)))}
         if device.type == "cuda":
             up = F.pad(u, PAD)
             launch = lambda: mv.apply.launch(up, r2p)
             # ms: back-to-back launches; ms_cold: one launch after an L2
             # flush (for small grids this includes the host's launch gap)
             rec["ms"] = _median_ms(launch, device, reps=7, batch=50)
+            rec["device_ms"] = _graph_ms(launch, device)
             rec["ms_cold"] = _median_ms(launch, device, reps=21, flush=flush)
             rec["wrapper_ms"] = _median_ms(lambda: mv.apply(u, r2p), device,
                                            reps=7, batch=50)
@@ -305,6 +331,7 @@ def kernel_phase(device: torch.device, n: int, seed: int = 0) -> List[Dict]:
                                          device, reps=5, batch=5)
         else:
             rec["ms"] = rec["ms_cold"] = rec["wrapper_ms"] = None
+            rec["device_ms"] = None
             rec["plain_ms"] = _median_ms(lambda: mv.apply_gather(u, r2p),
                                          device, reps=1)
         out.append(rec)
@@ -358,10 +385,12 @@ def fused_kernel_phase(device: torch.device, n: int,
         if cuda:
             timed = timed or run
             rec["ms"] = _median_ms(timed, device, reps=7, batch=20)
+            if kernel in ("B2", "B4"):
+                rec["device_ms"] = _graph_ms(timed, device)
             rec["ms_cold"] = _median_ms(timed, device, reps=11, flush=flush)
             rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=3)
         else:
-            rec["ms"] = rec["ms_cold"] = None
+            rec["ms"] = rec["ms_cold"] = rec["device_ms"] = None
             rec["plain_ms"] = _median_ms(plain, device, reps=1)
         out.append(rec)
 
@@ -396,6 +425,8 @@ def fused_kernel_phase(device: torch.device, n: int,
         check("B2", label, "bf16", "matvec", lambda: B.lo(u16, r16),
               lambda: B.plain_lo(u16, r16), B.work(itemsize=2),
               timed=(lambda: B.launch(u16p, r16)) if cuda else None)
+        out[-1]["plan"] = _plan_rec(B.slab_plan(torch.bfloat16,
+                                                device=_index(device)))
         for storage, io in STORAGE.items():
             P = lambda a: F.pad(a, PAD).to(io)
             x, bp, fmp, fdp = P(u * fm), P(b), P(fm), P(fm / D)
@@ -413,6 +444,8 @@ def fused_kernel_phase(device: torch.device, n: int,
                       lambda: fz.plain_cheb_run(x, rr, d, fdp, sc, r2s, c1,
                                                 c2, final),
                       fz.work("cheb_run", nbytes, final=final))
+                out[-1]["plan"] = _plan_rec(fz.b4_plan(
+                    io, final, device=_index(device)))
             if not fz.single_ok:
                 continue
             variants = [(deg, frac, None), (deg, frac, x)]
@@ -454,6 +487,65 @@ B5_BEFORE_MS = {
     ("Octet 2^3 (MG level 5)", "bf16", "degree 2, x0"): 0.0495,
     ("Octet 2^3 (MG level 5)", "bf16", "degree 24"): 0.1890,
 }
+
+
+# B1, B1<double>, B2 and B4 before their slab redesign: the
+# one-thread-per-point kernels' times (ms, CUDA-event medians of
+# back-to-back launches) as chip_smoke.py of commit c27ec5f measured them
+# on an NVIDIA H100 80GB HBM3, 700.00 W, keyed (kernel, case, storage,
+# variant).  They are records, not measurements of this run: the smoke's
+# log prints each case's time beside its entry here, and no report field
+# carries them
+SLAB_BEFORE_MS = {
+    ("B1", "Octet 50^3 (MG level 0)", "f32", "matvec"): 0.0512,
+    ("B1", "Octet 25^3 (MG level 1)", "f32", "matvec"): 0.0121,
+    ("B1", "Octet 13^3 (MG level 2)", "f32", "matvec"): 0.0151,
+    ("B1", "Octet 7^3 (MG level 3)", "f32", "matvec"): 0.0109,
+    ("B1", "Octet 4^3 (MG level 4)", "f32", "matvec"): 0.0106,
+    ("B1", "Octet 2^3 (MG level 5)", "f32", "matvec"): 0.0113,
+    ("B1<double>", "Octet 50^3 (MG level 0)", "f64", "matvec"): 0.1050,
+    ("B1<double>", "Octet 25^3 (MG level 1)", "f64", "matvec"): 0.0208,
+    ("B1<double>", "Octet 13^3 (MG level 2)", "f64", "matvec"): 0.0150,
+    ("B1<double>", "Octet 7^3 (MG level 3)", "f64", "matvec"): 0.0189,
+    ("B1<double>", "Octet 4^3 (MG level 4)", "f64", "matvec"): 0.0192,
+    ("B1<double>", "Octet 2^3 (MG level 5)", "f64", "matvec"): 0.0193,
+    ("B2", "Octet 50^3 (MG level 0)", "bf16", "matvec"): 0.0492,
+    ("B4", "Octet 50^3 (MG level 0)", "f32", "step"): 0.1021,
+    ("B4", "Octet 50^3 (MG level 0)", "f32", "final"): 0.0689,
+    ("B4", "Octet 50^3 (MG level 0)", "bf16", "step"): 0.0663,
+    ("B4", "Octet 50^3 (MG level 0)", "bf16", "final"): 0.0616,
+    ("B2", "Octet 25^3 (MG level 1)", "bf16", "matvec"): 0.0127,
+    ("B4", "Octet 25^3 (MG level 1)", "f32", "step"): 0.0182,
+    ("B4", "Octet 25^3 (MG level 1)", "f32", "final"): 0.0133,
+    ("B4", "Octet 25^3 (MG level 1)", "bf16", "step"): 0.0172,
+    ("B4", "Octet 25^3 (MG level 1)", "bf16", "final"): 0.0135,
+    ("B2", "Octet 13^3 (MG level 2)", "bf16", "matvec"): 0.0105,
+    ("B4", "Octet 13^3 (MG level 2)", "f32", "step"): 0.0251,
+    ("B4", "Octet 13^3 (MG level 2)", "f32", "final"): 0.0201,
+    ("B4", "Octet 13^3 (MG level 2)", "bf16", "step"): 0.0169,
+    ("B4", "Octet 13^3 (MG level 2)", "bf16", "final"): 0.0204,
+    ("B2", "Octet 7^3 (MG level 3)", "bf16", "matvec"): 0.0170,
+    ("B4", "Octet 7^3 (MG level 3)", "f32", "step"): 0.0168,
+    ("B4", "Octet 7^3 (MG level 3)", "f32", "final"): 0.0126,
+    ("B4", "Octet 7^3 (MG level 3)", "bf16", "step"): 0.0267,
+    ("B4", "Octet 7^3 (MG level 3)", "bf16", "final"): 0.0135,
+    ("B2", "Octet 4^3 (MG level 4)", "bf16", "matvec"): 0.0129,
+    ("B4", "Octet 4^3 (MG level 4)", "f32", "step"): 0.0218,
+    ("B4", "Octet 4^3 (MG level 4)", "f32", "final"): 0.0130,
+    ("B4", "Octet 4^3 (MG level 4)", "bf16", "step"): 0.0299,
+    ("B4", "Octet 4^3 (MG level 4)", "bf16", "final"): 0.0217,
+    ("B2", "Octet 2^3 (MG level 5)", "bf16", "matvec"): 0.0120,
+    ("B4", "Octet 2^3 (MG level 5)", "f32", "step"): 0.0184,
+    ("B4", "Octet 2^3 (MG level 5)", "f32", "final"): 0.0133,
+    ("B4", "Octet 2^3 (MG level 5)", "bf16", "step"): 0.0289,
+    ("B4", "Octet 2^3 (MG level 5)", "bf16", "final"): 0.0214,
+}
+
+
+def _was(kernel: str, case: str, storage: str, variant: str) -> str:
+    was = SLAB_BEFORE_MS.get((kernel, case, storage, variant))
+    return "not recorded" if was is None \
+        else f"{was:.4f} ms (recorded from commit c27ec5f)"
 
 
 def _b5_sweep(fz, run, io, with_x0, device, label, storage,
@@ -781,15 +873,19 @@ def kernel64_phase(device: torch.device, n: int, seed: int = 2) -> List[Dict]:
                                  f"{rel_err:.3e} > {KERNEL_F64_TOL}")
         rec = {"case": label, "grid": list(sl.grid), "max_abs_err": abs_err,
                "max_rel_err": rel_err,
-               **_bound_of(mv.apply.work(itemsize=8), PEAK_F64_PER_S)}
+               **_bound_of(mv.apply.work(itemsize=8), PEAK_F64_PER_S),
+               "plan": _plan_rec(mv.apply.slab_plan(
+                   torch.float64, device=_index(device)))}
         if cuda:
             up = F.pad(u, PAD)
             rec["ms"] = _median_ms(lambda: mv.apply.launch(up, r2p), device,
                                    reps=7, batch=20)
+            rec["device_ms"] = _graph_ms(lambda: mv.apply.launch(up, r2p),
+                                         device)
             rec["plain_ms"] = _median_ms(lambda: mv.apply_gather(u, r2p),
                                          device, reps=3, batch=2)
         else:
-            rec["ms"] = None
+            rec["ms"] = rec["device_ms"] = None
             rec["plain_ms"] = _median_ms(lambda: mv.apply_gather(u, r2p),
                                          device, reps=1)
         out.append(rec)
@@ -1302,8 +1398,11 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     for c in cases:
         log(f"B1 {c['case']}: rel err {c['max_rel_err']:.2e} | kernel "
             f"{_ms(c['ms'])} (after L2 flush {_ms(c['ms_cold'])}, wrapper "
-            f"{_ms(c['wrapper_ms'])}), plain {c['plain_ms']:.3f} ms, bound "
-            f"{c['bound_ms']:.5f} ms ({c['bound_by']}) [{card}]")
+            f"{_ms(c['wrapper_ms'])}, device, graph replay "
+            f"{_ms(c['device_ms'])}), plain {c['plain_ms']:.3f} ms, bound "
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']}) | "
+            f"{_plan_text(c['plan'])} | before the redesign "
+            f"{_was('B1', c['case'], 'f32', 'matvec')} [{card}]")
     budget.check("kernels B1")
 
     fused_cases = fused_kernel_phase(dev, n)
@@ -1313,6 +1412,12 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{_ms(c['ms'])} (after L2 flush {_ms(c['ms_cold'])}), plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
             f"({c['bound_by']}) [{card}]")
+        if c["kernel"] in ("B2", "B4"):
+            key = (c["kernel"], c["case"], c["storage"], c["variant"])
+            log(f"{' '.join(key)}: {_plan_text(c['plan'])} | "
+                f"{_ms(c['ms'])} (device, graph replay "
+                f"{_ms(c['device_ms'])}) vs before the redesign "
+                f"{_was(*key)} [{card}]")
         if c["kernel"] == "B5":
             p = c["plan"]
             was = B5_BEFORE_MS.get((c["case"], c["storage"], c["variant"]))
@@ -1334,9 +1439,12 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     cases64 = kernel64_phase(dev, n)
     for c in cases64:
         log(f"B1<double> {c['case']}: rel err {c['max_rel_err']:.2e} (tol "
-            f"{KERNEL_F64_TOL:.0e}) | kernel {_ms(c['ms'])}, plain "
+            f"{KERNEL_F64_TOL:.0e}) | kernel {_ms(c['ms'])} (device, graph "
+            f"replay {_ms(c['device_ms'])}), plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
-            f"({c['bound_by']}) [{card}]")
+            f"({c['bound_by']}) | {_plan_text(c['plan'])} | before the "
+            f"redesign {_was('B1<double>', c['case'], 'f64', 'matvec')} "
+            f"[{card}]")
     budget.check("kernel B1 float64")
 
     vjp_cases = vjp_phase(dev, n)

@@ -1,15 +1,16 @@
-"""Time the tiled stencil kernels (B1 f32 / f64, B2, B4) of
-pylatticedso_tpu_torch under each neighbour layout and brick shape.
+"""Time the slab kernels (B1 f32 / f64, B2, B4) of pylatticedso_tpu_torch
+under several slab plans, beside another checkout's kernels.
 
-    python3 scripts/tile_layouts.py [--n 50] [--out FILE]
+    python3 scripts/slab_runs.py [--n 50] [--out FILE] [--parent CSRC]
 
-Needs one CUDA card.  For the 50^3 Octet hierarchy's fine grid it runs
-each kernel under every layout of ``TILE_LAYOUTS`` (the brick's tile in
-shared memory, or global memory read through L1 by the same brick-shaped
-blocks) and every brick of ``TILE_SHAPES`` that fits, checks each against
-its plain version and against the plan's own bits, and times it (CUDA
-events around back-to-back launches, median of 7).  Prints one line per
-case and writes them all as JSON.
+Needs one CUDA card.  On the 50^3 Octet hierarchy's fine grid it runs
+each kernel under runs of 8 to 256 points and 2 or 4 threads per point
+(``run``, ``groups`` of ``kernels/stencil.py`` ``slab_plan``), checks each
+against its plain version and against the rule's plan's bits, and times
+it (CUDA events around back-to-back launches, median of 7); ``--parent``
+also times the one-thread-per-point B1 and B4 of another checkout's
+``csrc`` (commit c27ec5f's signatures) in the same process.  Prints one
+line per case and writes them all as JSON.
 """
 
 import argparse
@@ -27,13 +28,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from pylatticedso_tpu_torch import smoke  # noqa: E402
 from pylatticedso_tpu_torch.kernels import build  # noqa: E402
 from pylatticedso_tpu_torch.kernels.fused import cheb_static  # noqa: E402
-from pylatticedso_tpu_torch.kernels.stencil import (  # noqa: E402
-    TILE_LAYOUTS, TILE_SHAPES)
 from pylatticedso_tpu_torch.parallel.structured import (  # noqa: E402
     StructuredLattice)
 
 PAD = (1,) * 6
-GROUPS = (2, 4)             # threads per point (Octet has 4 classes)
+RUNS = (8, 16, 32, 64, 128, 256)
+GROUPS = (2, 4)                # threads per point (Octet has 4 classes)
 
 
 def _load_parent(csrc):
@@ -68,7 +68,7 @@ def _load_parent(csrc):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=50)
-    ap.add_argument("--out", default="chiprun_out/tile_layouts.json")
+    ap.add_argument("--out", default="chiprun_out/slab_runs.json")
     ap.add_argument("--parent", help="csrc directory of another checkout "
                     "whose one-thread-per-point B1 and B4 (commit c27ec5f's "
                     "signatures) are timed beside, in the same process")
@@ -97,40 +97,33 @@ def main() -> int:
         base = run()
         torch.cuda.synchronize()
         _a, rel = smoke._err(base, want)
-        for layout, shape, groups in ((lay, sh, gr) for lay in TILE_LAYOUTS
-                                      for sh in range(len(TILE_SHAPES))
-                                      for gr in GROUPS):
-            f = lambda: run(layout=layout, shape=shape, groups=groups)
+        for slab, groups in ((r, g) for r in RUNS for g in GROUPS):
+            f = lambda: run(run=slab, groups=groups)
             try:
                 got = f()
-            except (ValueError, RuntimeError) as e:
-                print(f"{kernel} {label} {layout} {TILE_SHAPES[shape]} x "
-                      f"{groups}: skipped ({e})")
-                continue
-            if True:
-                torch.cuda.synchronize()
-                _a, rel_s = smoke._err(got, want)
-                same = all(torch.equal(a, b) for a, b in zip(
-                    got if isinstance(got, tuple) else (got,),
-                    base if isinstance(base, tuple) else (base,)))
-                ms = smoke._median_ms(f, dev, reps=7, batch=50)
-                b = smoke._bound_of(work, peak)
-                rec = {"kernel": kernel, "storage": str(io), "case": label,
-                       "layout": layout, "brick": TILE_SHAPES[shape],
-                       "groups": groups,
-                       "rel_err": rel_s, "plan_rel_err": rel,
-                       "same_bits_as_plan": same, "ms": ms,
-                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                       "share_of_bound": b["bound_ms"] / ms}
-                ok = rel_s <= tol
-                print(f"{kernel} {io} {label} {layout} brick "
-                      f"{TILE_SHAPES[shape]} x {groups} groups: {ms:.4f} "
-                      f"ms, bound "
-                      f"{b['bound_ms']:.5f} ({b['bound_by']}, "
-                      f"{100 * b['bound_ms'] / ms:.0f}%), rel err "
-                      f"{rel_s:.2e}{'' if ok else ' FAIL'}, same bits as the "
-                      f"plan's {same} [{smi}]", flush=True)
-                out.append(rec)
+            except ValueError:
+                continue               # past the kernel's block limit
+            torch.cuda.synchronize()
+            _a, rel_s = smoke._err(got, want)
+            same = all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                base if isinstance(base, tuple) else (base,)))
+            ms = smoke._median_ms(f, dev, reps=7, batch=50)
+            b = smoke._bound_of(work, peak)
+            rec = {"kernel": kernel, "storage": str(io), "case": label,
+                   "run": slab, "groups": groups,
+                   "rel_err": rel_s, "plan_rel_err": rel,
+                   "same_bits_as_plan": same, "ms": ms,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "share_of_bound": b["bound_ms"] / ms}
+            ok = rel_s <= tol
+            print(f"{kernel} {io} {label} run {slab} x {groups} "
+                  f"groups: {ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.5f} ({b['bound_by']}, "
+                  f"{100 * b['bound_ms'] / ms:.0f}%), rel err "
+                  f"{rel_s:.2e}{'' if ok else ' FAIL'}, same bits as the "
+                  f"rule's {same} [{smi}]", flush=True)
+            out.append(rec)
 
     for cells, label in ((n, f"Octet {n}^3 level 0"),):
         for dt in (torch.float32, torch.float64):

@@ -326,7 +326,7 @@ def test_launch_stream_follows_a_side_stream_on_card():
     assert launch.stream(0) == torch.cuda.current_stream().cuda_stream
 
 
-def _tiled_inputs(name, cells, dtype, seed):
+def _slab_inputs(name, cells, dtype, seed):
     ts = StructuredLattice(GEOMS[name], cells, (1.0, 1.0, 1.0), 1013.0, 0.3,
                            dtype=dtype, device="cuda")
     tm, diag = ts.make_matvec()
@@ -338,49 +338,47 @@ def _tiled_inputs(name, cells, dtype, seed):
     return ts, tm, diag, u, r, tm.prepare(r)
 
 
-def _every_shape(run):
-    """``run(shape=i)`` for every brick the card can run: the same bits
-    as the plan's."""
-    from pylatticedso_tpu_torch.kernels.stencil import TILE_SHAPES
+def _every_slab(run, nc):
+    """``run(run=r, groups=g)`` for slabs of several runs and threads per
+    point: the same bits as the rule's plan."""
     want = run()
-    ran = 0
-    for shape in range(len(TILE_SHAPES)):
-        try:
-            got = run(shape=shape)
-        except ValueError:
-            continue                # the brick does not fit this template
-        ran += 1
-        got, ref = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-        assert all(torch.equal(a, b) for a, b in zip(got, ref)), shape
-    assert ran >= 1
+    for r in (8, 32, 128, 256):
+        for g in sorted({1, max(1, nc // 2), nc}):
+            if g * r > 512:
+                continue            # past the double and B4 block limits
+            got = run(run=r, groups=g)
+            got, ref = (got, want) if isinstance(got, tuple) \
+                else ((got,), (want,))
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), (r, g)
     return want
 
 
-TILED_CASES = [("octet", (c,) * 3) for c in smoke.level_cells(50)] \
+SLAB_CASES = [("octet", (c,) * 3) for c in smoke.level_cells(50)] \
     + [("octet", (5, 6, 7)), ("octet", (13, 13, 13)), ("bcc", (5, 6, 7)),
        ("hybrid", (6, 6, 6)), ("hybrid", (5, 6, 7))]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,cells", TILED_CASES)
-def test_tiled_b1_b2_match_plain_on_card(name, cells):
-    """The tiled B1 (float32, float64) and B2 against their plain versions
-    on grids no brick divides, every 50^3 level and the 16-class hybrid;
-    bitwise on repeat and under every brick shape."""
+@pytest.mark.parametrize("name,cells", SLAB_CASES)
+def test_slab_b1_b2_match_plain_on_card(name, cells):
+    """B1 (float32, float64) and B2 against their plain versions on grids
+    no slab divides, every 50^3 level and the 16-class hybrid; bitwise on
+    repeat and under other slab plans."""
     _need_card()
     pad = lambda a: torch.nn.functional.pad(a, (1,) * 6)
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        ts, tm, _, u, _, aux = _tiled_inputs(name, cells, dtype, sum(cells))
+        ts, tm, _, u, _, aux = _slab_inputs(name, cells, dtype, sum(cells))
         B = tm.apply
         up = pad(u)
-        y = _every_shape(lambda **kw: B.launch(up, aux, **kw))
+        y = _every_slab(lambda **kw: B.launch(up, aux, **kw), ts.nc)
         assert torch.equal(y, B.launch(up, aux))
         want = tm.apply_gather(u, aux)
         err = float((y - want).abs().max() / want.abs().max())
         assert err <= tol, (dtype, err)
         if dtype == torch.float32:
             u16, a16 = u.to(torch.bfloat16), aux.to(torch.bfloat16)
-            y16 = _every_shape(lambda **kw: B.launch(pad(u16), a16, **kw))
+            y16 = _every_slab(lambda **kw: B.launch(pad(u16), a16, **kw),
+                              ts.nc)
             want16 = B.plain_lo(u16, a16).float()
             err = float((y16.float() - want16).abs().max()
                         / want16.abs().max())
@@ -389,16 +387,16 @@ def test_tiled_b1_b2_match_plain_on_card(name, cells):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,cells", TILED_CASES)
-def test_tiled_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
-                                                         monkeypatch):
-    """The tiled B4 (float32 and bf16 storage, a step and the final emit)
-    against its plain version; its outputs start from NaN-filled
-    ``torch.empty`` and every ghost point comes back zero; bitwise on
-    repeat and under every brick shape."""
+@pytest.mark.parametrize("name,cells", SLAB_CASES)
+def test_slab_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
+                                                        monkeypatch):
+    """B4 (float32 and bf16 storage, a step and the final emit) against
+    its plain version; its outputs start from NaN-filled ``torch.empty``
+    and every ghost point comes back zero; bitwise on repeat and under
+    other slab plans."""
     _need_card()
     from pylatticedso_tpu_torch.kernels.fused import cheb_static
-    ts, tm, diag, u, r, aux = _tiled_inputs(name, cells, torch.float32,
+    ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,
                                             7 + sum(cells))
     fz = tm.apply.fused
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -415,8 +413,8 @@ def test_tiled_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
         for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
             with monkeypatch.context() as m:
                 m.setattr(torch, "empty_like", nan_empty)
-                got = _every_shape(lambda **kw: fz.cheb_run(
-                    x, rr, d, fd, sc, r2, c1, c2, final, **kw))
+                got = _every_slab(lambda **kw: fz.cheb_run(
+                    x, rr, d, fd, sc, r2, c1, c2, final, **kw), ts.nc)
             got = got if isinstance(got, tuple) else (got,)
             want = fz.plain_cheb_run(x, rr, d, fd, sc, r2, c1, c2, final)
             want = want if isinstance(want, tuple) else (want,)

@@ -27,6 +27,30 @@ def test_phases_rehearse_on_cpu():
     assert [c["case"].split()[0] for c in rep["cases"]] == \
         ["Octet", "Octet", "BCC+Hybrid1+Hybrid4"]
     assert all(c["max_rel_err"] == 0.0 for c in rep["cases"])
+    # the slab kernels' plans (B1 f32 and f64, B2, B4): the rule's runs,
+    # one thread per (class, point), no shared memory; the card's blocks
+    # per SM are not asked off the card; the times before the redesign,
+    # records, only in the log
+    slab = [c for c in rep["cases"] + rep["cases64"]] + [
+        c for c in rep["fused_cases"] if c["kernel"] in ("B2", "B4")]
+    assert len(slab) == 3 + 2 + 4 + 4 * 2 * 2      # four grids of B2, B4
+    for c in slab:
+        p = c["plan"]
+        assert (p["run"], p["groups"]) == (
+            (8, 16) if c["case"].startswith("BCC+") else (32, 4))
+        assert p["threads"] == 128 and p["smem_bytes"] == 0
+        assert p["blocks_per_sm"] is None and p["halo"] == [1, 1, 1]
+        assert "before_ms" not in c and c["device_ms"] is None  # no card
+    assert smoke.SLAB_BEFORE_MS[("B4", "Octet 50^3 (MG level 0)", "bf16",
+                                 "step")] > 0
+    assert all("not recorded" in line for line in lines
+               if "vs before the redesign" in line
+               or "| before the redesign" in line)
+    for tag in ("B1 Octet 4^3", "B1<double> Octet 4^3", "B2 Octet 4^3",
+                "B4 Octet 4^3 (MG level 0) f32 step"):
+        assert any(line.startswith(tag) and "slab plan: runs of 32 points"
+                   in line and "before the redesign" in line
+                   for line in lines), tag
     # B2-B5: every grid (the hybrid's coarse level too), both storages
     fc = rep["fused_cases"]
     assert {c["kernel"] for c in fc} == {"B2", "B3", "B4", "B5"}

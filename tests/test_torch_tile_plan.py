@@ -1,12 +1,13 @@
-"""The tiled kernels' host plan (``kernels/stencil.py`` ``tile_plan``), held
-to the index mapping of B1 and B4 (``csrc/stencil_matvec.cu``,
-``csrc/mg_fused.cu``, staging in ``csrc/stencil_body.cuh``), emulated in
-numpy: the bricks cover every output point once, the tile's halo holds
-every side's shifts, the staging copies every tile point inside the grid
-once, and the plan's shared memory and limits are the source's.  The
-kernels take the plan as it is, so a plan that lost a point or read past
-its tile would give a wrong operator on the card.  Host build only: no
-kernel, no JAX."""
+"""The slab kernels' host plan (``kernels/stencil.py`` ``slab_plan``),
+held to the index mapping of B1 and B4 (``csrc/stencil_matvec.cu``,
+``csrc/mg_fused.cu``, the slab body in ``csrc/stencil_body.cuh``),
+emulated in numpy: the slabs cover every output point once, every side's
+reads from a computed point stay inside the padded grid (the ghost
+padding is the kernels' halo), the side table's grid offsets reach the
+same operands as the flat shifts, and the plan's limits are the source's.
+The kernels take the plan as it is, so a plan that lost a point or read
+past the grid would give a wrong operator on the card.  Host build only:
+no kernel, no JAX."""
 
 import re
 from pathlib import Path
@@ -17,11 +18,8 @@ import torch
 
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.stencil import (
-    SIDE_DTYPE, SIDE_DTYPE_F64, TILE_BLOCK_THREADS, TILE_HALO, TILE_LAYOUT,
-    TILE_LAYOUTS, TILE_MAX_SMEM, TILE_MAX_THREADS, TILE_SHAPES,
-    TILE_SMEM_BUDGET,
-    edge_sides, side_shifts, side_table, stencil_reach, tile_blocks,
-    tile_plan, tile_smem_bytes)
+    SIDE_DTYPE_F64, SLAB_HALO, SLAB_MAX_RUN, SLAB_MAX_THREADS, SLAB_THREADS,
+    edge_sides, side_table, slab_blocks, slab_plan, stencil_reach)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
@@ -29,10 +27,7 @@ torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parents[1] / "pylatticedso_tpu_torch" / "csrc"
 GEOMS = {"octet": "Octet", "bcc": "BCC", "hybrid": smoke.HYBRID}
-# storage itemsize and side record size of B1 f32 / B2 / B1 f64
-DTYPES = {"f32": (4, SIDE_DTYPE.itemsize), "bf16": (2, SIDE_DTYPE.itemsize),
-          "f64": (8, SIDE_DTYPE_F64.itemsize)}
-# every MG level's cells of the 50^3 hierarchy, and grids no brick divides
+# every MG level's cells of the 50^3 hierarchy, and grids no slab divides
 CELLS = [(c,) * 3 for c in smoke.level_cells(50)] + [(5, 6, 7), (13, 13, 13),
                                                      (3, 9, 40)]
 
@@ -43,260 +38,174 @@ def _lattice(name, cells=(2, 2, 2)):
                              device="cpu")
 
 
-def _plan(sl, dtype, zext=51):
-    itemsize, side_size = DTYPES[dtype]
-    return tile_plan(sl.nc, 2 * len(sl.edges), itemsize, stencil_reach(sl),
-                     zext, side_size)
-
-
-def _threads(plan, grid, padded):
+def _points(plan, grid, padded):
     """Per (block, thread) of a launch, as the kernels map them: the
-    point's coordinates in the launch's extent (interior for B1, padded
-    for B4), its coordinates in the brick, its group, and the extent."""
-    bx, by, _ = plan["brick"]
-    bz = plan["bz"]
-    pts = bx * by * bz
+    padded point (x, y, z), the thread's group, and whether it computes
+    (B1: an interior point; B4: any padded point, ghosts written zero)."""
+    X, Y, Z = grid
+    Yp, Zp = Y + 2, Z + 2
+    runs, planes = slab_blocks(plan, grid, padded)
     t = np.arange(plan["threads"])
-    p, g = t % pts, t // pts
-    lz, ly, lx = p % bz, (p // bz) % by, p // (bz * by)
-    nbx, nby, nbz = tile_blocks(plan, grid, padded)
-    # blockIdx.z walks x, blockIdx.y y, blockIdx.x z
-    BX, BY, BZ = np.meshgrid(np.arange(nbx), np.arange(nby), np.arange(nbz),
-                             indexing="ij")
-    BX, BY, BZ = (a.reshape(-1, 1) for a in (BX, BY, BZ))
-    ext = tuple(e + 2 if padded else e for e in grid)
-    x, y, z = BX * bx + lx, BY * by + ly, BZ * bz + lz
-    return (x, y, z), (lx + 0 * x, ly + 0 * y, lz + 0 * z), g + 0 * x, ext
+    g, r = t // plan["run"], t % plan["run"]
+    bx, by = np.meshgrid(np.arange(runs), np.arange(planes), indexing="ij")
+    bx, by = bx.reshape(-1, 1), by.reshape(-1, 1)
+    f = bx * plan["run"] + r                    # flat (y, z) of the plane
+    x = by + (0 if padded else 1)               # B1's planes are interior
+    y, z = f // Zp, f % Zp
+    inside = f < Yp * Zp
+    if padded:
+        live = inside
+    else:
+        live = inside & (y >= 1) & (y <= Y) & (z >= 1) & (z <= Z)
+    return (x + 0 * f, y, z), g + 0 * f, live
 
 
 def _cover(plan, grid, nc, padded):
-    """How many times the launch computes each (class, point)."""
-    (x, y, z), _, g, ext = _threads(plan, grid, padded)
-    valid = (x < ext[0]) & (y < ext[1]) & (z < ext[2])
-    count = np.zeros((nc,) + ext, np.int64)
+    """How many times the launch computes each (class, padded point)."""
+    (x, y, z), g, live = _points(plan, grid, padded)
+    count = np.zeros((nc,) + tuple(e + 2 for e in grid), np.int64)
     for k in range(-(-nc // plan["groups"])):
         c = g + k * plan["groups"]
-        m = valid & (c < nc)
+        m = live & (c < nc)
         np.add.at(count, (c[m], x[m], y[m], z[m]), 1)
     return count
 
 
 @pytest.mark.parametrize("name", sorted(GEOMS))
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_bricks_cover_every_point_once(name, dtype):
-    """B1 computes every interior (class, point) once; B4 every padded
-    one (ghosts written zero) once; on every level of the 50^3 hierarchy
-    and on grids that no brick divides, for each template and dtype (the
-    plan's z extent follows the grid's; the forced groups too)."""
+def test_slabs_cover_every_point_once(name):
+    """B1 computes every interior (class, point) once and nothing else; B4
+    every padded one once (ghosts written zero); on every level of the
+    50^3 hierarchy and on grids no run divides, under the rule's plan and
+    every forced run and thread count the kernels take."""
     sl = _lattice(name)
+    plans = [slab_plan(sl.nc, stencil_reach(sl))]
+    for run in (1, 8, 32, SLAB_MAX_RUN):
+        for groups in sorted({1, max(1, sl.nc // 2), sl.nc}):
+            if groups * run <= SLAB_MAX_THREADS["B1"]:
+                plans.append(slab_plan(sl.nc, (1, 1, 1), run, groups))
     for cells in CELLS:
         grid = tuple(c + 1 for c in cells)
-        for padded in (False, True):
-            if padded and dtype == "f64":   # B4 stores float32 or bf16
-                continue
-            zext = grid[2] + 2 if padded else grid[2]
-            plan = _plan(sl, dtype, zext)
-            assert plan["bz"] <= plan["brick"][2]
-            assert -(-zext // plan["bz"]) == -(-zext // plan["brick"][2])
-            assert np.all(_cover(plan, grid, sl.nc, padded) == 1), cells
-        itemsize, side_size = DTYPES[dtype]
-        for groups in range(1, sl.nc + 1):
-            try:
-                plan = tile_plan(sl.nc, 2 * len(sl.edges), itemsize,
-                                 (1, 1, 1), grid[2], side_size,
-                                 groups=groups)
-            except ValueError:
-                continue                 # too many threads for one block
-            assert np.all(_cover(plan, grid, sl.nc, False) == 1), groups
+        inner = np.zeros((sl.nc,) + tuple(e + 2 for e in grid), np.int64)
+        inner[:, 1:-1, 1:-1, 1:-1] = 1
+        for plan in plans:
+            assert np.array_equal(_cover(plan, grid, sl.nc, False), inner), \
+                (cells, plan)
+            assert np.all(_cover(plan, grid, sl.nc, True) == 1), \
+                (cells, plan)
 
 
 @pytest.mark.parametrize("name", sorted(GEOMS))
-def test_halo_holds_every_side_shift(name):
-    """For every point a brick computes, each side's other endpoint (at
-    its tile shift, as the kernels turn ``side_shifts`` into one) lies in
-    the tile, on the padded point q + du, inside the padded grid (so the
-    staging wrote it); r^2's read q + dr stays in the padded grid."""
+def test_reads_stay_in_the_padded_grid(name):
+    """From every point a slab computes, each side's other endpoint
+    (q + du) and r^2 anchor (q + dr) lie inside the padded grid: the
+    ghost padding holds the template's reach; and the table's grid
+    offsets (co * 6 * Fp + du, ei * Fp + dr) land on the same flat
+    element as the row and the shift do."""
     grid = (6, 7, 8)
     sl = StructuredLattice(GEOMS[name], tuple(g - 1 for g in grid),
                            (1.0,) * 3, smoke.E_MOD, smoke.NU,
                            dtype=torch.float32, device="cpu")
-    assert stencil_reach(sl) == (1, 1, 1)
+    reach = stencil_reach(sl)
+    assert reach == (1, 1, 1)
+    plan = slab_plan(sl.nc, reach)
     recs = edge_sides(sl, grid[1] + 2, grid[2] + 2)
-    shifts = side_shifts(sl)
+    Xp, Yp, Zp = (g + 2 for g in grid)
+    Fp = Xp * Yp * Zp
+    for padded in (False, True):
+        (x, y, z), _g, live = _points(plan, grid, padded)
+        inner = live & (x >= 1) & (x <= grid[0]) & (y >= 1) \
+            & (y <= grid[1]) & (z >= 1) & (z <= grid[2])
+        for r in recs:
+            for vec in (r["du3"], r["dr3"]):
+                for a, (p, e) in enumerate(zip((x, y, z), (Xp, Yp, Zp))):
+                    moved = p[inner] + vec[a]
+                    assert moved.min() >= 0 and moved.max() < e
+    # the grid offsets of the B1/B4 table against the flat layout
+    mv, _ = sl.make_matvec()
     table, _ = side_table(sl)
-    # side_shifts is in the table's order: its flat shift is the table's du
-    Yp, Zp = grid[1] + 2, grid[2] + 2
-    assert np.array_equal(shifts[:, 0] * Yp * Zp + shifts[:, 1] * Zp
-                          + shifts[:, 2], table["du"])
-    for dtype in DTYPES:
-        plan = _plan(sl, dtype, grid[2])
-        bx, by, bz = plan["brick"]
-        H = TILE_HALO
-        TX, TY, TZ = bx + 2 * H, by + 2 * H, bz + 2 * H
-        for padded in (False, True):
-            (x, y, z), (lx, ly, lz), _g, ext = _threads(plan, grid, padded)
-            off = 0 if padded else 1          # padded coordinate of x = 0
-            P = [a + off for a in (x, y, z)]
-            inside = [(p >= 1) & (p <= e) for p, e in zip(P, grid)]
-            m = inside[0] & inside[1] & inside[2]
-            tq = ((lx + H) * TY + ly + H) * TZ + lz + H
-            for s, (dx, dy, dz, _) in enumerate(shifts):
-                q = (tq + (dx * TY + dy) * TZ + dz)[m]
-                assert q.min() >= 0 and q.max() < TX * TY * TZ
-                # decode the tile point and map it back to the grid
-                i, j, k = q // (TY * TZ), (q // TZ) % TY, q % TZ
-                for a, (l_, d, t_) in enumerate(zip((i, j, k), (dx, dy, dz),
-                                                    (lx, ly, lz))):
-                    assert np.array_equal(l_, t_[m] + H + d)
-                    Pn = P[a][m] + d
-                    assert Pn.min() >= 0 and Pn.max() <= grid[a] + 1
-            for r in recs:
-                for a in range(3):
-                    Pr = P[a][m] + r["dr3"][a]
-                    assert Pr.min() >= 0 and Pr.max() <= grid[a] + 1
+    q = (2 * Yp + 3) * Zp + 4                   # an interior point
+    for j, rec in enumerate(table):
+        du = int(rec["co"]) * 6 * Fp + int(rec["du"])
+        dr = int(rec["ei"]) * Fp + int(rec["dr"])
+        other = np.unravel_index(q + du, (sl.nc * 6, Xp, Yp, Zp))
+        assert other[0] == rec["co"] * 6
+        anchor = np.unravel_index(q + dr, (len(sl.edges), Xp, Yp, Zp))
+        assert anchor[0] == rec["ei"]
+    dev = mv.apply.tables("cpu", grid_offsets=True)[0].numpy()
+    got = dev.view(table.dtype)
+    assert np.array_equal(got["du"], table["co"] * 6 * Fp + table["du"])
+    assert np.array_equal(got["dr"], table["ei"] * Fp + table["dr"])
 
 
-def _stage_line(tz, V, mis, gz0, Zp):
-    """stage_tile on one tile line: how often each tile point is written,
-    and the first element (relative to the 16-byte block grid) of every
-    chunk read."""
-    cpl = (tz + 2 * V - 2) // V
-    zlo, zhi = max(0, -gz0), min(tz, Zp - gz0)
-    written = np.zeros(tz, np.int64)
-    starts = []
-    for j in range(cpl):
-        k0 = j * V - mis
-        if k0 + V <= zlo or k0 >= zhi:
-            continue
-        starts.append((mis + k0, [k for k in range(k0, k0 + V)
-                                  if zlo <= k < zhi]))
-        for k in range(k0, k0 + V):
-            if zlo <= k < zhi:
-                written[k] += 1
-    return written, (zlo, zhi), starts
-
-
-@pytest.mark.parametrize("itemsize", [2, 4, 8])
-def test_staging_writes_every_tile_point_once(itemsize):
-    """The 16-byte chunks of a tile line, at any misalignment of the line
-    and any position of the brick along z (the first brick's halo before
-    the grid, a partial last brick), write every tile point inside the
-    padded grid once; each chunk read is aligned and holds a point of
-    the line inside the grid (so no read leaves the field's 16-byte
-    blocks)."""
-    src = (CSRC / "stencil_body.cuh").read_text()
-    assert "constexpr int CPL = (B::TZ + 2 * V - 2) / V;" in src
-    V = 16 // itemsize
-    for _bx, _by, bz in TILE_SHAPES:
-        tz = bz + 2 * TILE_HALO
-        for Zp in (4, 9, 28, 53):
-            for gz0 in range(-1, Zp - 1):
-                for mis in range(V):
-                    written, (zlo, zhi), starts = _stage_line(tz, V, mis,
-                                                              gz0, Zp)
-                    want = np.zeros(tz, np.int64)
-                    want[zlo:max(zlo, zhi)] = 1
-                    assert np.array_equal(written, want), (tz, Zp, gz0, mis)
-                    for first, ks in starts:
-                        assert first % V == 0 and ks
-
-
-@pytest.mark.parametrize("name", sorted(GEOMS))
-def test_plan_fits_its_budget_and_the_rule(name):
-    """The rule's brick is the first of TILE_SHAPES that gives each class
-    of a point its own thread within TILE_BLOCK_THREADS and whose block
-    fits the budget (two blocks an SM); the template's picks are pinned."""
-    sl = _lattice(name)
-    n_sides = 2 * len(sl.edges)
-    picks = {}
-    for dtype, (itemsize, side_size) in DTYPES.items():
-        plan = _plan(sl, dtype)
-        size = lambda i: tile_smem_bytes(i, sl.nc, n_sides, itemsize,
-                                         side_size)
-        pts = lambda i: int(np.prod(TILE_SHAPES[i]))
-        assert plan["smem_bytes"] == size(plan["shape"]) <= TILE_SMEM_BUDGET
-        assert all(size(i) > TILE_SMEM_BUDGET
-                   or sl.nc * pts(i) > TILE_BLOCK_THREADS
-                   for i in range(plan["shape"]))
-        bx, by, bz = plan["brick"]
-        assert plan["groups"] == sl.nc
-        assert plan["threads"] == sl.nc * bx * by * plan["bz"] \
-            <= TILE_BLOCK_THREADS
-        assert plan["halo"] == (TILE_HALO,) * 3
-        assert plan["layout"] == TILE_LAYOUT
-        picks[dtype] = plan["brick"]
-    assert picks == {
-        "octet": {"f32": (2, 2, 32), "bf16": (2, 2, 32), "f64": (2, 2, 32)},
-        "bcc": {"f32": (2, 4, 32), "bf16": (2, 4, 32), "f64": (2, 4, 32)},
-        "hybrid": {"f32": (1, 1, 16), "bf16": (1, 1, 16),
-                   "f64": (1, 1, 8)}}[name]
-
-
-def test_octet_tiles():
-    """Octet f32 at brick 32 x 2 x 2 and halo 1: 34 x 4 x 4 points of 96
-    bytes (24 rows of float32), ~52 KB, plus the tables; at 50^3 the
-    bricks are 26 points long along z (two per 51-point line)."""
-    plan = tile_plan(4, 48, 4, (1, 1, 1), 51)
-    assert plan["brick"] == (2, 2, 32) and plan["bz"] == 26
-    assert plan["threads"] == 4 * 2 * 2 * 26
-    assert plan["smem_bytes"] == 34 * 4 * 4 * 96 + 48 * 64 + 32
-    assert tile_plan(4, 48, 4, (1, 1, 1), 53)["bz"] == 27     # B4, padded
+def test_rule():
+    """The rule gives each class of a point its own thread in blocks of
+    SLAB_THREADS: runs of 32 points for Octet (4 classes), 64 for BCC, 8
+    for the 16-class hybrid; double's and B4's block limits hold."""
+    for name, run in (("octet", 32), ("bcc", 64), ("hybrid", 8)):
+        sl = _lattice(name)
+        plan = slab_plan(sl.nc, stencil_reach(sl))
+        assert (plan["run"], plan["groups"]) == (run, sl.nc)
+        assert plan["threads"] == SLAB_THREADS
+        assert plan["halo"] == (SLAB_HALO,) * 3
+        for limit in SLAB_MAX_THREADS.values():
+            assert plan["threads"] <= limit
+    # a template with more classes than a block holds threads per point:
+    # each thread takes several classes
+    plan = slab_plan(40, (1, 1, 1), max_threads=512)
+    assert plan["run"] == 2 and plan["groups"] == 40
+    plan = slab_plan(600, (1, 1, 1), max_threads=512)
+    assert plan["run"] == 1 and plan["groups"] == 512
 
 
 def test_refusals():
-    """A reach beyond the halo raises; so does a template or dtype whose
-    tile fits no brick, and a forced brick beyond the block limit."""
+    """A reach beyond the ghost padding raises, and so does a plan beyond
+    the kernels' limits; so does the wrapper for a grid beyond 32-bit
+    indexing."""
     with pytest.raises(ValueError, match="reaches"):
-        tile_plan(4, 48, 4, (2, 1, 1), 51)
+        slab_plan(4, (2, 1, 1))
     with pytest.raises(ValueError, match="reaches"):
-        tile_plan(4, 48, 4, (1, 1, 3), 51)
-    with pytest.raises(ValueError, match="no brick"):
-        tile_plan(64, 600, 8, (1, 1, 1), 51, SIDE_DTYPE_F64.itemsize)
-    with pytest.raises(ValueError, match="does not fit"):
-        tile_plan(16, 140, 8, (1, 1, 1), 51, SIDE_DTYPE_F64.itemsize,
-                  shape=0)
-    with pytest.raises(ValueError, match="threads"):
-        tile_plan(4, 48, 4, (1, 1, 1), 51, shape=0, max_threads=512)
-    with pytest.raises(ValueError, match="layout"):
-        tile_plan(4, 48, 4, (1, 1, 1), 51, layout="ring")
-    # the wrapper: a grid beyond 32-bit indexing
+        slab_plan(4, (1, 1, 3))
+    for run, groups in ((3, 4), (512, 1), (0, 1), (64, 5), (64, 0)):
+        with pytest.raises(ValueError, match="runs must be"):
+            slab_plan(4, (1, 1, 1), run, groups)
+    with pytest.raises(ValueError, match="runs must be"):
+        slab_plan(4, (1, 1, 1), 256, 4, max_threads=512)
     sl = _lattice("octet")
     mv, _ = sl.make_matvec()
     mv.apply.grid = (900, 900, 900)
     with pytest.raises(ValueError, match="32 bits"):
-        mv.apply.tile_plan(torch.float32)
+        mv.apply.slab_plan(torch.float32)
 
 
 def test_wrapper_plan_is_the_rule():
-    """StencilMatvec.tile_plan is tile_plan of the lattice's template, per
-    storage dtype, and cached; B4's is the same plan (float records)."""
-    sl = _lattice("octet", (3, 4, 5))
+    """StencilMatvec.slab_plan is slab_plan of the lattice's template, per
+    storage dtype (double's block limit for float64), and cached."""
+    sl = _lattice("hybrid", (3, 4, 5))
     mv, _ = sl.make_matvec()
     B = mv.apply
-    for io, dtype in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
-                      (torch.float64, "f64")):
-        plan = B.tile_plan(io)
-        assert plan == _plan(sl, dtype, sl.grid[2])
-        assert B.tile_plan(io) is plan
+    for io, limit in ((torch.float32, "B1"), (torch.bfloat16, "B1"),
+                      (torch.float64, "B1 f64")):
+        plan = B.slab_plan(io)
+        assert plan == slab_plan(sl.nc, stencil_reach(sl),
+                                 max_threads=SLAB_MAX_THREADS[limit])
+        assert B.slab_plan(io) is plan
     assert B.reach == (1, 1, 1)
 
 
 def test_limits_are_the_kernel_source_limits():
     """The host's limits are the ones the kernels are compiled with: the
-    halo, the block's threads, the shared memory limit, the shapes in the
-    dispatch's order and the layout ids."""
-    text = (CSRC / "stencil_body.cuh").read_text()
-    define = lambda name: re.search(rf"#define {name} (.+)", text).group(1)
-    assert int(define("TILE_HALO")) == TILE_HALO
-    assert int(define("TILE_MAX_THREADS")) == TILE_MAX_THREADS
-    assert TILE_BLOCK_THREADS <= TILE_MAX_THREADS
-    assert eval(define("TILE_MAX_SMEM")) == TILE_MAX_SMEM
-    assert int(define("TILE_N_SHAPES")) == len(TILE_SHAPES)
-    cases = re.findall(r"case (\d+): f\.template run<Brick<(\d+), (\d+), "
-                       r"(\d+)>>\(\)", text)
-    assert [int(c[0]) for c in cases] == list(range(len(TILE_SHAPES)))
-    assert [tuple(int(v) for v in c[1:]) for c in cases] == \
-        list(TILE_SHAPES)
-    for layout, code in TILE_LAYOUTS.items():
-        assert int(define(f"TILE_{layout.upper()}").split()[0]) == code
-    assert TILE_SMEM_BUDGET <= TILE_MAX_SMEM
+    halo, the longest run, B1's block limits (float, double) and B4's."""
+    body = (CSRC / "stencil_body.cuh").read_text()
+    define = lambda text, name: int(
+        re.search(rf"#define {name} (\d+)", text).group(1))
+    assert define(body, "SLAB_HALO") == SLAB_HALO
+    assert define(body, "SLAB_MAX_RUN") == SLAB_MAX_RUN
+    b1 = (CSRC / "stencil_matvec.cu").read_text()
+    f64, f32 = re.search(r"return sizeof\(C\) == 8 \? (\d+) : (\d+);",
+                         b1).groups()
+    assert (int(f32), int(f64)) == (SLAB_MAX_THREADS["B1"],
+                                    SLAB_MAX_THREADS["B1 f64"])
+    b4 = (CSRC / "mg_fused.cu").read_text()
+    assert define(b4, "B4_MAX_THREADS") == SLAB_MAX_THREADS["B4"]
+    assert SLAB_THREADS <= min(SLAB_MAX_THREADS.values())
+    assert SIDE_DTYPE_F64.itemsize % 16 == 0       # 16-byte records
