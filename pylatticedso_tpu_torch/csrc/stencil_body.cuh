@@ -15,11 +15,12 @@
 // stencil_acc_t is a template over the compute type C and its side record
 // (float with Side, double with SideD): loads of the storage type (float,
 // __nv_bfloat16 or double) are widened to C and all arithmetic is C.
-// stencil_acc is the float instance every float kernel uses; side_acc is
-// the per-side arithmetic, which B5 also calls on values it keeps in
-// registers and distributed shared memory.  Sides are
-// summed in table order (class_start[c] .. class_start[c + 1]) in
-// registers: no atomics, bitwise-equal repeats.
+// stencil_acc is its float instance, which B3 and B5 use; slab_acc (below)
+// the form B1, B2 and B4 use, on a table with the grid's offsets; side_acc
+// is the per-side arithmetic of all of them, which B5 also calls on values
+// it keeps in registers and distributed shared memory.  Sides are summed
+// in table order (class_start[c] .. class_start[c + 1]) in registers: no
+// atomics, bitwise-equal repeats.
 
 #pragma once
 
@@ -108,10 +109,9 @@ __device__ __forceinline__ void side_acc(const SideT& sd, const C us[6],
   const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
   const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
   const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
-  // side A: fA = [-fu, msh - mdf]; side B: fB = [fu, msh + mdf].  A
-  // product by +-1 is exact, so each fma rounds once, as the sum of the
-  // signed term does: the same bits as the two-branch form, with no
-  // branch or select per value
+  // side A: fA = [-fu, msh - mdf]; side B: fB = [fu, msh + mdf].  sf is
+  // +-1, so sf * v is exact and fma(sf, v, a) is the rounded a -+ v: the
+  // signed sum, with no branch or select per value
   const C sf = -sg;
   acc[0] = fma(sf, fu0, acc[0]);
   acc[1] = fma(sf, fu1, acc[1]);

@@ -68,7 +68,7 @@
 // tile of u per 3-D brick of output points (its staging and halo cost
 // more than the L1 re-reads it saves, at 1.2-1.5x the slab's time) and
 // 3-D brick blocks reading global memory (warps spanning two z-lines,
-// 1.1-1.2x).
+// 1.1-1.2x in float and bfloat16, within 5% in double).
 
 #include "stencil_body.cuh"
 

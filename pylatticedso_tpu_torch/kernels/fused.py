@@ -26,6 +26,10 @@ list (``b5_items``), and d sits in every block's shared memory where it
 fits, in global scratch elsewhere.  The result is the same bits whatever
 the cluster size or layout.
 
+**B4's launch.**  B4 runs on B1's slab plan (``b4_plan``: runs of a
+padded plane's flat points, one thread per (class, point)), over every
+padded plane, ghosts included, with the side table's grid offsets.
+
 On a CPU tensor every wrapper runs its plain torch version (the gather
 form of ``parallel/structured.py`` for K, then the same pointwise update
 with the same rounding points); on a CUDA tensor it launches its kernel

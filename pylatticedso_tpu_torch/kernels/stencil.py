@@ -31,7 +31,10 @@ kernels are never differentiated.
 
 The kernel reads the edge sides from a device table built here from
 ``edge_sides`` (the counterpart of ``stencil_pallas._edge_sides``), sorted
-by self class so that each class's sides keep the gather form's order.
+by self class so that each class's sides keep the gather form's order;
+B1 and B2 read it with the launch grid's offsets written in, and run on
+the slab plan made here (``slab_plan``: runs of one padded plane's flat
+points, one thread per (class, point)).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch.nn.functional as F
 from . import launch
 
 __all__ = ["StencilMatvec", "edge_sides", "side_table", "stencil_reach",
-           "slab_plan", "slab_blocks", "SIDE_DTYPE", "SIDE_DTYPE_F64",
+           "slab_plan", "SIDE_DTYPE", "SIDE_DTYPE_F64",
            "FLOPS_PER_SIDE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
@@ -164,13 +167,6 @@ def slab_plan(nc: int, reach, run: Optional[int] = None,
                          f"point and {max_threads} a block")
     return {"run": run, "groups": groups, "threads": groups * run,
             "halo": (SLAB_HALO,) * 3, "reach": reach}
-
-
-def slab_blocks(plan: Dict, grid, padded: bool = False) -> Tuple[int, int]:
-    """Blocks of a slab launch: (runs per plane, planes), over the interior
-    planes of ``grid`` (B1) or its padded planes (``padded``: B4)."""
-    X, Y, Z = grid
-    return (-(-((Y + 2) * (Z + 2)) // plan["run"]), X + 2 if padded else X)
 
 
 class _B1(torch.autograd.Function):

@@ -22,7 +22,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from pylatticedso_tpu_torch.kernels import build  # noqa: E402
 
-_FUNC = re.compile(r"Function : (\S+)")
+_FUNC = re.compile(r"Function : (.+?)\s*$")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 

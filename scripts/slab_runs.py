@@ -19,7 +19,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 

@@ -19,7 +19,7 @@ import torch
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.stencil import (
     SIDE_DTYPE_F64, SLAB_HALO, SLAB_MAX_RUN, SLAB_MAX_THREADS, SLAB_THREADS,
-    edge_sides, side_table, slab_blocks, slab_plan, stencil_reach)
+    edge_sides, side_table, slab_plan, stencil_reach)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
@@ -38,13 +38,20 @@ def _lattice(name, cells=(2, 2, 2)):
                              device="cpu")
 
 
+def _blocks(plan, grid, padded):
+    """The launchers' grid: (runs per plane, planes), over the interior
+    planes (B1) or the padded ones (B4)."""
+    X, Y, Z = grid
+    return -(-((Y + 2) * (Z + 2)) // plan["run"]), X + 2 if padded else X
+
+
 def _points(plan, grid, padded):
     """Per (block, thread) of a launch, as the kernels map them: the
     padded point (x, y, z), the thread's group, and whether it computes
     (B1: an interior point; B4: any padded point, ghosts written zero)."""
     X, Y, Z = grid
     Yp, Zp = Y + 2, Z + 2
-    runs, planes = slab_blocks(plan, grid, padded)
+    runs, planes = _blocks(plan, grid, padded)
     t = np.arange(plan["threads"])
     g, r = t // plan["run"], t % plan["run"]
     bx, by = np.meshgrid(np.arange(runs), np.arange(planes), indexing="ij")
