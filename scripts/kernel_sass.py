@@ -1,6 +1,6 @@
 """Dump the SASS of the port's CUDA kernels and count their instructions.
 
-    python3 scripts/kernel_sass.py [--csrc DIR] [--out DIR]
+    python3 scripts/kernel_sass.py --out DIR [--csrc DIR]
 
 Builds ``csrc/<source>.cu`` (the port's, or those of ``--csrc``, e.g. an
 older checkout's) with the port's nvcc flags, disassembles each library
@@ -29,7 +29,8 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--csrc", default=str(build.CSRC))
-    ap.add_argument("--out", default="chiprun_out/sass")
+    ap.add_argument("--out", required=True,
+                    help="directory for the .sass files")
     ap.add_argument("--sources", default="stencil_matvec,mg_fused")
     args = ap.parse_args()
     out = Path(args.out)

@@ -10,7 +10,7 @@ against its plain version and against the rule's plan's bits, and times
 it (CUDA events around back-to-back launches, median of 7); ``--parent``
 also times the one-thread-per-point B1 and B4 of another checkout's
 ``csrc`` (commit c27ec5f's signatures) in the same process.  Prints one
-line per case and writes them all as JSON.
+line per case (``--out``: all of them as JSON too).
 """
 
 import argparse
@@ -67,7 +67,7 @@ def _load_parent(csrc):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=50)
-    ap.add_argument("--out", default="chiprun_out/slab_runs.json")
+    ap.add_argument("--out", help="also write the cases here (JSON)")
     ap.add_argument("--parent", help="csrc directory of another checkout "
                     "whose one-thread-per-point B1 and B4 (commit c27ec5f's "
                     "signatures) are timed beside, in the same process")
@@ -204,10 +204,11 @@ def main() -> int:
                                                    c2, final),
                          fz.work("cheb_run", torch.finfo(io).bits // 8,
                                  final=final), peak, tol)
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(
-        {"nvidia_smi": smi, "build_log": build.build_log, "cases": out},
-        indent=1, default=str))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"nvidia_smi": smi, "build_log": build.build_log, "cases": out},
+            indent=1, default=str))
     bad = [c for c in out if not c.get("same_bits_as_plan", True)]
     print(f"{len(out)} cases, {len(bad)} not the plan's bits")
     return 0

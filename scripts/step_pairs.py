@@ -37,7 +37,7 @@ def main() -> int:
     ap.add_argument("b")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--routes", default="fused,lo")
-    ap.add_argument("--out", default="chiprun_out/step_pairs.json")
+    ap.add_argument("--out", help="also write the runs here (JSON)")
     args = ap.parse_args()
     routes = args.routes.split(",")
     order = []
@@ -58,8 +58,9 @@ def main() -> int:
             v = [r["s_per_step"][route] for r in runs if r["checkout"] == root]
             print(f"{root} {route}: median {statistics.median(v):.4f} s/step "
                   f"over {[round(x, 4) for x in v]}")
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(json.dumps(runs, indent=1))
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(runs, indent=1))
     return 0
 
 
