@@ -101,60 +101,55 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
 
 // ------------------------------------------------------------------ B4
 // One block per slab of PADDED points (stencil_body.cuh): blockIdx.y is
-// the padded plane, blockIdx.x the run of its flat (y, z) points, every
-// class.  Interior points run the stencil on d and update their own
-// values (x, r, fd and the centre d read once); ghost points write zeros,
-// so outputs can come from torch.empty and every neighbour read of the
-// next launch sees zero ghosts.  `sides` holds the grid's offsets.
-#define B4_MAX_THREADS 512
-
+// the padded plane, blockIdx.x the run of its flat (y, z) points, thread
+// t point t % run for class t / run.  Interior points run the stencil on
+// d and update their own values (x, r, fd and the centre d read once);
+// ghost points write zeros, so outputs can come from torch.empty and
+// every neighbour read of the next launch sees zero ghosts.  `sides`
+// holds the grid's offsets.
 template <typename T, bool FINAL>
-__global__ void __launch_bounds__(B4_MAX_THREADS)
+__global__ void __launch_bounds__(SLAB_THREADS)
 mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const T* __restrict__ d, const T* __restrict__ fd,
                    const float* __restrict__ sc, const T* __restrict__ r2,
                    T* __restrict__ x1o, T* __restrict__ r1o,
                    T* __restrict__ d1o, float c1, float c2, Stencil s,
-                   int run, int groups) {
+                   int run) {
   const int Yp = s.Y + 2, Zp = s.Z + 2, Fp = (s.X + 2) * Yp * Zp;
-  const int g = threadIdx.x / run;
-  const int f = blockIdx.x * run + (threadIdx.x - g * run);
+  const int c = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - c * run);
   if (f >= Yp * Zp) return;
   const int px = blockIdx.y, py = f / Zp, pz = f - py * Zp;
   const int q = px * Yp * Zp + f;
   if (px < 1 || px > s.X || py < 1 || py > s.Y || pz < 1 || pz > s.Z) {
-    for (int c = g; c < s.nc; c += groups) {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) {
-        const int o = (c * 6 + k) * Fp + q;
-        st(x1o + o, 0.f);
-        if (!FINAL) {
-          st(r1o + o, 0.f);
-          st(d1o + o, 0.f);
-        }
+    for (int k = 0; k < 6; ++k) {
+      const int o = (c * 6 + k) * Fp + q;
+      st(x1o + o, 0.f);
+      if (!FINAL) {
+        st(r1o + o, 0.f);
+        st(d1o + o, 0.f);
       }
     }
     return;
   }
   const float c2i = c2 * sc[1];
-  for (int c = g; c < s.nc; c += groups) {
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
-                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const int o = (c * 6 + k) * Fp + q;
-      const float dc = ld(d + o);
-      const float x1 = ld(x + o) + dc;
-      const float r1 = ld(r + o) - acc[k];
-      const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
-      if (FINAL) {
-        st(x1o + o, x1 + d1);
-      } else {
-        st(x1o + o, x1);
-        st(r1o + o, r1);
-        st(d1o + o, d1);
-      }
+  for (int k = 0; k < 6; ++k) {
+    const int o = (c * 6 + k) * Fp + q;
+    const float dc = ld(d + o);
+    const float x1 = ld(x + o) + dc;
+    const float r1 = ld(r + o) - acc[k];
+    const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
+    if (FINAL) {
+      st(x1o + o, x1 + d1);
+    } else {
+      st(x1o + o, x1);
+      st(r1o + o, r1);
+      st(d1o + o, d1);
     }
   }
 }
@@ -438,64 +433,59 @@ template <typename T, bool FINAL>
 static void cheb_run(const void* x, const void* r, const void* d,
                      const void* fd, const void* sc, const void* r2,
                      void* x1, void* r1, void* d1, float c1, float c2,
-                     const Stencil& s, int run, int groups,
-                     cudaStream_t stream) {
+                     const Stencil& s, int run, cudaStream_t stream) {
   const dim3 grid(((s.Y + 2) * (s.Z + 2) + run - 1) / run, s.X + 2);
-  mg_cheb_run_kernel<T, FINAL><<<grid, groups * run, 0, stream>>>(
+  mg_cheb_run_kernel<T, FINAL><<<grid, s.nc * run, 0, stream>>>(
       (const T*)x, (const T*)r, (const T*)d, (const T*)fd, (const float*)sc,
-      (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s, run, groups);
+      (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s, run);
 }
 
 // B4: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
-// sides and class_start the table with the grid's offsets; run and groups
-// as the host planned them (kernels/stencil.py slab_plan)
+// sides and class_start the table with the grid's offsets; run as the
+// host planned it (kernels/stencil.py slab_plan)
 extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
                            const void* r, const void* d, const void* fd,
                            const void* sc, const void* r2, void* x1,
                            void* r1, void* d1, float c1, float c2,
                            const void* sides, const void* class_start,
-                           int run, int groups, int nc, int X, int Y, int Z,
+                           int run, int nc, int X, int Y, int Z,
                            float E, float kG, float G2, void* stream) {
-  if ((dtype != 0 && dtype != 1)
-      || !slab_plan_ok(run, groups, nc, B4_MAX_THREADS))
+  if ((dtype != 0 && dtype != 1) || !slab_plan_ok(run, nc))
     return (int)cudaErrorInvalidValue;
   const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
   cudaStream_t st_ = (cudaStream_t)stream;
   typedef __nv_bfloat16 bf;
   if (dtype == 0 && final_)
     cheb_run<float, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                          groups, st_);
+                          st_);
   else if (dtype == 0)
     cheb_run<float, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                           groups, st_);
+                           st_);
   else if (final_)
-    cheb_run<bf, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                       groups, st_);
+    cheb_run<bf, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run, st_);
   else
-    cheb_run<bf, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                        groups, st_);
+    cheb_run<bf, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run, st_);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool FINAL>
-static int cheb_run_occupancy(int run, int groups) {
+static int cheb_run_occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, mg_cheb_run_kernel<T, FINAL>, groups * run, 0);
+      &n, mg_cheb_run_kernel<T, FINAL>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// blocks of B4 of groups * run threads that one SM holds at once on the
+// blocks of B4 of `threads` threads that one SM holds at once on the
 // current device; a negative value is -cudaError
-extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int run,
-                                     int groups) {
+extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int threads) {
   typedef __nv_bfloat16 bf;
   if (dtype == 0)
-    return final_ ? cheb_run_occupancy<float, true>(run, groups)
-                  : cheb_run_occupancy<float, false>(run, groups);
+    return final_ ? cheb_run_occupancy<float, true>(threads)
+                  : cheb_run_occupancy<float, false>(threads);
   if (dtype == 1)
-    return final_ ? cheb_run_occupancy<bf, true>(run, groups)
-                  : cheb_run_occupancy<bf, false>(run, groups);
+    return final_ ? cheb_run_occupancy<bf, true>(threads)
+                  : cheb_run_occupancy<bf, false>(threads);
   return -(int)cudaErrorInvalidValue;
 }
 

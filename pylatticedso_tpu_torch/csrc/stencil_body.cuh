@@ -18,7 +18,11 @@
 // stencil_acc is its float instance, which B3 and B5 use; slab_acc (below)
 // the form B1, B2 and B4 use, on a table with the grid's offsets; side_acc
 // is the per-side arithmetic of all of them, which B5 also calls on values
-// it keeps in registers and distributed shared memory.  Sides are summed
+// it keeps in registers and distributed shared memory.  The two bodies
+// differ only in how they form addresses: stencil_acc_t, interior() and
+// the plain-offset table stay only until B3, B5's x0 residual and the
+// r^2-cotangent move onto slab_acc and the grid-offset table (ROADMAP.md
+// queue B), and then go.  Sides are summed
 // in table order (class_start[c] .. class_start[c + 1]) in registers: no
 // atomics, bitwise-equal repeats.
 
@@ -162,23 +166,25 @@ __device__ __forceinline__ bool interior(long long q, int X, int Y, int Z) {
 // ------------------------------------------------------------------ slabs
 // B1 (stencil_matvec.cu) and B4 (mg_fused.cu) run one block per slab: a
 // run of `run` consecutive points of one padded x-plane, in the plane's
-// flat (y, z) order, for every class.  Thread t computes point t % run of
-// the slab for the classes t / run, t / run + groups, ... (the host's
-// rule gives each class of a point its own thread, groups = nc,
-// kernels/stencil.py slab_plan).  Consecutive threads then read
-// consecutive addresses for every operand, ghost columns included, and a
-// block's classes share their neighbours in L1.  The side table the slab
-// kernels read holds offsets for the launch's grid (the host writes them,
-// StencilMatvec.tables): du = co * 6 * Fp + du is the other endpoint's
-// first row from the output point, dr = ei * Fp + dr the side's r^2 from
-// the point's own r^2 position, so each operand is one add and one load;
-// the records are 16-byte aligned and load as four (seven) 16-byte words,
-// the same address in every thread of a warp.  Index arithmetic is
-// 32-bit (the host refuses a grid whose rows pass 2^31 points).  A side's
-// shift reaches at most SLAB_HALO points per axis, the ghost padding (the
-// host refuses a template that reaches farther).
+// flat (y, z) order, for every class, one thread per (class, point):
+// thread t computes point t % run of the slab for class t / run, so a
+// block holds nc * run threads.  The host picks run, the largest power of
+// two with nc * run <= SLAB_THREADS (kernels/stencil.py slab_plan), and
+// refuses a template of more than SLAB_THREADS classes.  Consecutive
+// threads then read consecutive addresses for every operand, ghost
+// columns included, and a block's classes share their neighbours in L1.
+// The side table the slab kernels read holds offsets for the launch's
+// grid (the host writes them, StencilMatvec.tables): du = co * 6 * Fp +
+// du is the other endpoint's first row from the output point, dr = ei *
+// Fp + dr the side's r^2 from the point's own r^2 position, so each
+// operand is one add and one load; the records are 16-byte aligned and
+// load as four (seven) 16-byte words, the same address in every thread of
+// a warp.  Index arithmetic is 32-bit (the host refuses a grid whose rows
+// pass 2^31 points).  A side's shift reaches at most SLAB_HALO points per
+// axis, the ghost padding (the host refuses a template that reaches
+// farther).
 #define SLAB_HALO 1
-#define SLAB_MAX_RUN 256
+#define SLAB_THREADS 128
 
 // K.u at the padded point q (flat in the padded field, row stride Fp) of
 // class c: self values at u + q, a side's other endpoint at u + q + du
@@ -203,10 +209,9 @@ __device__ __forceinline__ void slab_acc(
   }
 }
 
-// a slab plan the kernels can run: a run of at most SLAB_MAX_RUN points,
-// a power of two, every class covered, threads within the kernel's limit
-__host__ inline bool slab_plan_ok(int run, int groups, int nc,
-                                  int max_threads) {
-  return run >= 1 && run <= SLAB_MAX_RUN && (run & (run - 1)) == 0
-      && groups >= 1 && groups <= nc && groups * run <= max_threads;
+// a slab plan the kernels can run: a run of a power of two of points,
+// every class of a point its own thread, at most SLAB_THREADS threads
+__host__ inline bool slab_plan_ok(int run, int nc) {
+  return run >= 1 && (run & (run - 1)) == 0 && nc >= 1
+      && nc * run <= SLAB_THREADS;
 }

@@ -48,10 +48,10 @@
 //
 // Threads: one block per slab (stencil_body.cuh): a run of consecutive
 // points of one padded x-plane, every class, one thread per (class,
-// point) by the host's rule.  Each thread keeps its own 6 u values and 6
-// sums in registers and loops over its class's sides in table order.  No
-// atomics and a fixed summation order: repeated runs are bitwise equal,
-// whatever the slab.
+// point): runs of 32 points for Octet's 4 classes, 128 threads a block.
+// Each thread keeps its own 6 u values and 6 sums in registers and loops
+// over its class's sides in table order.  No atomics and a fixed
+// summation order: repeated runs are bitwise equal.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 without tensor cores),
 // 50^3 Octet (nc = 4, 48 sides, F = 53^3 = 148,877 padded points,
@@ -66,41 +66,35 @@
 // reads contiguous and shares a block's neighbours across its classes in
 // L1; the layouts measured against it and dropped were a shared-memory
 // tile of u per 3-D brick of output points (its staging and halo cost
-// more than the L1 re-reads it saves, at 1.2-1.5x the slab's time) and
+// more than the L1 re-reads it saves, at 1.2-1.7x the slab's time) and
 // 3-D brick blocks reading global memory (warps spanning two z-lines,
-// 1.1-1.2x in float and bfloat16, within 5% in double).
+// 1.1-1.2x in float and bfloat16; in double faster than a slab build
+// whose threads looped over classes, but ~1.1x this one, PERF.md).
 
 #include "stencil_body.cuh"
 
-// most threads of a B1 block: 1024 in float (<= 64 registers a thread),
-// 512 in double
-template <typename C>
-constexpr int b1_max_threads() { return sizeof(C) == 8 ? 512 : 1024; }
-
 // One block per slab (stencil_body.cuh): blockIdx.y is the interior plane
-// x, blockIdx.x the run of the padded plane's flat (y, z) points; threads
-// on ghost columns idle.  `sides` holds the grid's offsets (du, dr).
+// x, blockIdx.x the run of the padded plane's flat (y, z) points, thread
+// t point t % run for class t / run; threads on ghost columns idle.
+// `sides` holds the grid's offsets (du, dr).
 template <typename T, typename C, typename SideT>
-__global__ void __launch_bounds__(b1_max_threads<C>())
+__global__ void __launch_bounds__(SLAB_THREADS)
 stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
                       T* __restrict__ out, const SideT* __restrict__ sides,
                       const int* __restrict__ class_start, int run,
-                      int groups, int nc, int X, int Y, int Z,
-                      C E, C kG, C G2) {
+                      int X, int Y, int Z, C E, C kG, C G2) {
   const int Yp = Y + 2, Zp = Z + 2, Fp = (X + 2) * Yp * Zp;
-  const int g = threadIdx.x / run;
-  const int f = blockIdx.x * run + (threadIdx.x - g * run);
+  const int c = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - c * run);
   const int x = blockIdx.y, y = f / Zp - 1, z = f - (y + 1) * Zp - 1;
   if (y < 0 || y >= Y || z < 0 || z >= Z) return;
   const int q = (x + 1) * Yp * Zp + f;
   const int N = X * Y * Z, pt = (x * Y + y) * Z + z;
-  for (int c = g; c < nc; c += groups) {
-    C acc[6] = {0, 0, 0, 0, 0, 0};
-    slab_acc<C, SideT>(up, Fp, q, r2p + q, c, sides, class_start[c],
-                       class_start[c + 1], E, kG, G2, acc);
+  C acc[6] = {0, 0, 0, 0, 0, 0};
+  slab_acc<C, SideT>(up, Fp, q, r2p + q, c, sides, class_start[c],
+                     class_start[c + 1], E, kG, G2, acc);
 #pragma unroll
-    for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
-  }
+  for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
 }
 
 // r^2-derivative of one side's contribution g(q) . F_side at output
@@ -202,51 +196,46 @@ static int launch_vjp(const void* up, const void* gp, const void* r2p,
 template <typename T, typename C, typename SideT>
 static int launch(const void* up, const void* r2p, void* out,
                   const void* sides, const void* class_start, int run,
-                  int groups, int nc, int X, int Y, int Z, C E, C kG, C G2,
+                  int nc, int X, int Y, int Z, C E, C kG, C G2,
                   void* stream) {
-  if (!slab_plan_ok(run, groups, nc, b1_max_threads<C>()))
-    return (int)cudaErrorInvalidValue;
+  if (!slab_plan_ok(run, nc)) return (int)cudaErrorInvalidValue;
   const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X);
-  stencil_matvec_kernel<T, C, SideT><<<grid, groups * run, 0,
+  stencil_matvec_kernel<T, C, SideT><<<grid, nc * run, 0,
                                        (cudaStream_t)stream>>>(
       (const T*)up, (const T*)r2p, (T*)out, (const SideT*)sides,
-      (const int*)class_start, run, groups, nc, X, Y, Z, E, kG, G2);
+      (const int*)class_start, run, X, Y, Z, E, kG, G2);
   return (int)cudaGetLastError();
 }
 
 // B1 and B2: u and r^2 ghost-padded [nc, 6, Xp, Yp, Zp] and [n_e, Xp, Yp,
 // Zp] in the storage type, out [nc, 6, X, Y, Z]; sides and class_start the
 // table with the grid's offsets (Side, or SideD for the float64
-// instance); run and groups as the host planned them (kernels/stencil.py
-// slab_plan)
+// instance); run as the host planned it (kernels/stencil.py slab_plan)
 extern "C" int stencil_matvec_f32(const void* up, const void* r2p, void* out,
                                   const void* sides, const void* class_start,
-                                  int run, int groups, int nc, int X, int Y,
-                                  int Z, float E, float kG, float G2,
-                                  void* stream) {
+                                  int run, int nc, int X, int Y, int Z,
+                                  float E, float kG, float G2, void* stream) {
   return launch<float, float, Side>(up, r2p, out, sides, class_start, run,
-                                    groups, nc, X, Y, Z, E, kG, G2, stream);
+                                    nc, X, Y, Z, E, kG, G2, stream);
 }
 
 extern "C" int stencil_matvec_bf16(const void* up, const void* r2p,
                                    void* out, const void* sides,
-                                   const void* class_start, int run,
-                                   int groups, int nc, int X, int Y, int Z,
-                                   float E, float kG, float G2,
-                                   void* stream) {
+                                   const void* class_start, int run, int nc,
+                                   int X, int Y, int Z, float E, float kG,
+                                   float G2, void* stream) {
   return launch<__nv_bfloat16, float, Side>(up, r2p, out, sides, class_start,
-                                            run, groups, nc, X, Y, Z, E, kG,
-                                            G2, stream);
+                                            run, nc, X, Y, Z, E, kG, G2,
+                                            stream);
 }
 
 extern "C" int stencil_matvec_f64(const void* up, const void* r2p, void* out,
                                   const void* sides, const void* class_start,
-                                  int run, int groups, int nc, int X, int Y,
-                                  int Z, double E, double kG, double G2,
+                                  int run, int nc, int X, int Y, int Z,
+                                  double E, double kG, double G2,
                                   void* stream) {
   return launch<double, double, SideD>(up, r2p, out, sides, class_start, run,
-                                       groups, nc, X, Y, Z, E, kG, G2,
-                                       stream);
+                                       nc, X, Y, Z, E, kG, G2, stream);
 }
 
 extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
@@ -269,19 +258,19 @@ extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
 }
 
 template <typename T, typename C, typename SideT>
-static int occupancy(int run, int groups) {
+static int occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, stencil_matvec_kernel<T, C, SideT>, groups * run, 0);
+      &n, stencil_matvec_kernel<T, C, SideT>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) of groups * run
-// threads that one SM holds at once on the current device; a negative
-// value is -cudaError
-extern "C" int stencil_matvec_occupancy(int dtype, int run, int groups) {
-  if (dtype == 0) return occupancy<float, float, Side>(run, groups);
-  if (dtype == 1) return occupancy<__nv_bfloat16, float, Side>(run, groups);
-  if (dtype == 2) return occupancy<double, double, SideD>(run, groups);
+// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) of `threads` threads
+// that one SM holds at once on the current device; a negative value is
+// -cudaError
+extern "C" int stencil_matvec_occupancy(int dtype, int threads) {
+  if (dtype == 0) return occupancy<float, float, Side>(threads);
+  if (dtype == 1) return occupancy<__nv_bfloat16, float, Side>(threads);
+  if (dtype == 2) return occupancy<double, double, SideD>(threads);
   return -(int)cudaErrorInvalidValue;
 }

@@ -48,8 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from . import launch
-from .stencil import (FLOPS_PER_SIDE, SIDE_DTYPE, SLAB_MAX_THREADS,
-                      StencilMatvec, edge_sides)
+from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 
 __all__ = ["FusedSmoother", "route", "has_kernel_matvec", "cheb_static",
            "storage_dtype", "check_compute", "KERNELS", "b5_plan",
@@ -486,42 +485,36 @@ class FusedSmoother:
         return out
 
     def b4_plan(self, io: torch.dtype, final: bool,
-                run: Optional[int] = None, groups: Optional[int] = None,
                 device: Optional[int] = None) -> Dict:
         """B4's slab plan on this level (``StencilMatvec.slab_plan`` over
         the padded planes); on a card its blocks per SM come from B4's own
         query (each variant's registers differ)."""
         dtype = int(io == torch.bfloat16)
         occ = lambda p: launch.functions("mg_fused")["mg_cheb_run_occupancy"](
-            dtype, int(final), p["run"], p["groups"])
-        return self.mv.slab_plan(io, run, groups, device,
+            dtype, int(final), p["threads"])
+        return self.mv.slab_plan(io, device,
                                  kernel=f"B4{' final' if final else ''}",
-                                 occupancy=occ,
-                                 max_threads=SLAB_MAX_THREADS["B4"])
+                                 occupancy=occ)
 
-    def _static_b4(self, index: int, io: torch.dtype, final: bool,
-                   run: Optional[int], groups: Optional[int]) -> tuple:
+    def _static_b4(self, index: int, io: torch.dtype, final: bool) -> tuple:
         """B4's launch arguments that never change on device ``index``:
-        the side table with the grid's offsets, class_start, its plan,
-        grid and material constants."""
-        key = ("B4", index, io, final, run, groups)
+        the side table with the grid's offsets, class_start, its plan's
+        run, grid and material constants."""
+        key = ("B4", index, io, final)
         args = self._dev.get(key)
         if args is None:
             sides, class_start = self.mv.tables(torch.device("cuda", index),
                                                 grid_offsets=True)
-            p = self.b4_plan(io, final, run, groups, index)
+            p = self.b4_plan(io, final, index)
             args = (sides.data_ptr(), class_start.data_ptr(), p["run"],
-                    p["groups"], self.nc, *self.grid, *self.mv.consts)
+                    self.nc, *self.grid, *self.mv.consts)
             self._dev[key] = args
         return args
 
     def cheb_run(self, x, r, d, fd, sc, r2, c1: float, c2: float,
-                 final: bool, run: Optional[int] = None,
-                 groups: Optional[int] = None):
+                 final: bool):
         """B4: one Chebyshev step; (x1, r1, d1), or x1 + d1 when
-        ``final``.  ``run`` and ``groups`` force a slab plan over the
-        rule's (the card tests run several: the same bits whatever the
-        slab)."""
+        ``final``."""
         if not x.is_cuda:
             self._cpu_only(x)
             return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final)
@@ -536,7 +529,7 @@ class FusedSmoother:
             r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
             r2.data_ptr(), x1.data_ptr(), None if final else r1.data_ptr(),
             None if final else d1.data_ptr(), c1, c2,
-            *self._static_b4(dev, io, final, run, groups),
+            *self._static_b4(dev, io, final),
             launch.stream(dev))
         launch.check("mg_cheb_run", rc)
         self.launches["cheb_run"] += 1

@@ -26,17 +26,17 @@ __all__ = ["SIGNATURES", "functions", "stream", "check"]
 
 SIGNATURES: Dict[str, Dict[str, str]] = {
     "stencil_matvec": {
-        "stencil_matvec_f32": "pppppiiiiiifffp",
-        "stencil_matvec_bf16": "pppppiiiiiifffp",
-        "stencil_matvec_f64": "pppppiiiiiidddp",
-        "stencil_matvec_occupancy": "iii",
+        "stencil_matvec_f32": "pppppiiiiifffp",
+        "stencil_matvec_bf16": "pppppiiiiifffp",
+        "stencil_matvec_f64": "pppppiiiiidddp",
+        "stencil_matvec_occupancy": "ii",
         "stencil_vjp_r2_f32": "ppppppiiiifffp",
         "stencil_vjp_r2_f64": "ppppppiiiidddp",
     },
     "mg_fused": {
         "mg_residual": "ipppppppiiiifffp",
-        "mg_cheb_run": "iipppppppppffppiiiiiifffp",
-        "mg_cheb_run_occupancy": "iiii",
+        "mg_cheb_run": "iipppppppppffppiiiiifffp",
+        "mg_cheb_run_occupancy": "iii",
         "mg_cheb_full": "iii" + "p" * 10 + "i" * 10 + "ppiiiifffp",
         "mg_cheb_full_max_clusters": "iiiiii",
     },

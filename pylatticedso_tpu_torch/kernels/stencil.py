@@ -116,18 +116,15 @@ def side_table(slat, dtype=SIDE_DTYPE) -> Tuple[np.ndarray, np.ndarray]:
 
 # ------------------------------------------------------------ slab plan
 # B1 and B4 run one block per slab: a run of consecutive points of one
-# padded x-plane in its flat (y, z) order, for every class
-# (csrc/stencil_body.cuh, "slabs").  The plan is made here, on the host;
-# the kernels take it as it is and refuse a plan outside their limits.
+# padded x-plane in its flat (y, z) order, every class, one thread per
+# (class, point) (csrc/stencil_body.cuh, "slabs").  The plan is made
+# here, on the host; the kernels take it as it is and refuse a plan
+# outside their limits.
 SLAB_HALO = 1                   # csrc's SLAB_HALO: the ghost padding
-SLAB_MAX_RUN = 256              # csrc's SLAB_MAX_RUN
-# the rule's block: each class of a point its own thread, nc * run threads
+# csrc's SLAB_THREADS: the most threads of a block, and the rule's block
 # (Octet: runs of 32 points, the fastest or within 5% of it for every
-# kernel at 50^3 on an H100, scripts/slab_runs.py)
+# kernel at 50^3 on an H100, PERF.md)
 SLAB_THREADS = 128
-# most threads of a block: csrc's b1_max_threads (float, double) and
-# B4_MAX_THREADS
-SLAB_MAX_THREADS = {"B1": 1024, "B1 f64": 512, "B4": 512}
 
 
 def stencil_reach(slat) -> Tuple[int, int, int]:
@@ -138,35 +135,27 @@ def stencil_reach(slat) -> Tuple[int, int, int]:
                  for a in range(3))
 
 
-def slab_plan(nc: int, reach, run: Optional[int] = None,
-              groups: Optional[int] = None,
-              max_threads: int = SLAB_MAX_THREADS["B1"]) -> Dict:
+def slab_plan(nc: int, reach) -> Dict:
     """The slab kernels' plan for a template of ``nc`` classes whose sides
-    reach ``reach`` points per axis: by the rule, runs of the largest
-    power of two of points with nc * run <= SLAB_THREADS, and ``groups``
-    = nc threads per point (``run`` and ``groups`` force theirs).  A side
-    reads at most SLAB_HALO points away, the ghost padding.  Raises
-    ValueError for a template that reaches farther, or a plan beyond the
-    kernel's limits (``max_threads``)."""
+    reach ``reach`` points per axis: runs of the largest power of two of
+    points with nc * run <= SLAB_THREADS, one thread per (class, point).
+    A side reads at most SLAB_HALO points away, the ghost padding.  Raises
+    ValueError for a template that reaches farther or has more classes
+    than a block holds threads."""
     reach = tuple(int(r) for r in reach)
     if any(r > SLAB_HALO for r in reach):
         raise ValueError(f"slab plan: the stencil reaches {reach} points "
                          f"per axis, beyond the ghost padding of "
                          f"{SLAB_HALO} the kernels read within")
-    if run is None:
-        run = 1
-        while 2 * run <= SLAB_MAX_RUN and nc * 2 * run <= SLAB_THREADS:
-            run *= 2
-    if groups is None:
-        groups = min(nc, max(1, max_threads // run))
-    if run < 1 or run > SLAB_MAX_RUN or run & (run - 1) \
-            or not 1 <= groups <= nc or groups * run > max_threads:
-        raise ValueError(f"slab plan: {groups} threads per point for runs "
-                         f"of {run} points: runs must be powers of two up "
-                         f"to {SLAB_MAX_RUN}, at most {nc} threads per "
-                         f"point and {max_threads} a block")
-    return {"run": run, "groups": groups, "threads": groups * run,
-            "halo": (SLAB_HALO,) * 3, "reach": reach}
+    if not 1 <= nc <= SLAB_THREADS:
+        raise ValueError(f"slab plan: {nc} classes; a slab block holds one "
+                         f"thread per class and point, at most "
+                         f"{SLAB_THREADS}")
+    run = 1
+    while nc * 2 * run <= SLAB_THREADS:
+        run *= 2
+    return {"run": run, "threads": nc * run, "halo": (SLAB_HALO,) * 3,
+            "reach": reach}
 
 
 class _B1(torch.autograd.Function):
@@ -227,8 +216,8 @@ class StencilMatvec:
             [[row[2 * e], row[2 * e + 1], recs[2 * e]["cs"],
               recs[2 * e + 1]["cs"]] for e in range(self.n_e)], np.int32)
         self.reach = stencil_reach(slat)
-        # the slab plans (per kernel, storage dtype, forced run and groups,
-        # and device where the card was asked), for launches and reports
+        # the slab plans (per kernel, storage dtype and device where the
+        # card was asked), for launches and reports
         self.slab_plans: Dict[tuple, Dict] = {}
         self._dev: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._static_args: Dict[tuple, tuple] = {}
@@ -366,17 +355,15 @@ class StencilMatvec:
                               torch.from_numpy(index.reshape(-1)).to(device))
         return self._dev[key]
 
-    def slab_plan(self, io: torch.dtype, run: Optional[int] = None,
-                  groups: Optional[int] = None,
-                  device: Optional[int] = None, kernel: str = "B1",
-                  occupancy: Optional[Callable[[Dict], int]] = None,
-                  max_threads: Optional[int] = None) -> Dict:
+    def slab_plan(self, io: torch.dtype, device: Optional[int] = None,
+                  kernel: str = "B1",
+                  occupancy: Optional[Callable[[Dict], int]] = None) -> Dict:
         """The slab plan (``slab_plan``) of this template for storage
         ``io``.  On a card (``device``) the plan is asked of the card once
         (plans are cached): ``occupancy(plan)`` (B1's own query by default)
         gives the blocks one SM holds, kept as ``blocks_per_sm``, and a
         plan the card cannot run raises."""
-        key = (kernel, io, run, groups, device)
+        key = (kernel, io, device)
         plan = self.slab_plans.get(key)
         if plan is not None:
             return plan
@@ -386,16 +373,13 @@ class StencilMatvec:
             raise ValueError(f"the slab kernels index in 32 bits: grid "
                              f"{self.grid} x {self.nc * 6} rows is too "
                              f"large")
-        f64 = io == torch.float64
-        if max_threads is None:
-            max_threads = SLAB_MAX_THREADS["B1 f64" if f64 else "B1"]
-        plan = slab_plan(self.nc, self.reach, run, groups, max_threads)
+        plan = slab_plan(self.nc, self.reach)
         if device is not None:
             if occupancy is None:
                 dtype = {torch.float32: 0, torch.bfloat16: 1,
                          torch.float64: 2}[io]
                 occupancy = lambda p: launch.functions("stencil_matvec")[
-                    "stencil_matvec_occupancy"](dtype, p["run"], p["groups"])
+                    "stencil_matvec_occupancy"](dtype, p["threads"])
             n = occupancy(plan)
             if n < 0:
                 raise RuntimeError(f"{kernel} occupancy query failed: "
@@ -407,14 +391,12 @@ class StencilMatvec:
         self.slab_plans[key] = plan
         return plan
 
-    def _static(self, index: int, io: torch.dtype, vjp: bool,
-                run: Optional[int] = None,
-                groups: Optional[int] = None) -> tuple:
+    def _static(self, index: int, io: torch.dtype, vjp: bool) -> tuple:
         """The launch arguments that never change on device ``index`` for
         storage ``io``: the tables (``tables``; B1 takes the grid's
-        offsets and its slab plan), the count (classes, or edges for the
-        r^2-cotangent kernel), grid and constants."""
-        key = (index, io, vjp, run, groups)
+        offsets and its slab plan's run), the count (classes, or edges for
+        the r^2-cotangent kernel), grid and constants."""
+        key = (index, io, vjp)
         args = self._static_args.get(key)
         if args is None:
             dev = torch.device("cuda", index)
@@ -424,19 +406,15 @@ class StencilMatvec:
                 args = (table.data_ptr(), index_.data_ptr(), self.n_e,
                         *self.grid, *self.consts)
             else:
-                p = self.slab_plan(io, run, groups, index)
+                p = self.slab_plan(io, index)
                 args = (table.data_ptr(), index_.data_ptr(), p["run"],
-                        p["groups"], self.nc, *self.grid, *self.consts)
+                        self.nc, *self.grid, *self.consts)
             self._static_args[key] = args
         return args
 
-    def launch(self, up: torch.Tensor, r2p: torch.Tensor,
-               run: Optional[int] = None,
-               groups: Optional[int] = None) -> torch.Tensor:
+    def launch(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
         """Run B1 (float32 or float64 u and r^2) or B2 (bfloat16 u and r^2)
-        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]; ``run`` and
-        ``groups`` force a slab plan over the rule's (the card tests run
-        several: the result is the same bits whatever the slab)."""
+        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]."""
         X, Y, Z = self.grid
         if not up.is_cuda or r2p.get_device() != up.get_device():
             raise ValueError(f"B1/B2 need u and r^2 on one CUDA device, got "
@@ -457,7 +435,7 @@ class StencilMatvec:
         out = torch.empty((self.nc, 6, X, Y, Z), dtype=io, device=up.device)
         rc = launch.functions("stencil_matvec")[name](
             up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
-            *self._static(dev, io, False, run, groups), launch.stream(dev))
+            *self._static(dev, io, False), launch.stream(dev))
         launch.check(name, rc)
         if lo:
             self.launches_lo += 1

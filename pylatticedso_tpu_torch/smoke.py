@@ -249,19 +249,19 @@ def _index(device: torch.device) -> Optional[int]:
 
 
 def _plan_rec(plan: Dict) -> Dict:
-    """A slab plan as the report keeps it: run, threads per point and per
-    block, blocks one SM holds (asked of the card; None off it), halo and
-    dynamic shared memory (none: the slab kernels read through L1)."""
-    return {"run": plan["run"], "groups": plan["groups"],
-            "threads": plan["threads"],
+    """A slab plan as the report keeps it: run, threads per block (one
+    per class and point), blocks one SM holds (asked of the card; None off
+    it), halo and dynamic shared memory (none: the slab kernels read
+    through L1)."""
+    return {"run": plan["run"], "threads": plan["threads"],
             "blocks_per_sm": plan.get("blocks_per_sm"),
             "halo": list(plan["halo"]), "smem_bytes": 0}
 
 
 def _plan_text(plan: Dict) -> str:
     bps = plan["blocks_per_sm"]
-    return (f"slab plan: runs of {plan['run']} points x {plan['groups']} "
-            f"threads per point = {plan['threads']} threads a block, "
+    return (f"slab plan: runs of {plan['run']} points, one thread per "
+            f"class and point = {plan['threads']} threads a block, "
             f"{'not asked' if bps is None else bps} blocks per SM, halo "
             f"{plan['halo']}, {plan['smem_bytes']} bytes of shared memory")
 

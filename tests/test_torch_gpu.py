@@ -338,18 +338,12 @@ def _slab_inputs(name, cells, dtype, seed):
     return ts, tm, diag, u, r, tm.prepare(r)
 
 
-def _every_slab(run, nc):
-    """``run(run=r, groups=g)`` for slabs of several runs and threads per
-    point: the same bits as the rule's plan."""
+def _repeat(run):
+    """``run()`` twice: the same bits both times."""
     want = run()
-    for r in (8, 32, 128, 256):
-        for g in sorted({1, max(1, nc // 2), nc}):
-            if g * r > 512:
-                continue            # past the double and B4 block limits
-            got = run(run=r, groups=g)
-            got, ref = (got, want) if isinstance(got, tuple) \
-                else ((got,), (want,))
-            assert all(torch.equal(a, b) for a, b in zip(got, ref)), (r, g)
+    got = run()
+    got, ref = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
     return want
 
 
@@ -363,22 +357,20 @@ SLAB_CASES = [("octet", (c,) * 3) for c in smoke.level_cells(50)] \
 def test_slab_b1_b2_match_plain_on_card(name, cells):
     """B1 (float32, float64) and B2 against their plain versions on grids
     no slab divides, every 50^3 level and the 16-class hybrid; bitwise on
-    repeat and under other slab plans."""
+    repeat."""
     _need_card()
     pad = lambda a: torch.nn.functional.pad(a, (1,) * 6)
     for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         ts, tm, _, u, _, aux = _slab_inputs(name, cells, dtype, sum(cells))
         B = tm.apply
         up = pad(u)
-        y = _every_slab(lambda **kw: B.launch(up, aux, **kw), ts.nc)
-        assert torch.equal(y, B.launch(up, aux))
+        y = _repeat(lambda: B.launch(up, aux))
         want = tm.apply_gather(u, aux)
         err = float((y - want).abs().max() / want.abs().max())
         assert err <= tol, (dtype, err)
         if dtype == torch.float32:
             u16, a16 = u.to(torch.bfloat16), aux.to(torch.bfloat16)
-            y16 = _every_slab(lambda **kw: B.launch(pad(u16), a16, **kw),
-                              ts.nc)
+            y16 = _repeat(lambda: B.launch(pad(u16), a16))
             want16 = B.plain_lo(u16, a16).float()
             err = float((y16.float() - want16).abs().max()
                         / want16.abs().max())
@@ -392,8 +384,7 @@ def test_slab_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
                                                         monkeypatch):
     """B4 (float32 and bf16 storage, a step and the final emit) against
     its plain version; its outputs start from NaN-filled ``torch.empty``
-    and every ghost point comes back zero; bitwise on repeat and under
-    other slab plans."""
+    and every ghost point comes back zero; bitwise on repeat."""
     _need_card()
     from pylatticedso_tpu_torch.kernels.fused import cheb_static
     ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,
@@ -413,8 +404,8 @@ def test_slab_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
         for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
             with monkeypatch.context() as m:
                 m.setattr(torch, "empty_like", nan_empty)
-                got = _every_slab(lambda **kw: fz.cheb_run(
-                    x, rr, d, fd, sc, r2, c1, c2, final, **kw), ts.nc)
+                got = _repeat(lambda: fz.cheb_run(
+                    x, rr, d, fd, sc, r2, c1, c2, final))
             got = got if isinstance(got, tuple) else (got,)
             want = fz.plain_cheb_run(x, rr, d, fd, sc, r2, c1, c2, final)
             want = want if isinstance(want, tuple) else (want,)

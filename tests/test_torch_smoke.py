@@ -36,8 +36,7 @@ def test_phases_rehearse_on_cpu():
     assert len(slab) == 3 + 2 + 4 + 4 * 2 * 2      # four grids of B2, B4
     for c in slab:
         p = c["plan"]
-        assert (p["run"], p["groups"]) == (
-            (8, 16) if c["case"].startswith("BCC+") else (32, 4))
+        assert p["run"] == (8 if c["case"].startswith("BCC+") else 32)
         assert p["threads"] == 128 and p["smem_bytes"] == 0
         assert p["blocks_per_sm"] is None and p["halo"] == [1, 1, 1]
         assert "before_ms" not in c and c["device_ms"] is None  # no card

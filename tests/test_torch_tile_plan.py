@@ -18,8 +18,8 @@ import torch
 
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.stencil import (
-    SIDE_DTYPE_F64, SLAB_HALO, SLAB_MAX_RUN, SLAB_MAX_THREADS, SLAB_THREADS,
-    edge_sides, side_table, slab_plan, stencil_reach)
+    SIDE_DTYPE_F64, SLAB_HALO, SLAB_THREADS, edge_sides, side_table,
+    slab_plan, stencil_reach)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
@@ -47,13 +47,13 @@ def _blocks(plan, grid, padded):
 
 def _points(plan, grid, padded):
     """Per (block, thread) of a launch, as the kernels map them: the
-    padded point (x, y, z), the thread's group, and whether it computes
+    padded point (x, y, z), the thread's class, and whether it computes
     (B1: an interior point; B4: any padded point, ghosts written zero)."""
     X, Y, Z = grid
     Yp, Zp = Y + 2, Z + 2
     runs, planes = _blocks(plan, grid, padded)
     t = np.arange(plan["threads"])
-    g, r = t // plan["run"], t % plan["run"]
+    c, r = t // plan["run"], t % plan["run"]
     bx, by = np.meshgrid(np.arange(runs), np.arange(planes), indexing="ij")
     bx, by = bx.reshape(-1, 1), by.reshape(-1, 1)
     f = bx * plan["run"] + r                    # flat (y, z) of the plane
@@ -64,41 +64,45 @@ def _points(plan, grid, padded):
         live = inside
     else:
         live = inside & (y >= 1) & (y <= Y) & (z >= 1) & (z <= Z)
-    return (x + 0 * f, y, z), g + 0 * f, live
+    return (x + 0 * f, y, z), c + 0 * f, live
 
 
 def _cover(plan, grid, nc, padded):
     """How many times the launch computes each (class, padded point)."""
-    (x, y, z), g, live = _points(plan, grid, padded)
+    (x, y, z), c, live = _points(plan, grid, padded)
+    assert c.max() == nc - 1                    # every thread has a class
     count = np.zeros((nc,) + tuple(e + 2 for e in grid), np.int64)
-    for k in range(-(-nc // plan["groups"])):
-        c = g + k * plan["groups"]
-        m = live & (c < nc)
-        np.add.at(count, (c[m], x[m], y[m], z[m]), 1)
+    np.add.at(count, (c[live], x[live], y[live], z[live]), 1)
     return count
+
+
+def _assert_cover(plan, nc):
+    for cells in CELLS:
+        grid = tuple(c + 1 for c in cells)
+        inner = np.zeros((nc,) + tuple(e + 2 for e in grid), np.int64)
+        inner[:, 1:-1, 1:-1, 1:-1] = 1
+        assert np.array_equal(_cover(plan, grid, nc, False), inner), \
+            (cells, plan)
+        assert np.all(_cover(plan, grid, nc, True) == 1), (cells, plan)
 
 
 @pytest.mark.parametrize("name", sorted(GEOMS))
 def test_slabs_cover_every_point_once(name):
     """B1 computes every interior (class, point) once and nothing else; B4
     every padded one once (ghosts written zero); on every level of the
-    50^3 hierarchy and on grids no run divides, under the rule's plan and
-    every forced run and thread count the kernels take."""
+    50^3 hierarchy and on grids no run divides, under the template's
+    plan."""
     sl = _lattice(name)
-    plans = [slab_plan(sl.nc, stencil_reach(sl))]
-    for run in (1, 8, 32, SLAB_MAX_RUN):
-        for groups in sorted({1, max(1, sl.nc // 2), sl.nc}):
-            if groups * run <= SLAB_MAX_THREADS["B1"]:
-                plans.append(slab_plan(sl.nc, (1, 1, 1), run, groups))
-    for cells in CELLS:
-        grid = tuple(c + 1 for c in cells)
-        inner = np.zeros((sl.nc,) + tuple(e + 2 for e in grid), np.int64)
-        inner[:, 1:-1, 1:-1, 1:-1] = 1
-        for plan in plans:
-            assert np.array_equal(_cover(plan, grid, sl.nc, False), inner), \
-                (cells, plan)
-            assert np.all(_cover(plan, grid, sl.nc, True) == 1), \
-                (cells, plan)
+    _assert_cover(slab_plan(sl.nc, stencil_reach(sl)), sl.nc)
+
+
+@pytest.mark.parametrize("nc", [1, 3, 5, 24, SLAB_THREADS])
+def test_slabs_cover_any_class_count(nc):
+    """The rule's plan covers every point once for class counts whose
+    blocks fall short of SLAB_THREADS (3, 5, 24) and at its ends."""
+    plan = slab_plan(nc, (1, 1, 1))
+    assert plan["threads"] <= SLAB_THREADS < 2 * plan["threads"]
+    _assert_cover(plan, nc)
 
 
 @pytest.mark.parametrize("name", sorted(GEOMS))
@@ -147,36 +151,30 @@ def test_reads_stay_in_the_padded_grid(name):
 def test_rule():
     """The rule gives each class of a point its own thread in blocks of
     SLAB_THREADS: runs of 32 points for Octet (4 classes), 64 for BCC, 8
-    for the 16-class hybrid; double's and B4's block limits hold."""
+    for the 16-class hybrid; other class counts take the largest power of
+    two of points that fits."""
     for name, run in (("octet", 32), ("bcc", 64), ("hybrid", 8)):
         sl = _lattice(name)
         plan = slab_plan(sl.nc, stencil_reach(sl))
-        assert (plan["run"], plan["groups"]) == (run, sl.nc)
-        assert plan["threads"] == SLAB_THREADS
+        assert plan["run"] == run
+        assert plan["threads"] == sl.nc * run == SLAB_THREADS
         assert plan["halo"] == (SLAB_HALO,) * 3
-        for limit in SLAB_MAX_THREADS.values():
-            assert plan["threads"] <= limit
-    # a template with more classes than a block holds threads per point:
-    # each thread takes several classes
-    plan = slab_plan(40, (1, 1, 1), max_threads=512)
-    assert plan["run"] == 2 and plan["groups"] == 40
-    plan = slab_plan(600, (1, 1, 1), max_threads=512)
-    assert plan["run"] == 1 and plan["groups"] == 512
+    for nc, run in ((1, 128), (3, 32), (5, 16), (40, 2), (128, 1)):
+        plan = slab_plan(nc, (1, 1, 1))
+        assert (plan["run"], plan["threads"]) == (run, nc * run)
 
 
 def test_refusals():
-    """A reach beyond the ghost padding raises, and so does a plan beyond
-    the kernels' limits; so does the wrapper for a grid beyond 32-bit
-    indexing."""
+    """A reach beyond the ghost padding raises, and so does a template of
+    more classes than a block holds threads; so does the wrapper for a
+    grid beyond 32-bit indexing."""
     with pytest.raises(ValueError, match="reaches"):
         slab_plan(4, (2, 1, 1))
     with pytest.raises(ValueError, match="reaches"):
         slab_plan(4, (1, 1, 3))
-    for run, groups in ((3, 4), (512, 1), (0, 1), (64, 5), (64, 0)):
-        with pytest.raises(ValueError, match="runs must be"):
-            slab_plan(4, (1, 1, 1), run, groups)
-    with pytest.raises(ValueError, match="runs must be"):
-        slab_plan(4, (1, 1, 1), 256, 4, max_threads=512)
+    for nc in (0, SLAB_THREADS + 1, 600):
+        with pytest.raises(ValueError, match="classes"):
+            slab_plan(nc, (1, 1, 1))
     sl = _lattice("octet")
     mv, _ = sl.make_matvec()
     mv.apply.grid = (900, 900, 900)
@@ -185,34 +183,32 @@ def test_refusals():
 
 
 def test_wrapper_plan_is_the_rule():
-    """StencilMatvec.slab_plan is slab_plan of the lattice's template, per
-    storage dtype (double's block limit for float64), and cached."""
+    """StencilMatvec.slab_plan is slab_plan of the lattice's template, the
+    same for every storage dtype, and cached."""
     sl = _lattice("hybrid", (3, 4, 5))
     mv, _ = sl.make_matvec()
     B = mv.apply
-    for io, limit in ((torch.float32, "B1"), (torch.bfloat16, "B1"),
-                      (torch.float64, "B1 f64")):
+    for io in (torch.float32, torch.bfloat16, torch.float64):
         plan = B.slab_plan(io)
-        assert plan == slab_plan(sl.nc, stencil_reach(sl),
-                                 max_threads=SLAB_MAX_THREADS[limit])
+        assert plan == slab_plan(sl.nc, stencil_reach(sl))
         assert B.slab_plan(io) is plan
     assert B.reach == (1, 1, 1)
 
 
 def test_limits_are_the_kernel_source_limits():
     """The host's limits are the ones the kernels are compiled with: the
-    halo, the longest run, B1's block limits (float, double) and B4's."""
+    halo and the block size, which bounds both slab kernels' launches;
+    the launchers check the host's plan against the same rule."""
     body = (CSRC / "stencil_body.cuh").read_text()
     define = lambda text, name: int(
         re.search(rf"#define {name} (\d+)", text).group(1))
     assert define(body, "SLAB_HALO") == SLAB_HALO
-    assert define(body, "SLAB_MAX_RUN") == SLAB_MAX_RUN
-    b1 = (CSRC / "stencil_matvec.cu").read_text()
-    f64, f32 = re.search(r"return sizeof\(C\) == 8 \? (\d+) : (\d+);",
-                         b1).groups()
-    assert (int(f32), int(f64)) == (SLAB_MAX_THREADS["B1"],
-                                    SLAB_MAX_THREADS["B1 f64"])
-    b4 = (CSRC / "mg_fused.cu").read_text()
-    assert define(b4, "B4_MAX_THREADS") == SLAB_MAX_THREADS["B4"]
-    assert SLAB_THREADS <= min(SLAB_MAX_THREADS.values())
+    assert define(body, "SLAB_THREADS") == SLAB_THREADS
+    assert "nc * run <= SLAB_THREADS" in body
+    for src, kernel in (("stencil_matvec.cu", "stencil_matvec_kernel"),
+                        ("mg_fused.cu", "mg_cheb_run_kernel")):
+        text = (CSRC / src).read_text()
+        assert re.search(r"__launch_bounds__\(SLAB_THREADS\)\s*\n"
+                         + kernel + r"\(", text), kernel
+        assert "slab_plan_ok(run, nc)" in text, src
     assert SIDE_DTYPE_F64.itemsize % 16 == 0       # 16-byte records
