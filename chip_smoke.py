@@ -4,7 +4,8 @@
 
 Builds every CUDA kernel of the port with nvcc, holds each against its
 plain torch version on the card (B1 in float32 and float64 and its VJP,
-B2-B5, the probes P1 and P2), then drives the port's main path once at
+the r^2-cotangent kernel at every grid, B2-B5, the probes P1 and P2),
+then drives the port's main path once at
 full width on each of its routes: the 50^3 Octet compliance step with the
 multigrid preconditioner, bench.py's protocol, with the fused bf16 V-cycle
 (bench.py's default), the unfused bf16-I/O smoother (BENCH_MG_FUSED=0) and

@@ -21,12 +21,13 @@
 //
 // Layout: every vector is ghost-padded [nc, 6, Xp, Yp, Zp] (B1's layout,
 // not the TPU kernels' align8 [rows, Fp] flats) and r^2 is
-// [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point) (B4 in
-// B1's slabs, stencil_body.cuh): interior threads run the shared stencil
-// body and update their own 6 values; ghost threads write zeros, so
-// outputs can come from torch.empty and every neighbour read of the next
-// launch sees zero ghosts.  Sides are summed in table order: repeats are
-// bitwise equal.
+// [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point) in
+// B1's slabs (stencil_body.cuh) over the padded planes: interior threads
+// run the shared stencil body (slab_acc) and update their own 6 values;
+// ghost threads write zeros, so outputs can come from torch.empty and
+// every neighbour read of the next launch sees zero ghosts.  Every kernel
+// here reads the one side table, with the grid's offsets.  Sides are
+// summed in table order: repeats are bitwise equal.
 //
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), 50^3 Octet level 0
 // (24 rows, F = 53^3 padded points, N = 51^3 interior, 48 sides), bf16
@@ -42,8 +43,9 @@
 // thread already holds, so they add no pass over memory around the
 // stencil.  Re-reads of d (13 per value) go through L1, as in B1: a
 // shared-memory tile of d per brick measured slower than B4's slabs on an
-// H100 (PERF.md); B3 keeps the flat layout it was ported with, one block
-// per 256 consecutive (class, padded point) items.  B5 spreads the level
+// H100 (PERF.md).  B3's slab launch does two 32-bit divisions a thread,
+// where the flat one-thread-per-item layout it was ported with did four
+// 64-bit ones (PERF.md).  B5 spreads the level
 // over a thread-block cluster (up to 16 SMs) so that each thread owns one
 // to four interior items and keeps their x, r, d and fd in registers; d,
 // the one vector that neighbours read, is exchanged through distributed
@@ -68,33 +70,35 @@ struct Stencil {
   float E, kG, G2;
 };
 
-__device__ __forceinline__ long long padded_points(const Stencil& s) {
-  return (long long)(s.X + 2) * (s.Y + 2) * (s.Z + 2);
-}
-
 // ------------------------------------------------------------------ B3
+// One block per slab of PADDED points, as B4 (below): blockIdx.y is the
+// padded plane, blockIdx.x the run of its flat (y, z) points, thread t
+// point t % run for class t / run.  Interior points run the stencil on x
+// and write fm (b - K x), rounded once to the storage type; ghost points
+// write zeros, so out can come from torch.empty.  `sides` holds the
+// grid's offsets.
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(SLAB_THREADS)
 mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
                    const T* __restrict__ fm, const T* __restrict__ r2,
-                   T* __restrict__ out, Stencil s) {
-  const long long Fp = padded_points(s);
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)s.nc * Fp) return;
-  const int c = (int)(idx / Fp);
-  const long long q = idx - (long long)c * Fp;
-  const long long row0 = (long long)c * 6 * Fp + q;
-  if (!interior(q, s.X, s.Y, s.Z)) {
+                   T* __restrict__ out, Stencil s, int run) {
+  const int Yp = s.Y + 2, Zp = s.Z + 2, Fp = (s.X + 2) * Yp * Zp;
+  const int c = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - c * run);
+  if (f >= Yp * Zp) return;
+  const int px = blockIdx.y, py = f / Zp, pz = f - py * Zp;
+  const int q = px * Yp * Zp + f;
+  if (px < 1 || px > s.X || py < 1 || py > s.Y || pz < 1 || pz > s.Z) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) st(out + row0 + k * Fp, 0.f);
+    for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * Fp + q, 0.f);
     return;
   }
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  stencil_acc(x, r2, Fp, q, c, s.sides, s.class_start[c],
-              s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  slab_acc<float, Side>(x, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
-    const long long o = row0 + k * Fp;
+    const int o = (c * 6 + k) * Fp + q;
     st(out + o, ld(fm + o) * (ld(b + o) - acc[k]));
   }
 }
@@ -216,13 +220,13 @@ __device__ __forceinline__ void b5_stencil(
 #pragma unroll 2
   for (int s = s_begin; s < s_end; ++s) {
     const Side& sd = sides[s];
-    const int base = sd.co * 6 * Fp + q + sd.du;
+    const int base = q + sd.du;
     float uo[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k)
       uo[k] = LAYOUT == B5_GLOBAL ? __ldcg(d + base + k * Fp)
                                   : d[base + k * Fp];
-    const float r2v = ld(r2 + sd.ei * Fp + q + sd.dr);
+    const float r2v = ld(r2 + q + sd.dr);
     side_acc<float, Side>(sd, us, uo, r2v, E, kG, G2, acc);
   }
 }
@@ -298,9 +302,14 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
   }
   // zero ghosts of out (and of d in global scratch): this block's share of
   // the padded points, the one division per point of the launch
+  const int Yp = s.Y + 2, Zp = s.Z + 2;
   for (int i = rank * nthr + tid; i < nc * Fp; i += p.cluster * nthr) {
     const int c = i / Fp, q = i - c * Fp;
-    if (interior(q, s.X, s.Y, s.Z)) continue;
+    const int px = q / (Yp * Zp), f = q - px * (Yp * Zp);
+    const int py = f / Zp, pz = f - py * Zp;
+    if (px >= 1 && px <= s.X && py >= 1 && py <= s.Y && pz >= 1
+        && pz <= s.Z)
+      continue;
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       st(out + (c * 6 + k) * Fp + q, 0.f);
@@ -334,8 +343,8 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
     const int c = cc[j], q = qq[j];
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (WITH_X0)
-      stencil_acc(x0, r2, (long long)Fp, (long long)q, c, sides, cstart[c],
-                  cstart[c + 1], s.E, s.kG, s.G2, acc);
+      slab_acc<float, Side>(x0, Fp, q, r2 + q, c, sides, cstart[c],
+                            cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
     for (int k = 0; k < 6; ++k) {
       const int o = (c * 6 + k) * Fp + q;
@@ -402,31 +411,46 @@ static Stencil make_stencil(const void* sides, const void* class_start,
   return s;
 }
 
-static unsigned blocks_for(const Stencil& s, int threads) {
-  const long long items = (long long)s.nc * (s.X + 2) * (s.Y + 2) * (s.Z + 2);
-  return (unsigned)((items + threads - 1) / threads);
-}
-
-// dtype: 0 float, 1 bfloat16
+// B3: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
+// sides and class_start the table with the grid's offsets; run as the
+// host planned it (kernels/stencil.py slab_plan)
 extern "C" int mg_residual(int dtype, const void* x, const void* b,
                            const void* fm, const void* r2, void* out,
                            const void* sides, const void* class_start,
-                           int nc, int X, int Y, int Z,
+                           int run, int nc, int X, int Y, int Z,
                            float E, float kG, float G2, void* stream) {
+  if ((dtype != 0 && dtype != 1) || !slab_plan_ok(run, nc))
+    return (int)cudaErrorInvalidValue;
   const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
-  const int threads = 256;
+  const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X + 2);
   cudaStream_t st_ = (cudaStream_t)stream;
   if (dtype == 0) {
-    mg_residual_kernel<float><<<blocks_for(s, threads), threads, 0, st_>>>(
+    mg_residual_kernel<float><<<grid, nc * run, 0, st_>>>(
         (const float*)x, (const float*)b, (const float*)fm,
-        (const float*)r2, (float*)out, s);
+        (const float*)r2, (float*)out, s, run);
   } else {
     typedef __nv_bfloat16 bf;
-    mg_residual_kernel<bf><<<blocks_for(s, threads), threads, 0, st_>>>(
+    mg_residual_kernel<bf><<<grid, nc * run, 0, st_>>>(
         (const bf*)x, (const bf*)b, (const bf*)fm, (const bf*)r2, (bf*)out,
-        s);
+        s, run);
   }
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int residual_occupancy(int threads) {
+  int n = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, mg_residual_kernel<T>, threads, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// blocks of B3 of `threads` threads that one SM holds at once on the
+// current device; a negative value is -cudaError
+extern "C" int mg_residual_occupancy(int dtype, int threads) {
+  if (dtype == 0) return residual_occupancy<float>(threads);
+  if (dtype == 1) return residual_occupancy<__nv_bfloat16>(threads);
+  return -(int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool FINAL>

@@ -1,30 +1,29 @@
 // Shared stencil body of the port's kernels: K.u at one output point.
 //
-// Used by B1/B2 (stencil_matvec.cu) and by B3-B5 (mg_fused.cu), the
-// counterpart of make_stencil_acc in pylatticedso_tpu/parallel/
-// stencil_pallas.py, which the TPU kernels share the same way.  It computes
-// the math of the gather form (pylatticedso_tpu_torch/parallel/structured.py
-// apply_gather): for the output point q of class c and every template-edge
-// side whose self class is c, form the six generalized strains e0..e5 from
-// u(self, q), u(other, q + du) and r^2(q + dr), the internal forces with
-// S = pi r^2, I = pi r^4 / 4, and add the side's force/moment row to acc.
+// Used by B1/B2 and the r^2-cotangent (stencil_matvec.cu) and by B3-B5
+// (mg_fused.cu), the counterpart of make_stencil_acc in
+// pylatticedso_tpu/parallel/stencil_pallas.py, which the TPU kernels share
+// the same way.  It computes the math of the gather form
+// (pylatticedso_tpu_torch/parallel/structured.py apply_gather): for the
+// output point q of class c and every template-edge side whose self class
+// is c, form the six generalized strains e0..e5 from u(self, q), u(other,
+// q + du) and r^2(q + dr), the internal forces with S = pi r^2, I = pi
+// r^4 / 4, and add the side's force/moment row to acc.
 //
 // Layout: u is ghost-padded [nc, 6, Xp, Yp, Zp] and r^2 [n_e, Xp, Yp, Zp];
 // q is the flat index of an INTERIOR point of the padded grid, so every
 // shifted read stays in bounds and reads zeros outside the lattice.
-// stencil_acc_t is a template over the compute type C and its side record
-// (float with Side, double with SideD): loads of the storage type (float,
-// __nv_bfloat16 or double) are widened to C and all arithmetic is C.
-// stencil_acc is its float instance, which B3 and B5 use; slab_acc (below)
-// the form B1, B2 and B4 use, on a table with the grid's offsets; side_acc
-// is the per-side arithmetic of all of them, which B5 also calls on values
-// it keeps in registers and distributed shared memory.  The two bodies
-// differ only in how they form addresses: stencil_acc_t, interior() and
-// the plain-offset table stay only until B3, B5's x0 residual and the
-// r^2-cotangent move onto slab_acc and the grid-offset table (ROADMAP.md
-// queue B), and then go.  Sides are summed
-// in table order (class_start[c] .. class_start[c + 1]) in registers: no
-// atomics, bitwise-equal repeats.
+// slab_acc is the one K.u body: a template over the compute type C and
+// its side record (float with Side, double with SideD); loads of the
+// storage type (float, __nv_bfloat16 or double) are widened to C and all
+// arithmetic is C.  side_acc is its per-side arithmetic, which B5 also
+// calls on values it keeps in registers and shared memory; the
+// r^2-cotangent kernel keeps its own copy of the strain and row math
+// (sharing one helper with side_acc moved B1's bits on an H100, PERF.md).
+// Every kernel reads the one side table, with the launch grid's offsets
+// written in (below, "slabs").  Sides are summed in table order
+// (class_start[c] .. class_start[c + 1]) in registers: no atomics,
+// bitwise-equal repeats.
 
 #pragma once
 
@@ -33,8 +32,8 @@
 
 struct __align__(16) Side {
   int co;        // other endpoint's class
-  int du;        // flat shift of the other endpoint in the padded u grid
-  int dr;        // flat shift of the instance anchor in the padded r^2 grid
+  int du;        // co * 6 * Fp + flat shift of the other endpoint
+  int dr;        // ei * Fp + flat shift of the instance anchor (r^2 grid)
   int ei;        // template edge (row of r^2)
   int side;      // 0: self is endpoint A, 1: self is endpoint B
   float t[3], a1[3], a2[3];
@@ -125,47 +124,9 @@ __device__ __forceinline__ void side_acc(const SideT& sd, const C us[6],
   acc[5] += fma(sf, md2, ms2);
 }
 
-template <typename C, typename SideT, typename TU, typename TR>
-__device__ __forceinline__ void stencil_acc_t(
-    const TU* up, const TR* r2p, long long Fp, long long q, int c,
-    const SideT* __restrict__ sides, int s_begin, int s_end,
-    C E, C kG, C G2, C acc[6]) {
-  C us[6];
-#pragma unroll
-  for (int k = 0; k < 6; ++k) us[k] = ld(up + ((long long)c * 6 + k) * Fp + q);
-
-  for (int s = s_begin; s < s_end; ++s) {
-    const SideT& sd = sides[s];
-    const TU* uo_base = up + (long long)sd.co * 6 * Fp + q + sd.du;
-    C uo[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) uo[k] = ld(uo_base + k * Fp);
-    const C r2 = ld(r2p + (long long)sd.ei * Fp + q + sd.dr);
-    side_acc<C, SideT>(sd, us, uo, r2, E, kG, G2, acc);
-  }
-}
-
-template <typename TU, typename TR>
-__device__ __forceinline__ void stencil_acc(
-    const TU* up, const TR* r2p, long long Fp, long long q, int c,
-    const Side* __restrict__ sides, int s_begin, int s_end,
-    float E, float kG, float G2, float acc[6]) {
-  stencil_acc_t<float, Side>(up, r2p, Fp, q, c, sides, s_begin, s_end,
-                             E, kG, G2, acc);
-}
-
-// (x, y, z) of the padded flat index q; true when q is an interior point
-__device__ __forceinline__ bool interior(long long q, int X, int Y, int Z) {
-  const int Yp = Y + 2, Zp = Z + 2;
-  const int z = (int)(q % Zp);
-  const int y = (int)((q / Zp) % Yp);
-  const int x = (int)(q / ((long long)Yp * Zp));
-  return x >= 1 && x <= X && y >= 1 && y <= Y && z >= 1 && z <= Z;
-}
-
 // ------------------------------------------------------------------ slabs
-// B1 (stencil_matvec.cu) and B4 (mg_fused.cu) run one block per slab: a
-// run of `run` consecutive points of one padded x-plane, in the plane's
+// B1 (stencil_matvec.cu), B3 and B4 (mg_fused.cu) run one block per slab:
+// a run of `run` consecutive points of one padded x-plane, in the plane's
 // flat (y, z) order, for every class, one thread per (class, point):
 // thread t computes point t % run of the slab for class t / run, so a
 // block holds nc * run threads.  The host picks run, the largest power of
@@ -173,14 +134,14 @@ __device__ __forceinline__ bool interior(long long q, int X, int Y, int Z) {
 // refuses a template of more than SLAB_THREADS classes.  Consecutive
 // threads then read consecutive addresses for every operand, ghost
 // columns included, and a block's classes share their neighbours in L1.
-// The side table the slab kernels read holds offsets for the launch's
-// grid (the host writes them, StencilMatvec.tables): du = co * 6 * Fp +
-// du is the other endpoint's first row from the output point, dr = ei *
-// Fp + dr the side's r^2 from the point's own r^2 position, so each
-// operand is one add and one load; the records are 16-byte aligned and
-// load as four (seven) 16-byte words, the same address in every thread of
-// a warp.  Index arithmetic is 32-bit (the host refuses a grid whose rows
-// pass 2^31 points).  A side's shift reaches at most SLAB_HALO points per
+// The side table every kernel reads holds offsets for the launch's grid
+// (the host writes them, StencilMatvec.tables): du = co * 6 * Fp + du is
+// the other endpoint's first row from the output point, dr = ei * Fp + dr
+// the side's r^2 from the point's own r^2 position, so each operand is
+// one add and one load; the records are 16-byte aligned and load as four
+// (seven) 16-byte words, the same address in every thread of a warp.
+// Index arithmetic is 32-bit (the host refuses a grid whose rows pass
+// 2^31 points).  A side's shift reaches at most SLAB_HALO points per
 // axis, the ghost padding (the host refuses a template that reaches
 // farther).
 #define SLAB_HALO 1

@@ -7,7 +7,7 @@
 // arithmetic) replaces make_call(jnp.bfloat16), the apply.lo matvec of the
 // multigrid's bf16-I/O smoother.  Both compute the math of the gather form
 // (pylatticedso_tpu_torch/parallel/structured.py apply_gather), which is
-// also their plain version; the per-point body is stencil_acc in
+// also their plain version; the per-point body is slab_acc in
 // stencil_body.cuh, shared with the fused smoother kernels B3-B5.
 //
 // B1 has two instances: float (the main path's float32 operator) and
@@ -26,23 +26,28 @@
 //   gr[e, Q] = sum over the two sides of edge e that read r^2 at Q of
 //              g(self, q) . dF_side(u(self, q), u(other, q + du)) / dr^2,
 // with q = Q - dr the side's output point and dF/dr^2 the side's row with
-// dS/dr^2 = pi and dI/dr^2 = pi r^2 / 2.  One thread per r^2 position
-// (edge, padded point) gathers side A then side B in that fixed order: no
-// atomics, bitwise-equal repeats.  It moves u, g and r^2 in and gr out
-// (4 * (24 + 24 + 24 + 24) F = 57.2 MB at 50^3 in float32 -> 17.1 us,
-// bound by bytes).
+// dS/dr^2 = pi and dI/dr^2 = pi r^2 / 2.  One thread per beam (edge,
+// padded r^2 position) forms the beam's strains and derivative row once
+// and dots it with g at both endpoints in a fixed order: no atomics,
+// bitwise-equal repeats.  It moves u, g and r^2 in and gr out (4 * (24 +
+// 24 + 24 + 24) F = 57.2 MB at 50^3 in float32 -> 17.1 us, bound by
+// bytes); a thread loads 25 values (u and g at two endpoints, r^2) where
+// the one-thread-per-side-pair kernel it replaces loaded 37 and formed
+// every strain twice.
 //
 // Layout: u is ghost-padded [nc, 6, Xp, Yp, Zp] and r^2 [n_e, Xp, Yp, Zp]
 // (Xp = X + 2, ...); every shifted read of an interior point stays in
-// bounds and reads zeros outside the lattice.  The output is the unpadded
-// [nc, 6, X, Y, Z] field.  The TPU kernel's flat 1-D tiles, prev/cur/next
+// bounds and reads zeros outside the lattice.  B1's output is the
+// unpadded [nc, 6, X, Y, Z] field, the r^2-cotangent's the padded [n_e,
+// Xp, Yp, Zp] one.  The TPU kernel's flat 1-D tiles, prev/cur/next
 // halo blocks, align8 rows and VMEM fit model are not carried over.
 //
 // Edge sides come from a device table (struct Side, built by
 // pylatticedso_tpu_torch/kernels/stencil.py), sorted by self class with
 // class_start[c]..class_start[c+1] the sides of class c, in the order of
-// the gather form's accumulation; B1 reads the table with the launch
-// grid's offsets written in (stencil_body.cuh, "slabs").  Nothing of the
+// the gather form's accumulation, with the launch grid's offsets written
+// in (stencil_body.cuh, "slabs"); the r^2-cotangent reads side A's record
+// of each edge from the same table.  Nothing of the
 // template is baked into the source, so one build serves every template
 // (the 16-class hybrid too).
 //
@@ -97,99 +102,179 @@ stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
   for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
 }
 
-// r^2-derivative of one side's contribution g(q) . F_side at output
-// point q of class c: the side's force row with the section stiffnesses
-// replaced by their r^2-derivatives, dotted with g (the same strain math as
-// stencil_acc_t; torch's plain version is apply_gather_vjp_r2)
-template <typename C, typename SideT, typename T>
-__device__ __forceinline__ C side_dr2(const T* up, const T* gp, long long Fp,
-                                      long long q, int c, const SideT& sd,
-                                      C r2, C E, C kG, C G2) {
-  C us[6], uo[6], lam[6];
+// The r^2-cotangent, one thread per beam: the beam of template edge e
+// anchored at the padded r^2 position Q has endpoint A (class ca) at Q +
+// oa and endpoint B (class cb) at Q + ob.  Its two sides see the same
+// strains (side B's sign flip of an IEEE difference is exact), so the
+// thread forms them once, from u at both endpoints, and the beam's
+// r^2-derivative row (fu, ms, md: the force row with dS/dr^2 = pi and
+// dI/dr^2 = pi r^2 / 2) once, and writes
+//   gr[e, Q] = (gB - gA) . fu + (gA + gB) . ms + (gB - gA) . md
+// over the translation (fu) and rotation (ms, md) components: side A's
+// gA . [-fu, ms - md] plus side B's gB . [fu, ms + md].  A side whose
+// output point is not interior adds nothing (the gather form drops it):
+// its g is taken as zero.  An anchor with no interior
+// endpoint writes 0; every anchor with an endpoint outside the padded
+// grid is one of those (the reach is at most one point per axis), so no
+// read leaves the padded grid.  The strain and row math is side_acc's
+// (stencil_body.cuh), written out here for the beam's own orientation.
+//
+// beams[e] = (table row of side A, class A, packed offset oa, packed
+// offset ob): bytes ox + 1, oy + 1, oz + 1 of each offset, built by the
+// host (kernels/stencil.py beam_table).  Side A's record, with the grid's
+// offsets, gives the rest: A's flat point is Q + e * Fp - dr, and u + qA +
+// du is B's first row.
+//
+// One block per BEAM_RUN * PTS points of one padded plane (blockIdx.z)
+// and SLAB_THREADS / BEAM_RUN edges (blockIdx.x, the fastest-varying: the
+// blocks of one stretch of points run together and share u and g in L2):
+// a warp per edge, lane l taking points l, l + BEAM_RUN, ... of the
+// stretch, so every load of a warp is contiguous and a thread's later
+// points are its first point's addresses plus a constant (no index math
+// of their own).
+#define BEAM_RUN 32
+#define BEAM_EDGES (SLAB_THREADS / BEAM_RUN)
+
+template <typename T, typename C, typename SideT, int PTS>
+__global__ void __launch_bounds__(SLAB_THREADS)
+stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
+                      const T* __restrict__ r2, T* __restrict__ out,
+                      const SideT* __restrict__ sides,
+                      const int4* __restrict__ beams, int n_e,
+                      int X, int Y, int Z, C E, C kG, C G2) {
+  const int Yp = Y + 2, Zp = Z + 2, P = Yp * Zp, Fp = (X + 2) * P;
+  const int e = blockIdx.x * BEAM_EDGES + threadIdx.x / BEAM_RUN;
+  if (e >= n_e) return;
+  const int f0 = blockIdx.y * (BEAM_RUN * PTS) + threadIdx.x % BEAM_RUN;
+  const int px = blockIdx.z;
+  const int4 bm = beams[e];
+  // endpoint offsets; the x test is the block's
+  const int ax = px + (bm.z & 0xff) - 1, ay = ((bm.z >> 8) & 0xff) - 1,
+            az = ((bm.z >> 16) & 0xff) - 1;
+  const int bx = px + (bm.w & 0xff) - 1, by = ((bm.w >> 8) & 0xff) - 1,
+            bz = ((bm.w >> 16) & 0xff) - 1;
+  const bool xA = ax >= 1 && ax <= X, xB = bx >= 1 && bx <= X;
+  if (!xA && !xB) {
 #pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    us[k] = ld(up + ((long long)c * 6 + k) * Fp + q);
-    uo[k] = ld(up + ((long long)sd.co * 6 + k) * Fp + q + sd.du);
-    lam[k] = ld(gp + ((long long)c * 6 + k) * Fp + q);
+    for (int p = 0; p < PTS; ++p) {
+      const int f = f0 + p * BEAM_RUN;
+      if (f < P) st(out + e * Fp + px * P + f, (C)0);
+    }
+    return;
   }
+  const SideT& sd = sides[bm.x];
+  const int Q0 = px * P + f0;
+  const int qA0 = Q0 + e * Fp - sd.dr;     // endpoint A of the first point
+  const T* uA = u + (bm.y * 6 * Fp + qA0);
+  const T* uB = u + (qA0 + sd.du);
+  const T* gA = g + (bm.y * 6 * Fp + qA0);
+  const T* gB = g + (qA0 + sd.du);
+  const T* rq = r2 + (e * Fp + Q0);
+  T* oq = out + (e * Fp + Q0);
   const C pi = (C)3.14159265358979323846;
-  const C sg = sd.side ? (C)-1 : (C)1;
   const C t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
   const C b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
   const C n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
-  const C invL = sd.invL;
-  const C du0 = sg * (uo[0] - us[0]), du1 = sg * (uo[1] - us[1]),
-          du2 = sg * (uo[2] - us[2]);
-  const C th0 = us[3] + uo[3], th1 = us[4] + uo[4], th2 = us[5] + uo[5];
-  const C dt0 = sg * (uo[3] - us[3]), dt1 = sg * (uo[4] - us[4]),
-          dt2 = sg * (uo[5] - us[5]);
-  const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
-  const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
-             - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
-  const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
-             + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
-  const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
-  const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
-  const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
-  // d(pi r^2)/dr^2 = pi, d(pi r^4 / 4)/dr^2 = pi r^2 / 2
-  const C dI = (pi * (C)0.5) * r2;
-  const C s0 = (E * pi) * e0, s1 = (kG * pi) * e1, s2 = (kG * pi) * e2;
-  const C s3 = G2 * dI * e3, s4 = E * dI * e4, s5 = E * dI * e5;
-  const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
-  const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
-  const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
-  const C hl = sd.halfL;
-  const C ms0 = hl * (s2 * b0 - s1 * n0);
-  const C ms1 = hl * (s2 * b1 - s1 * n1);
-  const C ms2 = hl * (s2 * b2 - s1 * n2);
-  const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
-  const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
-  const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
-  const C sf = -sg;            // side A: [-fu, msh - mdf]; B: [fu, msh + mdf]
-  return lam[0] * (sf * fu0) + lam[1] * (sf * fu1) + lam[2] * (sf * fu2)
-       + lam[3] * (ms0 + sf * md0) + lam[4] * (ms1 + sf * md1)
-       + lam[5] * (ms2 + sf * md2);
+  const C invL = sd.invL, hl = sd.halfL;
+  int py = f0 / Zp, pz = f0 - py * Zp;
+#pragma unroll
+  for (int p = 0; p < PTS; ++p) {
+    if (p > 0) {                    // the point BEAM_RUN further on
+      pz += BEAM_RUN;
+      while (pz >= Zp) {
+        pz -= Zp;
+        ++py;
+      }
+    }
+    if (f0 + p * BEAM_RUN >= P) break;
+    const bool inA = xA && (unsigned)(py + ay - 1) < (unsigned)Y
+                     && (unsigned)(pz + az - 1) < (unsigned)Z;
+    const bool inB = xB && (unsigned)(py + by - 1) < (unsigned)Y
+                     && (unsigned)(pz + bz - 1) < (unsigned)Z;
+    const int o = p * BEAM_RUN;
+    if (!inA && !inB) {
+      st(oq + o, (C)0);
+      continue;
+    }
+    // both endpoints of a live beam lie in the padded grid: g is read
+    // at both and a non-interior endpoint's value is dropped by a select
+    // (so g's ghosts may hold anything)
+    C a[6], b[6], la[6], lb[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      a[k] = ld(uA + k * Fp + o);
+      b[k] = ld(uB + k * Fp + o);
+      const C ga = ld(gA + k * Fp + o), gb = ld(gB + k * Fp + o);
+      la[k] = inA ? ga : (C)0;
+      lb[k] = inB ? gb : (C)0;
+    }
+    const C r2v = ld(rq + o);
+    const C du0 = b[0] - a[0], du1 = b[1] - a[1], du2 = b[2] - a[2];
+    const C th0 = a[3] + b[3], th1 = a[4] + b[4], th2 = a[5] + b[5];
+    const C dt0 = b[3] - a[3], dt1 = b[4] - a[4], dt2 = b[5] - a[5];
+    const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
+    const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
+               - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
+    const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
+               + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
+    const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
+    const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
+    const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
+    const C dI = (pi * (C)0.5) * r2v;
+    const C s0 = (E * pi) * e0, s1 = (kG * pi) * e1, s2 = (kG * pi) * e2;
+    const C s3 = G2 * dI * e3, s4 = E * dI * e4, s5 = E * dI * e5;
+    const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
+    const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
+    const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
+    const C ms0 = hl * (s2 * b0 - s1 * n0);
+    const C ms1 = hl * (s2 * b1 - s1 * n1);
+    const C ms2 = hl * (s2 * b2 - s1 * n2);
+    const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
+    const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
+    const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
+    st(oq + o, (lb[0] - la[0]) * fu0 + (lb[1] - la[1]) * fu1
+                   + (lb[2] - la[2]) * fu2 + (la[3] + lb[3]) * ms0
+                   + (la[4] + lb[4]) * ms1 + (la[5] + lb[5]) * ms2
+                   + (lb[3] - la[3]) * md0 + (lb[4] - la[4]) * md1
+                   + (lb[5] - la[5]) * md2);
+  }
 }
 
-// edges[4 e .. 4 e + 3] = (table index of side A, of side B, class A,
-// class B) of template edge e
-template <typename T, typename C, typename SideT>
-__global__ void __launch_bounds__(256)
-stencil_vjp_r2_kernel(const T* __restrict__ up, const T* __restrict__ gp,
-                      const T* __restrict__ r2p, T* __restrict__ out,
-                      const SideT* __restrict__ sides,
-                      const int* __restrict__ edges, int n_e,
-                      int X, int Y, int Z, C E, C kG, C G2) {
-  const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n_e * Fp) return;
-  const int e = (int)(idx / Fp);
-  const long long Q = idx - (long long)e * Fp;
-  const C r2 = ld(r2p + idx);
-  C acc = 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {            // side A, then side B
-    const SideT& sd = sides[edges[4 * e + h]];
-    const long long q = Q - sd.dr;
-    if (q < 0 || q >= Fp || !interior(q, X, Y, Z)) continue;
-    acc += side_dr2<C, SideT>(up, gp, Fp, q, edges[4 * e + 2 + h], sd, r2,
-                              E, kG, G2);
-  }
-  st(out + idx, acc);
+// a beam plan the r^2-cotangent kernel can run: 1, 2 or 4 points a
+// thread
+__host__ inline bool beam_plan_ok(int points, int n_e) {
+  return (points == 1 || points == 2 || points == 4) && n_e >= 1;
+}
+
+template <typename T, typename C, typename SideT, int PTS>
+static void launch_vjp_pts(const void* up, const void* gp, const void* r2p,
+                           void* out, const void* sides, const void* beams,
+                           int n_e, int X, int Y, int Z, C E, C kG, C G2,
+                           cudaStream_t stream) {
+  const dim3 grid((n_e + BEAM_EDGES - 1) / BEAM_EDGES,
+                  ((Y + 2) * (Z + 2) + BEAM_RUN * PTS - 1) / (BEAM_RUN * PTS),
+                  X + 2);
+  stencil_vjp_r2_kernel<T, C, SideT, PTS><<<grid, SLAB_THREADS, 0, stream>>>(
+      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
+      (const SideT*)sides, (const int4*)beams, n_e, X, Y, Z, E, kG, G2);
 }
 
 template <typename T, typename C, typename SideT>
 static int launch_vjp(const void* up, const void* gp, const void* r2p,
-                      void* out, const void* sides, const void* edges,
-                      int n_e, int X, int Y, int Z, C E, C kG, C G2,
-                      void* stream) {
-  const long long total = (long long)n_e * (X + 2) * (Y + 2) * (Z + 2);
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  stencil_vjp_r2_kernel<T, C, SideT><<<(unsigned)blocks, threads, 0,
-                                       (cudaStream_t)stream>>>(
-      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
-      (const SideT*)sides, (const int*)edges, n_e, X, Y, Z, E, kG, G2);
+                      void* out, const void* sides, const void* beams,
+                      int points, int n_e, int X, int Y, int Z, C E, C kG,
+                      C G2, void* stream) {
+  if (!beam_plan_ok(points, n_e)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st_ = (cudaStream_t)stream;
+  if (points == 1)
+    launch_vjp_pts<T, C, SideT, 1>(up, gp, r2p, out, sides, beams, n_e, X,
+                                   Y, Z, E, kG, G2, st_);
+  else if (points == 2)
+    launch_vjp_pts<T, C, SideT, 2>(up, gp, r2p, out, sides, beams, n_e, X,
+                                   Y, Z, E, kG, G2, st_);
+  else
+    launch_vjp_pts<T, C, SideT, 4>(up, gp, r2p, out, sides, beams, n_e, X,
+                                   Y, Z, E, kG, G2, st_);
   return (int)cudaGetLastError();
 }
 
@@ -238,23 +323,30 @@ extern "C" int stencil_matvec_f64(const void* up, const void* r2p, void* out,
                                        nc, X, Y, Z, E, kG, G2, stream);
 }
 
+// the r^2-cotangent: u ghost-padded [nc, 6, Xp, Yp, Zp] with zero ghosts,
+// g [nc, 6, Xp, Yp, Zp] (its ghosts are not read), r^2 and out [n_e, Xp,
+// Yp, Zp]; sides the table with the grid's offsets (Side, or SideD for
+// the float64 instance), beams the host's beam table; points a thread as
+// the host planned it (kernels/stencil.py beam_plan)
 extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
                                   const void* r2p, void* out,
-                                  const void* sides, const void* edges,
-                                  int n_e, int X, int Y, int Z,
+                                  const void* sides, const void* beams,
+                                  int points, int n_e, int X, int Y, int Z,
                                   float E, float kG, float G2, void* stream) {
-  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, edges, n_e,
-                                        X, Y, Z, E, kG, G2, stream);
+  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, beams,
+                                        points, n_e, X, Y, Z, E, kG, G2,
+                                        stream);
 }
 
 extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
                                   const void* r2p, void* out,
-                                  const void* sides, const void* edges,
-                                  int n_e, int X, int Y, int Z,
+                                  const void* sides, const void* beams,
+                                  int points, int n_e, int X, int Y, int Z,
                                   double E, double kG, double G2,
                                   void* stream) {
-  return launch_vjp<double, double, SideD>(up, gp, r2p, out, sides, edges,
-                                           n_e, X, Y, Z, E, kG, G2, stream);
+  return launch_vjp<double, double, SideD>(up, gp, r2p, out, sides, beams,
+                                           points, n_e, X, Y, Z, E, kG, G2,
+                                           stream);
 }
 
 template <typename T, typename C, typename SideT>
@@ -272,5 +364,30 @@ extern "C" int stencil_matvec_occupancy(int dtype, int threads) {
   if (dtype == 0) return occupancy<float, float, Side>(threads);
   if (dtype == 1) return occupancy<__nv_bfloat16, float, Side>(threads);
   if (dtype == 2) return occupancy<double, double, SideD>(threads);
+  return -(int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename C, typename SideT>
+static int vjp_occupancy(int points) {
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  if (points == 1)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, stencil_vjp_r2_kernel<T, C, SideT, 1>, SLAB_THREADS, 0);
+  else if (points == 2)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, stencil_vjp_r2_kernel<T, C, SideT, 2>, SLAB_THREADS, 0);
+  else if (points == 4)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, stencil_vjp_r2_kernel<T, C, SideT, 4>, SLAB_THREADS, 0);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// blocks of the r^2-cotangent kernel (dtype 0 float, 2 double) of
+// SLAB_THREADS threads taking `points` points each that one SM holds at
+// once on the current device; a negative value is -cudaError
+extern "C" int stencil_vjp_r2_occupancy(int dtype, int points) {
+  if (dtype == 0) return vjp_occupancy<float, float, Side>(points);
+  if (dtype == 2) return vjp_occupancy<double, double, SideD>(points);
   return -(int)cudaErrorInvalidValue;
 }

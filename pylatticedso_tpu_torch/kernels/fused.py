@@ -26,9 +26,10 @@ list (``b5_items``), and d sits in every block's shared memory where it
 fits, in global scratch elsewhere.  The result is the same bits whatever
 the cluster size or layout.
 
-**B4's launch.**  B4 runs on B1's slab plan (``b4_plan``: runs of a
-padded plane's flat points, one thread per (class, point)), over every
-padded plane, ghosts included, with the side table's grid offsets.
+**B3's and B4's launch.**  B3 and B4 run on B1's slab plan (``b3_plan``,
+``b4_plan``: runs of a padded plane's flat points, one thread per (class,
+point)), over every padded plane, ghosts included.  Every kernel reads the
+level's one side table, with the grid's offsets (``StencilMatvec.tables``).
 
 On a CPU tensor every wrapper runs its plain torch version (the gather
 form of ``parallel/structured.py`` for K, then the same pointwise update
@@ -404,7 +405,7 @@ class FusedSmoother:
         return io
 
     def _static(self, index: int) -> tuple:
-        """The launch arguments that never change on device ``index``:
+        """B5's launch arguments that never change on device ``index``:
         the side table, class_start, grid and material constants."""
         key = ("stencil", index)
         args = self._dev.get(key)
@@ -413,6 +414,20 @@ class FusedSmoother:
             args = (sides.data_ptr(), class_start.data_ptr(), self.nc,
                     *self.grid, *self.mv.consts)
             self._dev[key] = args
+        return args
+
+    def _static_slab(self, index: int, io: torch.dtype,
+                     final: Optional[bool] = None) -> tuple:
+        """The launch arguments of B3 (``final`` None) or B4 that never
+        change on device ``index``: B5's, with the slab plan's run after
+        class_start."""
+        key = ("B3" if final is None else "B4", index, io, final)
+        args = self._dev.get(key)
+        if args is None:
+            plan = self.b3_plan(io, index) if final is None \
+                else self.b4_plan(io, final, index)
+            sides, class_start, *rest = self._static(index)
+            args = self._dev[key] = (sides, class_start, plan["run"], *rest)
         return args
 
     # ------------------------------------------------------- plain versions
@@ -478,11 +493,20 @@ class FusedSmoother:
         dev = b.get_device()
         rc = launch.functions("mg_fused")["mg_residual"](
             int(io == torch.bfloat16), x.data_ptr(), b.data_ptr(),
-            fm.data_ptr(), r2.data_ptr(), out.data_ptr(), *self._static(dev),
-            launch.stream(dev))
+            fm.data_ptr(), r2.data_ptr(), out.data_ptr(),
+            *self._static_slab(dev, io), launch.stream(dev))
         launch.check("mg_residual", rc)
         self.launches["residual"] += 1
         return out
+
+    def b3_plan(self, io: torch.dtype, device: Optional[int] = None) -> Dict:
+        """B3's slab plan on this level (``StencilMatvec.slab_plan`` over
+        the padded planes); on a card its blocks per SM come from B3's own
+        query."""
+        dtype = int(io == torch.bfloat16)
+        occ = lambda p: launch.functions("mg_fused")["mg_residual_occupancy"](
+            dtype, p["threads"])
+        return self.mv.slab_plan(io, device, kernel="B3", occupancy=occ)
 
     def b4_plan(self, io: torch.dtype, final: bool,
                 device: Optional[int] = None) -> Dict:
@@ -495,21 +519,6 @@ class FusedSmoother:
         return self.mv.slab_plan(io, device,
                                  kernel=f"B4{' final' if final else ''}",
                                  occupancy=occ)
-
-    def _static_b4(self, index: int, io: torch.dtype, final: bool) -> tuple:
-        """B4's launch arguments that never change on device ``index``:
-        the side table with the grid's offsets, class_start, its plan's
-        run, grid and material constants."""
-        key = ("B4", index, io, final)
-        args = self._dev.get(key)
-        if args is None:
-            sides, class_start = self.mv.tables(torch.device("cuda", index),
-                                                grid_offsets=True)
-            p = self.b4_plan(io, final, index)
-            args = (sides.data_ptr(), class_start.data_ptr(), p["run"],
-                    self.nc, *self.grid, *self.mv.consts)
-            self._dev[key] = args
-        return args
 
     def cheb_run(self, x, r, d, fd, sc, r2, c1: float, c2: float,
                  final: bool):
@@ -529,7 +538,7 @@ class FusedSmoother:
             r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
             r2.data_ptr(), x1.data_ptr(), None if final else r1.data_ptr(),
             None if final else d1.data_ptr(), c1, c2,
-            *self._static_b4(dev, io, final),
+            *self._static_slab(dev, io, final),
             launch.stream(dev))
         launch.check("mg_cheb_run", rc)
         self.launches["cheb_run"] += 1

@@ -30,11 +30,13 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "stencil_matvec_bf16": "pppppiiiiifffp",
         "stencil_matvec_f64": "pppppiiiiidddp",
         "stencil_matvec_occupancy": "ii",
-        "stencil_vjp_r2_f32": "ppppppiiiifffp",
-        "stencil_vjp_r2_f64": "ppppppiiiidddp",
+        "stencil_vjp_r2_f32": "ppppppiiiiifffp",
+        "stencil_vjp_r2_f64": "ppppppiiiiidddp",
+        "stencil_vjp_r2_occupancy": "ii",
     },
     "mg_fused": {
-        "mg_residual": "ipppppppiiiifffp",
+        "mg_residual": "ipppppppiiiiifffp",
+        "mg_residual_occupancy": "ii",
         "mg_cheb_run": "iipppppppppffppiiiiifffp",
         "mg_cheb_run_occupancy": "iii",
         "mg_cheb_full": "iii" + "p" * 10 + "i" * 10 + "ppiiiifffp",

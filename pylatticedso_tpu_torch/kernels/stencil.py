@@ -23,18 +23,23 @@ B1 is differentiable, as the JAX kernel is a ``jax.custom_vjp``
 (``stencil_pallas.py:575-588``): when a gradient would flow, ``apply`` runs
 the ``torch.autograd.Function`` ``_B1``.  Its u-cotangent is B1 itself
 launched on the cotangent (K is symmetric in u); its r^2-cotangent is
-``vjp_r2``, the kernel ``stencil_vjp_r2`` (one thread per r^2 position,
-both sides of its edge summed in a fixed order, no atomics), whose plain
-version ``plain_vjp_r2`` is the closed form of the gather form's
-r^2-derivative in torch (JAX computes that part in XLA).  B2 and the fused
-kernels are never differentiated.
+``vjp_r2``, the kernel ``stencil_vjp_r2`` (one thread per beam: its
+strains and r^2-derivative row formed once, dotted with the cotangent at
+both endpoints in a fixed order, no atomics), whose plain version
+``plain_vjp_r2`` is the closed form of the gather form's r^2-derivative in
+torch (JAX computes that part in XLA).  B2 and the fused kernels are never
+differentiated.
 
-The kernel reads the edge sides from a device table built here from
-``edge_sides`` (the counterpart of ``stencil_pallas._edge_sides``), sorted
-by self class so that each class's sides keep the gather form's order;
-B1 and B2 read it with the launch grid's offsets written in, and run on
-the slab plan made here (``slab_plan``: runs of one padded plane's flat
-points, one thread per (class, point)).
+Every kernel of the port reads the edge sides from one device table built
+here from ``edge_sides`` (the counterpart of
+``stencil_pallas._edge_sides``), sorted by self class so that each class's
+sides keep the gather form's order, with the launch grid's offsets written
+in (``tables``).  B1 and B2 run on the slab plan made here (``slab_plan``:
+runs of one padded plane's flat points, one thread per (class, point));
+the r^2-cotangent on the beam plan (``beam_plan``: runs of one padded
+plane's flat points, a warp per edge, a thread per beam and point),
+reading each edge's side A record and its row of the beam table
+(``beam_table``).
 """
 
 from __future__ import annotations
@@ -47,9 +52,9 @@ import torch.nn.functional as F
 
 from . import launch
 
-__all__ = ["StencilMatvec", "edge_sides", "side_table", "stencil_reach",
-           "slab_plan", "SIDE_DTYPE", "SIDE_DTYPE_F64",
-           "FLOPS_PER_SIDE"]
+__all__ = ["StencilMatvec", "edge_sides", "side_table", "beam_table",
+           "stencil_reach", "slab_plan", "beam_plan", "SIDE_DTYPE",
+           "SIDE_DTYPE_F64", "FLOPS_PER_SIDE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 
@@ -114,9 +119,33 @@ def side_table(slat, dtype=SIDE_DTYPE) -> Tuple[np.ndarray, np.ndarray]:
     return table, class_start
 
 
+def _pack_offset(o) -> int:
+    """A 3-D offset in {-1, 0, 1}^3 as the r^2-cotangent kernel unpacks
+    it: bytes ox + 1, oy + 1, oz + 1."""
+    return sum((int(v) + 1) << (8 * a) for a, v in enumerate(o))
+
+
+def beam_table(slat) -> np.ndarray:
+    """[n_e, 4] int32, per template edge: the row of its side A in
+    ``side_table``, class A, and the 3-D offsets of endpoints A and B from
+    the beam's anchor (its r^2 position), packed (``_pack_offset``).  Side
+    A reads r^2 at its point minus oa, side B at its point minus ob
+    (``edge_sides``' dr3)."""
+    recs = edge_sides(slat, slat.grid[1] + 2, slat.grid[2] + 2)
+    order = sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
+    row = {i: j for j, i in enumerate(order)}
+    out = np.zeros((len(slat.edges), 4), np.int32)
+    for e in range(len(slat.edges)):
+        a, b = recs[2 * e], recs[2 * e + 1]
+        out[e] = (row[2 * e], a["cs"],
+                  _pack_offset([-v for v in a["dr3"]]),
+                  _pack_offset([-v for v in b["dr3"]]))
+    return out
+
+
 # ------------------------------------------------------------ slab plan
-# B1 and B4 run one block per slab: a run of consecutive points of one
-# padded x-plane in its flat (y, z) order, every class, one thread per
+# B1, B3 and B4 run one block per slab: a run of consecutive points of
+# one padded x-plane in its flat (y, z) order, every class, one thread per
 # (class, point) (csrc/stencil_body.cuh, "slabs").  The plan is made
 # here, on the host; the kernels take it as it is and refuse a plan
 # outside their limits.
@@ -156,6 +185,38 @@ def slab_plan(nc: int, reach) -> Dict:
         run *= 2
     return {"run": run, "threads": nc * run, "halo": (SLAB_HALO,) * 3,
             "reach": reach}
+
+
+# The r^2-cotangent runs one thread per beam (csrc/stencil_matvec.cu): a
+# block takes BEAM_RUN * points consecutive points of one padded plane
+# for SLAB_THREADS // BEAM_RUN template edges, one warp per edge, lane l
+# taking points l, l + BEAM_RUN, ...: the edge's record is one address
+# per warp, every load of a warp is contiguous, and a thread's later
+# points add a constant to its first point's addresses.  The class rule
+# of the slabs would give Octet's 24 edges runs of 4 points.
+BEAM_RUN = 32                   # csrc's BEAM_RUN: compiled in
+BEAM_POINTS = 2                 # points a thread (1, 2 or 4; PERF.md)
+
+
+def beam_plan(n_e: int, reach) -> Dict:
+    """The r^2-cotangent kernel's plan for a template of ``n_e`` edges
+    whose sides reach ``reach`` points per axis: runs of BEAM_RUN points,
+    BEAM_POINTS points a thread, ``edges`` edges a block, ``groups``
+    blocks over the edges of each stretch of points.
+    The kernel skips a beam with no interior endpoint without reading it,
+    which keeps every read inside the padded grid only while a side reads
+    at most SLAB_HALO points away: raises ValueError for a template that
+    reaches farther, or has no edge."""
+    if any(int(r) > SLAB_HALO for r in reach):
+        raise ValueError(f"beam plan: the stencil reaches {tuple(reach)} "
+                         f"points per axis, beyond the ghost padding of "
+                         f"{SLAB_HALO}")
+    if n_e < 1:
+        raise ValueError(f"beam plan: {n_e} edges")
+    edges = SLAB_THREADS // BEAM_RUN
+    return {"run": BEAM_RUN, "points": BEAM_POINTS, "edges": edges,
+            "threads": SLAB_THREADS, "groups": -(-n_e // edges),
+            "halo": (SLAB_HALO,) * 3}
 
 
 class _B1(torch.autograd.Function):
@@ -207,14 +268,7 @@ class StencilMatvec:
                        float(2.0 * G_mod))
         self._tables = {torch.float32: side_table(slat, SIDE_DTYPE),
                         torch.float64: side_table(slat, SIDE_DTYPE_F64)}
-        # per edge: table rows of its side A and side B, classes A and B
-        Yp, Zp = slat.grid[1] + 2, slat.grid[2] + 2
-        recs = edge_sides(slat, Yp, Zp)
-        order = sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
-        row = {i: j for j, i in enumerate(order)}
-        self._edges = np.array(
-            [[row[2 * e], row[2 * e + 1], recs[2 * e]["cs"],
-              recs[2 * e + 1]["cs"]] for e in range(self.n_e)], np.int32)
+        self._beams = beam_table(slat)
         self.reach = stencil_reach(slat)
         # the slab plans (per kernel, storage dtype and device where the
         # card was asked), for launches and reports
@@ -331,28 +385,32 @@ class StencilMatvec:
         return self.plain(u_lo.to(self.dtype),
                           r2_lo.to(self.dtype)).to(torch.bfloat16)
 
-    def tables(self, device, dtype=torch.float32, vjp: bool = False,
-               grid_offsets: bool = False):
-        """(sides, class_start) on ``device`` for the float32 (B1, B2) or
-        float64 (B1's double instance) kernel, or (sides, edges) for the
-        r^2-cotangent kernel, uploaded once.  ``grid_offsets``: each
-        record's du is the offset of its other endpoint's first row from
-        the output point (co * 6 * Fp + du) and dr the offset of its r^2
-        from the point's own r^2 position (ei * Fp + dr), as the slab
-        kernels (B1, B4) read them."""
-        key = (device, dtype, vjp, grid_offsets)
+    def tables(self, device, dtype=torch.float32):
+        """(sides, class_start) on ``device`` for the float32 (B1, B2,
+        B3-B5, the r^2-cotangent) or float64 (B1's double instance and
+        its r^2-cotangent) kernels, uploaded once: each record's du is the
+        offset of its other endpoint's first row from the output point
+        (co * 6 * Fp + du) and dr the offset of its r^2 from the point's
+        own r^2 position (ei * Fp + dr), as every kernel reads them."""
+        key = (device, dtype)
         if key not in self._dev:
             table, class_start = self._tables[dtype]
-            if grid_offsets:
-                X, Y, Z = self.grid
-                Fp = (X + 2) * (Y + 2) * (Z + 2)
-                table = table.copy()
-                table["du"] += table["co"] * 6 * Fp
-                table["dr"] += table["ei"] * Fp
+            X, Y, Z = self.grid
+            Fp = (X + 2) * (Y + 2) * (Z + 2)
+            table = table.copy()
+            table["du"] += table["co"] * 6 * Fp
+            table["dr"] += table["ei"] * Fp
             sides = torch.from_numpy(table.view(np.uint8).copy())
-            index = self._edges if vjp else class_start
             self._dev[key] = (sides.to(device),
-                              torch.from_numpy(index.reshape(-1)).to(device))
+                              torch.from_numpy(class_start).to(device))
+        return self._dev[key]
+
+    def beams(self, device) -> torch.Tensor:
+        """The beam table (``beam_table``) on ``device``, uploaded once."""
+        key = (device, "beams")
+        if key not in self._dev:
+            self._dev[key] = torch.from_numpy(
+                self._beams.reshape(-1)).to(device)
         return self._dev[key]
 
     def slab_plan(self, io: torch.dtype, device: Optional[int] = None,
@@ -367,12 +425,7 @@ class StencilMatvec:
         plan = self.slab_plans.get(key)
         if plan is not None:
             return plan
-        X, Y, Z = self.grid
-        if max(self.nc * 6, self.n_e) * (X + 2) * (Y + 2) * (Z + 2) \
-                >= 1 << 31:
-            raise ValueError(f"the slab kernels index in 32 bits: grid "
-                             f"{self.grid} x {self.nc * 6} rows is too "
-                             f"large")
+        self._check_32bit()
         plan = slab_plan(self.nc, self.reach)
         if device is not None:
             if occupancy is None:
@@ -391,23 +444,59 @@ class StencilMatvec:
         self.slab_plans[key] = plan
         return plan
 
+    def _check_32bit(self) -> None:
+        X, Y, Z = self.grid
+        if max(self.nc * 6, self.n_e) * (X + 2) * (Y + 2) * (Z + 2) \
+                >= 1 << 31:
+            raise ValueError(f"the stencil kernels index in 32 bits: grid "
+                             f"{self.grid} x {self.nc * 6} rows is too "
+                             f"large")
+
+
+    def beam_plan(self, io: torch.dtype,
+                  device: Optional[int] = None) -> Dict:
+        """The r^2-cotangent kernel's plan (``beam_plan``) for storage
+        ``io`` (float32 or float64); on a card (``device``) its blocks per
+        SM come from the kernel's own query, and a plan the card cannot
+        run raises.  Cached with the slab plans."""
+        key = ("r2", io, device)
+        plan = self.slab_plans.get(key)
+        if plan is not None:
+            return plan
+        self._check_32bit()
+        plan = beam_plan(self.n_e, self.reach)
+        if device is not None:
+            n = launch.functions("stencil_matvec")[
+                "stencil_vjp_r2_occupancy"](
+                    {torch.float32: 0, torch.float64: 2}[io], plan["points"])
+            if n < 0:
+                raise RuntimeError(f"r^2-cotangent occupancy query failed: "
+                                   f"cudaError {-n}")
+            if n == 0:
+                raise ValueError(f"r^2-cotangent: the card cannot run a "
+                                 f"block of plan {plan}")
+            plan = dict(plan, blocks_per_sm=n)
+        self.slab_plans[key] = plan
+        return plan
+
     def _static(self, index: int, io: torch.dtype, vjp: bool) -> tuple:
         """The launch arguments that never change on device ``index`` for
-        storage ``io``: the tables (``tables``; B1 takes the grid's
-        offsets and its slab plan's run), the count (classes, or edges for
-        the r^2-cotangent kernel), grid and constants."""
+        storage ``io``: the side table (``tables``) and class_start (B1)
+        or the beam table (the r^2-cotangent), the plan's run, the count
+        (classes, or edges), grid and constants."""
         key = (index, io, vjp)
         args = self._static_args.get(key)
         if args is None:
             dev = torch.device("cuda", index)
             dt = torch.float64 if io == torch.float64 else torch.float32
-            table, index_ = self.tables(dev, dt, vjp, grid_offsets=not vjp)
+            table, class_start = self.tables(dev, dt)
             if vjp:
-                args = (table.data_ptr(), index_.data_ptr(), self.n_e,
-                        *self.grid, *self.consts)
+                p = self.beam_plan(io, index)
+                args = (table.data_ptr(), self.beams(dev).data_ptr(),
+                        p["points"], self.n_e, *self.grid, *self.consts)
             else:
                 p = self.slab_plan(io, index)
-                args = (table.data_ptr(), index_.data_ptr(), p["run"],
+                args = (table.data_ptr(), class_start.data_ptr(), p["run"],
                         self.nc, *self.grid, *self.consts)
             self._static_args[key] = args
         return args

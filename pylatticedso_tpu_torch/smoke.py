@@ -249,21 +249,31 @@ def _index(device: torch.device) -> Optional[int]:
 
 
 def _plan_rec(plan: Dict) -> Dict:
-    """A slab plan as the report keeps it: run, threads per block (one
-    per class and point), blocks one SM holds (asked of the card; None off
-    it), halo and dynamic shared memory (none: the slab kernels read
+    """A slab or beam plan as the report keeps it: run, threads per block
+    (one per class and point, or a warp per edge), edges a block and
+    points a thread (beam plans), blocks one SM holds (asked of the card;
+    None off it), halo and dynamic shared memory (none: the kernels read
     through L1)."""
-    return {"run": plan["run"], "threads": plan["threads"],
-            "blocks_per_sm": plan.get("blocks_per_sm"),
-            "halo": list(plan["halo"]), "smem_bytes": 0}
+    rec = {"run": plan["run"], "threads": plan["threads"],
+           "blocks_per_sm": plan.get("blocks_per_sm"),
+           "halo": list(plan["halo"]), "smem_bytes": 0}
+    if "edges" in plan:
+        rec.update(edges=plan["edges"], points=plan["points"])
+    return rec
 
 
 def _plan_text(plan: Dict) -> str:
     bps = plan["blocks_per_sm"]
-    return (f"slab plan: runs of {plan['run']} points, one thread per "
-            f"class and point = {plan['threads']} threads a block, "
-            f"{'not asked' if bps is None else bps} blocks per SM, halo "
-            f"{plan['halo']}, {plan['smem_bytes']} bytes of shared memory")
+    if "edges" in plan:
+        head = (f"beam plan: runs of {plan['run']} points, a warp per "
+                f"edge, {plan['points']} points a thread, {plan['edges']} "
+                f"edges = {plan['threads']} threads a block")
+    else:
+        head = (f"slab plan: runs of {plan['run']} points, one thread per "
+                f"class and point = {plan['threads']} threads a block")
+    return (f"{head}, {'not asked' if bps is None else bps} blocks per SM, "
+            f"halo {plan['halo']}, {plan['smem_bytes']} bytes of shared "
+            f"memory")
 
 
 def level_cells(n: int, min_cells: int = 3) -> List[int]:
@@ -385,7 +395,7 @@ def fused_kernel_phase(device: torch.device, n: int,
         if cuda:
             timed = timed or run
             rec["ms"] = _median_ms(timed, device, reps=7, batch=20)
-            if kernel in ("B2", "B4"):
+            if kernel in ("B2", "B3", "B4"):
                 rec["device_ms"] = _graph_ms(timed, device)
             rec["ms_cold"] = _median_ms(timed, device, reps=11, flush=flush)
             rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=3)
@@ -436,6 +446,7 @@ def fused_kernel_phase(device: torch.device, n: int,
                   lambda: fz.residual(bp, x, fmp, r2s),
                   lambda: fz.plain_residual(bp, x, fmp, r2s),
                   fz.work("residual", nbytes))
+            out[-1]["plan"] = _plan_rec(fz.b3_plan(io, device=_index(device)))
             steps = cheb_static(frac, 2)
             for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
                 check("B4", label, storage, "final" if final else "step",
@@ -489,13 +500,16 @@ B5_BEFORE_MS = {
 }
 
 
-# B1, B1<double>, B2 and B4 before their slab redesign: the
-# one-thread-per-point kernels' times (ms, CUDA-event medians of
-# back-to-back launches) as chip_smoke.py of commit c27ec5f measured them
-# on an NVIDIA H100 80GB HBM3, 700.00 W, keyed (kernel, case, storage,
-# variant).  They are records, not measurements of this run: the smoke's
-# log prints each case's time beside its entry here, and no report field
-# carries them
+# The kernels before their redesign, keyed (kernel, case, storage,
+# variant): B1, B1<double>, B2 and B4 one thread per point, as
+# chip_smoke.py of commit c27ec5f measured them, and B3 (one thread per
+# flat item) and the r^2-cotangent ("r2", one thread per side pair), as
+# chip_smoke.py of commit 203cb5d measured them (SLAB_BEFORE_FROM); ms,
+# CUDA-event medians of back-to-back launches on an NVIDIA H100 80GB
+# HBM3, 700.00 W.  They are records, not measurements of this run: the
+# smoke's log prints each case's time beside its entry here, and no
+# report field carries them
+SLAB_BEFORE_FROM = {"B3": "203cb5d", "r2": "203cb5d"}
 SLAB_BEFORE_MS = {
     ("B1", "Octet 50^3 (MG level 0)", "f32", "matvec"): 0.0512,
     ("B1", "Octet 25^3 (MG level 1)", "f32", "matvec"): 0.0121,
@@ -539,13 +553,32 @@ SLAB_BEFORE_MS = {
     ("B4", "Octet 2^3 (MG level 5)", "f32", "final"): 0.0133,
     ("B4", "Octet 2^3 (MG level 5)", "bf16", "step"): 0.0289,
     ("B4", "Octet 2^3 (MG level 5)", "bf16", "final"): 0.0214,
+    ("B3", "Octet 50^3 (MG level 0)", "f32", "residual"): 0.0622,
+    ("B3", "Octet 50^3 (MG level 0)", "bf16", "residual"): 0.0537,
+    ("B3", "Octet 25^3 (MG level 1)", "f32", "residual"): 0.0168,
+    ("B3", "Octet 25^3 (MG level 1)", "bf16", "residual"): 0.0127,
+    ("B3", "Octet 13^3 (MG level 2)", "f32", "residual"): 0.0166,
+    ("B3", "Octet 13^3 (MG level 2)", "bf16", "residual"): 0.0154,
+    ("B3", "Octet 7^3 (MG level 3)", "f32", "residual"): 0.0151,
+    ("B3", "Octet 7^3 (MG level 3)", "bf16", "residual"): 0.0184,
+    ("B3", "Octet 4^3 (MG level 4)", "f32", "residual"): 0.0174,
+    ("B3", "Octet 4^3 (MG level 4)", "bf16", "residual"): 0.0162,
+    ("B3", "Octet 2^3 (MG level 5)", "f32", "residual"): 0.0191,
+    ("B3", "Octet 2^3 (MG level 5)", "bf16", "residual"): 0.0143,
+    ("B3", "BCC+Hybrid1+Hybrid4 6^3", "f32", "residual"): 0.0216,
+    ("B3", "BCC+Hybrid1+Hybrid4 6^3", "bf16", "residual"): 0.0149,
+    ("B3", "BCC+Hybrid1+Hybrid4 3^3", "f32", "residual"): 0.0188,
+    ("B3", "BCC+Hybrid1+Hybrid4 3^3", "bf16", "residual"): 0.0132,
+    ("r2", "Octet 50^3 f32", "f32", "vjp"): 0.0907,
+    ("r2", "Octet 50^3 f64", "f64", "vjp"): 0.1572,
 }
 
 
 def _was(kernel: str, case: str, storage: str, variant: str) -> str:
     was = SLAB_BEFORE_MS.get((kernel, case, storage, variant))
     return "not recorded" if was is None \
-        else f"{was:.4f} ms (recorded from commit c27ec5f)"
+        else (f"{was:.4f} ms (recorded from commit "
+              f"{SLAB_BEFORE_FROM.get(kernel, 'c27ec5f')})")
 
 
 def _b5_sweep(fz, run, io, with_x0, device, label, storage,
@@ -947,19 +980,78 @@ def vjp_phase(device: torch.device, n: int, seed: int = 3) -> List[Dict]:
                "max_abs_err": max(a for a, _ in errs),
                "max_rel_err": max(r_ for _, r_ in errs),
                "u_rel_err": errs[0][1], "r2_rel_err": errs[1][1], "tol": tol,
-               **_bound_of(B.vjp_work(itemsize=item), peak)}
+               **_bound_of(B.vjp_work(itemsize=item), peak),
+               "plan": _plan_rec(B.beam_plan(dt, _index(device)))}
         plain = lambda: B.plain_vjp_r2(g, u, r2p)
         if cuda:
             up, gp = F.pad(u, PAD), F.pad(g, PAD)
-            rec["ms"] = _median_ms(lambda: B.launch_vjp(up, gp, r2p), device,
-                                   reps=7, batch=20)
+            kern = lambda: B.launch_vjp(up, gp, r2p)
+            rec["ms"] = _median_ms(kern, device, reps=7, batch=20)
+            rec["device_ms"] = _graph_ms(kern, device)
             rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=2)
             rec["autograd_ms"] = _median_ms(reference, device, reps=3,
                                             batch=1)
         else:
-            rec["ms"] = rec["autograd_ms"] = None
+            rec["ms"] = rec["autograd_ms"] = rec["device_ms"] = None
             rec["plain_ms"] = _median_ms(plain, device, reps=1)
         out.append(rec)
+    return out
+
+
+def vjp_grid_phase(device: torch.device, n: int, seed: int = 4) -> List[Dict]:
+    """The r^2-cotangent kernel against its plain closed form
+    (``plain_vjp_r2``, limits VJP_TOL) in float32 and float64 at every
+    grid of ``_grids`` but the fine one (``vjp_phase`` holds that one
+    through the backward), bitwise on repeat on the card, with its beam
+    plan and its event and CUDA-graph times."""
+    cuda = device.type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for geom, cells, h, label, lvl in _grids(n):
+        if lvl == 0:
+            continue
+        for dt in (torch.float32, torch.float64):
+            sl = StructuredLattice(geom, (cells,) * 3, (h, h, h), E_MOD, NU,
+                                   dtype=dt, device=device)
+            mv, _ = sl.make_matvec()
+            B = mv.apply
+            shape = (sl.nc, 6) + sl.grid
+            u = torch.randn(shape, generator=gen, device=device, dtype=dt)
+            g = torch.randn(shape, generator=gen, device=device, dtype=dt)
+            r = 0.04 + 0.05 * torch.rand((sl.n_geom,) + (cells,) * 3,
+                                         generator=gen, device=device,
+                                         dtype=dt)
+            r2p = mv.prepare(r)
+            up, gp = F.pad(u, PAD), F.pad(g, PAD)
+            kern = (lambda: B.launch_vjp(up, gp, r2p)) if cuda \
+                else (lambda: B.vjp_r2(g, u, r2p))
+            plain = lambda: B.plain_vjp_r2(g, u, r2p)
+            got = kern()
+            if cuda and not torch.equal(got, kern()):
+                raise AssertionError(f"the r^2-cotangent kernel on {label}: "
+                                     f"two identical launches differ "
+                                     f"bitwise")
+            abs_err, rel_err = _err(got, plain())
+            storage = "f64" if dt == torch.float64 else "f32"
+            tol = VJP_TOL[dt]
+            if not rel_err <= tol:
+                raise AssertionError(f"the r^2-cotangent kernel on {label} "
+                                     f"({storage}): rel err {rel_err:.3e} "
+                                     f"> {tol}")
+            item = torch.finfo(dt).bits // 8
+            peak = PEAK_F64_PER_S if dt == torch.float64 else PEAK_F32_PER_S
+            rec = {"case": label, "storage": storage, "variant": "vjp",
+                   "max_abs_err": abs_err, "max_rel_err": rel_err,
+                   "tol": tol, **_bound_of(B.vjp_work(itemsize=item), peak),
+                   "plan": _plan_rec(B.beam_plan(dt, _index(device)))}
+            if cuda:
+                rec["ms"] = _median_ms(kern, device, reps=7, batch=20)
+                rec["device_ms"] = _graph_ms(kern, device)
+                rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=2)
+            else:
+                rec["ms"] = rec["device_ms"] = None
+                rec["plain_ms"] = _median_ms(plain, device, reps=1)
+            out.append(rec)
     return out
 
 
@@ -1412,7 +1504,7 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{_ms(c['ms'])} (after L2 flush {_ms(c['ms_cold'])}), plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
             f"({c['bound_by']}) [{card}]")
-        if c["kernel"] in ("B2", "B4"):
+        if c["kernel"] in ("B2", "B3", "B4"):
             key = (c["kernel"], c["case"], c["storage"], c["variant"])
             log(f"{' '.join(key)}: {_plan_text(c['plan'])} | "
                 f"{_ms(c['ms'])} (device, graph replay "
@@ -1449,13 +1541,26 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
 
     vjp_cases = vjp_phase(dev, n)
     for c in vjp_cases:
+        storage = c["case"].split()[-1]
         log(f"B1 VJP {c['case']}: u-cotangent rel err {c['u_rel_err']:.2e}, "
             f"r^2-cotangent {c['r2_rel_err']:.2e} (tol {c['tol']:.0e}); "
             f"launched in backward (B1, r^2-cotangent) "
             f"{c['launches_in_backward']} | r^2-cotangent kernel "
-            f"{_ms(c['ms'])}, its plain closed form {c['plain_ms']:.3f} ms, "
+            f"{_ms(c['ms'])} (device, graph replay {_ms(c['device_ms'])}), "
+            f"its plain closed form {c['plain_ms']:.3f} ms, "
             f"autograd of the gather form {_ms(c['autograd_ms'])}, bound "
-            f"{c['bound_ms']:.5f} ms ({c['bound_by']}) [{card}]")
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']}) | "
+            f"{_plan_text(c['plan'])} | before the redesign "
+            f"{_was('r2', c['case'], storage, 'vjp')} [{card}]")
+    vjp_grids = vjp_grid_phase(dev, n)
+    for c in vjp_grids:
+        log(f"r^2-cotangent {c['case']} {c['storage']}: rel err "
+            f"{c['max_rel_err']:.2e} (tol {c['tol']:.0e}) | kernel "
+            f"{_ms(c['ms'])} (device, graph replay {_ms(c['device_ms'])}), "
+            f"plain {c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
+            f"({c['bound_by']}) | {_plan_text(c['plan'])} | before the "
+            f"redesign {_was('r2', c['case'], c['storage'], 'vjp')} "
+            f"[{card}]")
     budget.check("B1 VJP")
 
     probe = probe_phase(dev)
@@ -1554,8 +1659,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{prof['phase_s']:.1f} s [{card}]")
     return {"device": info, "build": built, "cases": cases,
             "fused_cases": fused_cases, "cases64": cases64,
-            "vjp_cases": vjp_cases, "probe": probe, "mains": mains,
-            "design": design,
+            "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
+            "mains": mains, "design": design,
             "kernels": kernels_line(cases, fused_cases, mains, cases64,
-                                    vjp_cases, probe, design),
+                                    vjp_cases + vjp_grids, probe, design),
             "wall_s": budget.elapsed()}

@@ -418,3 +418,72 @@ def test_slab_b4_matches_plain_and_zeros_ghosts_on_card(name, cells,
                             / w.float().abs().max())
                 assert err <= tol, (io, final, err)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,cells", SLAB_CASES)
+def test_slab_b3_matches_plain_and_zeros_ghosts_on_card(name, cells,
+                                                        monkeypatch):
+    """B3 on its slab plan (float32 and bf16 storage) against its plain
+    version; its output starts from a NaN-filled ``torch.empty_like`` and
+    every ghost point comes back zero; bitwise on repeat."""
+    _need_card()
+    ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,
+                                            11 + sum(cells))
+    fz = tm.apply.fused
+    g = torch.Generator(device="cuda").manual_seed(2)
+    D = diag(r)
+    D = torch.where(D == 0, torch.ones_like(D), D)
+    nan_empty = lambda t, **kw: torch.full_like(t, float("nan"), **kw)
+    for io, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        P = lambda a: torch.nn.functional.pad(a, (1,) * 6).to(io)
+        x, fm = P(u), P(1.0 / D)
+        b = P(torch.randn(u.shape, generator=g, device="cuda"))
+        r2 = aux.to(io)
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty_like", nan_empty)
+            got = _repeat(lambda: fz.residual(b, x, fm, r2))
+        want = fz.plain_residual(b, x, fm, r2)
+        assert not torch.isnan(got).any()
+        inner = torch.zeros_like(got, dtype=torch.bool)
+        inner[..., 1:-1, 1:-1, 1:-1] = True
+        assert torch.all(got[~inner] == 0)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= tol, (io, err)
+    assert fz.b3_plan(torch.bfloat16, 0)["blocks_per_sm"] > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,cells", SLAB_CASES)
+def test_beam_r2_matches_plain_on_card(name, cells, monkeypatch):
+    """The r^2-cotangent kernel (float32 and float64) against its plain
+    closed form, its output NaN-filled before the launch so that every
+    position must be written (the border anchors, whose endpoints leave
+    the padded grid, write zero); g's ghosts are never read (NaN there
+    changes nothing); bitwise on repeat."""
+    _need_card()
+    pad = lambda a: torch.nn.functional.pad(a, (1,) * 6)
+    nan_empty = lambda t, **kw: torch.full_like(t, float("nan"), **kw)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        ts, tm, _, u, _, aux = _slab_inputs(name, cells, dtype,
+                                            3 + sum(cells))
+        B = tm.apply
+        g = torch.randn(u.shape, generator=torch.Generator(
+            device="cuda").manual_seed(9), device="cuda", dtype=dtype)
+        up, gp = pad(u), pad(g)
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty_like", nan_empty)
+            got = _repeat(lambda: B.launch_vjp(up, gp, aux))
+            gnan = pad(g) + 0.0
+            gnan[..., 0, :, :] = float("nan")
+            gnan[..., -1, :, :] = float("nan")
+            assert torch.equal(B.launch_vjp(up, gnan, aux), got)
+        want = B.plain_vjp_r2(g, u, aux)
+        assert not torch.isnan(got).any()
+        assert torch.all(got[want == 0] == 0)
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= tol, (dtype, err)
+        assert B.beam_plan(dtype, 0)["blocks_per_sm"] > 0
+    torch.cuda.synchronize()

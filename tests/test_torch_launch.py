@@ -58,3 +58,19 @@ def test_parser_reads_pointers_ints_floats_and_doubles():
     ret, name, params = _EXTERN.findall(text)[0]
     assert (ret, name) == ("int", "f")
     assert "".join(_code(p) for p in params.split(",")) == "pifdp"
+
+
+@pytest.mark.parametrize("source,name,codes", [
+    ("stencil_matvec", "stencil_vjp_r2_f32", "ppppppiiiiifffp"),
+    ("stencil_matvec", "stencil_vjp_r2_f64", "ppppppiiiiidddp"),
+    ("stencil_matvec", "stencil_vjp_r2_occupancy", "ii"),
+    ("mg_fused", "mg_residual", "ipppppppiiiiifffp"),
+    ("mg_fused", "mg_residual_occupancy", "ii"),
+])
+def test_planned_launchers_take_the_run(source, name, codes):
+    """B3 and the r^2-cotangent kernel take their host plan (B3 its run,
+    the r^2-cotangent its points a thread: the int after the table
+    pointers), and each has its own occupancy query (dtype, and threads
+    or points): the source and the table agree on all five."""
+    assert parse(source)[name] == ("int", codes)
+    assert launch.SIGNATURES[source][name] == codes

@@ -50,6 +50,43 @@ def test_phases_rehearse_on_cpu():
         assert any(line.startswith(tag) and "slab plan: runs of 32 points"
                    in line and "before the redesign" in line
                    for line in lines), tag
+    # B3 on its slab plan and the r^2-cotangent on its beam plan (runs of
+    # 32 points, one warp per edge, 4 edges a block), at every grid, with
+    # a CUDA-graph time on the card (none here); the parent's times,
+    # records, only in the log
+    b3 = [c for c in rep["fused_cases"] if c["kernel"] == "B3"]
+    assert len(b3) == 4 * 2                         # four grids, two storages
+    for c in b3:
+        p = c["plan"]
+        assert p["run"] == (8 if c["case"].startswith("BCC+") else 32)
+        assert p["threads"] == 128 and p["blocks_per_sm"] is None
+        assert c["device_ms"] is None and "before_ms" not in c
+    assert any(line.startswith("B3 Octet 4^3 (MG level 0) bf16 residual: "
+                               "slab plan: runs of 32 points") and
+               "before the redesign not recorded" in line for line in lines)
+    assert [(c["case"], c["storage"]) for c in rep["vjp_grids"]] == [
+        (case, st) for case in ("Octet 2^3 (MG level 1)",
+                                "BCC+Hybrid1+Hybrid4 4^3",
+                                "BCC+Hybrid1+Hybrid4 2^3")
+        for st in ("f32", "f64")]
+    for c in rep["vjp_cases"] + rep["vjp_grids"]:
+        p = c["plan"]
+        assert (p["run"], p["edges"], p["threads"], p["points"]) == \
+            (32, 4, 128, 2)
+        assert p["blocks_per_sm"] is None and p["smem_bytes"] == 0
+        assert c["device_ms"] is None and c["max_rel_err"] <= c["tol"]
+        assert "before_ms" not in c
+    assert smoke.SLAB_BEFORE_FROM == {"B3": "203cb5d", "r2": "203cb5d"}
+    assert smoke.SLAB_BEFORE_MS[("B3", "Octet 50^3 (MG level 0)", "bf16",
+                                 "residual")] > 0
+    assert smoke.SLAB_BEFORE_MS[("r2", "Octet 50^3 f64", "f64", "vjp")] > 0
+    for tag in ("B1 VJP Octet 4^3 f32", "B1 VJP Octet 4^3 f64",
+                "r^2-cotangent BCC+Hybrid1+Hybrid4 2^3 f64"):
+        assert any(line.startswith(tag) and "beam plan: runs of 32 points, "
+                   "a warp per edge, 2 points a thread, 4 edges = 128 "
+                   "threads a block" in line
+                   and "before the redesign not recorded" in line
+                   for line in lines), tag
     # B2-B5: every grid (the hybrid's coarse level too), both storages
     fc = rep["fused_cases"]
     assert {c["kernel"] for c in fc} == {"B2", "B3", "B4", "B5"}

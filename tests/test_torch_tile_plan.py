@@ -1,5 +1,5 @@
 """The slab kernels' host plan (``kernels/stencil.py`` ``slab_plan``),
-held to the index mapping of B1 and B4 (``csrc/stencil_matvec.cu``,
+held to the index mapping of B1, B3 and B4 (``csrc/stencil_matvec.cu``,
 ``csrc/mg_fused.cu``, the slab body in ``csrc/stencil_body.cuh``),
 emulated in numpy: the slabs cover every output point once, every side's
 reads from a computed point stay inside the padded grid (the ghost
@@ -18,8 +18,8 @@ import torch
 
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.stencil import (
-    SIDE_DTYPE_F64, SLAB_HALO, SLAB_THREADS, edge_sides, side_table,
-    slab_plan, stencil_reach)
+    BEAM_POINTS, BEAM_RUN, SIDE_DTYPE_F64, SLAB_HALO, SLAB_THREADS,
+    edge_sides, side_table, slab_plan, stencil_reach)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
@@ -40,7 +40,7 @@ def _lattice(name, cells=(2, 2, 2)):
 
 def _blocks(plan, grid, padded):
     """The launchers' grid: (runs per plane, planes), over the interior
-    planes (B1) or the padded ones (B4)."""
+    planes (B1) or the padded ones (B3, B4)."""
     X, Y, Z = grid
     return -(-((Y + 2) * (Z + 2)) // plan["run"]), X + 2 if padded else X
 
@@ -48,7 +48,8 @@ def _blocks(plan, grid, padded):
 def _points(plan, grid, padded):
     """Per (block, thread) of a launch, as the kernels map them: the
     padded point (x, y, z), the thread's class, and whether it computes
-    (B1: an interior point; B4: any padded point, ghosts written zero)."""
+    (B1: an interior point; B3, B4: any padded point, ghosts written
+    zero)."""
     X, Y, Z = grid
     Yp, Zp = Y + 2, Z + 2
     runs, planes = _blocks(plan, grid, padded)
@@ -76,24 +77,33 @@ def _cover(plan, grid, nc, padded):
     return count
 
 
-def _assert_cover(plan, nc):
+def _assert_cover(plan, nc, kernels=("B1", "B4")):
     for cells in CELLS:
         grid = tuple(c + 1 for c in cells)
         inner = np.zeros((nc,) + tuple(e + 2 for e in grid), np.int64)
         inner[:, 1:-1, 1:-1, 1:-1] = 1
-        assert np.array_equal(_cover(plan, grid, nc, False), inner), \
-            (cells, plan)
-        assert np.all(_cover(plan, grid, nc, True) == 1), (cells, plan)
+        if "B1" in kernels:
+            assert np.array_equal(_cover(plan, grid, nc, False), inner), \
+                (cells, plan)
+        if {"B3", "B4"} & set(kernels):
+            assert np.all(_cover(plan, grid, nc, True) == 1), (cells, plan)
 
 
-@pytest.mark.parametrize("name", sorted(GEOMS))
-def test_slabs_cover_every_point_once(name):
-    """B1 computes every interior (class, point) once and nothing else; B4
-    every padded one once (ghosts written zero); on every level of the
-    50^3 hierarchy and on grids no run divides, under the template's
-    plan."""
+@pytest.mark.parametrize("name,kernels", [
+    pytest.param(n, ("B1", "B4"), id=n) for n in sorted(GEOMS)] + [
+    pytest.param(n, ("B3",), id=f"{n}-B3") for n in sorted(GEOMS)])
+def test_slabs_cover_every_point_once(name, kernels):
+    """B1 computes every interior (class, point) once and nothing else; B3
+    and B4 every padded one once (ghosts written zero); on every level of
+    the 50^3 hierarchy and on grids no run divides, under the template's
+    plan (B3's own: the wrapper's, asked for B3)."""
     sl = _lattice(name)
-    _assert_cover(slab_plan(sl.nc, stencil_reach(sl)), sl.nc)
+    plan = slab_plan(sl.nc, stencil_reach(sl))
+    if "B3" in kernels:
+        fz = sl.make_matvec()[0].apply.fused
+        assert fz.b3_plan(torch.bfloat16) == fz.b3_plan(torch.float32) \
+            == plan
+    _assert_cover(plan, sl.nc, kernels)
 
 
 @pytest.mark.parametrize("nc", [1, 3, 5, 24, SLAB_THREADS])
@@ -142,7 +152,7 @@ def test_reads_stay_in_the_padded_grid(name):
         assert other[0] == rec["co"] * 6
         anchor = np.unravel_index(q + dr, (len(sl.edges), Xp, Yp, Zp))
         assert anchor[0] == rec["ei"]
-    dev = mv.apply.tables("cpu", grid_offsets=True)[0].numpy()
+    dev = mv.apply.tables("cpu")[0].numpy()
     got = dev.view(table.dtype)
     assert np.array_equal(got["du"], table["co"] * 6 * Fp + table["du"])
     assert np.array_equal(got["dr"], table["ei"] * Fp + table["dr"])
@@ -197,8 +207,9 @@ def test_wrapper_plan_is_the_rule():
 
 def test_limits_are_the_kernel_source_limits():
     """The host's limits are the ones the kernels are compiled with: the
-    halo and the block size, which bounds both slab kernels' launches;
-    the launchers check the host's plan against the same rule."""
+    halo and the block size, which bounds every slab kernel's launch (B1,
+    B3, B4) and the r^2-cotangent's; the launchers check the host's plan
+    against the same rule, and B3 and B4 launch over the padded planes."""
     body = (CSRC / "stencil_body.cuh").read_text()
     define = lambda text, name: int(
         re.search(rf"#define {name} (\d+)", text).group(1))
@@ -206,9 +217,29 @@ def test_limits_are_the_kernel_source_limits():
     assert define(body, "SLAB_THREADS") == SLAB_THREADS
     assert "nc * run <= SLAB_THREADS" in body
     for src, kernel in (("stencil_matvec.cu", "stencil_matvec_kernel"),
+                        ("stencil_matvec.cu", "stencil_vjp_r2_kernel"),
+                        ("mg_fused.cu", "mg_residual_kernel"),
                         ("mg_fused.cu", "mg_cheb_run_kernel")):
         text = (CSRC / src).read_text()
         assert re.search(r"__launch_bounds__\(SLAB_THREADS\)\s*\n"
                          + kernel + r"\(", text), kernel
         assert "slab_plan_ok(run, nc)" in text, src
+    fused = (CSRC / "mg_fused.cu").read_text()
+    assert fused.count("slab_plan_ok(run, nc)") == 2       # B3 and B4
+    assert fused.count("const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run,"
+                       " X + 2);") == 1                    # B3
+    assert "const dim3 grid(((s.Y + 2) * (s.Z + 2) + run - 1) / run, " \
+           "s.X + 2);" in fused                            # B4
+    matvec = (CSRC / "stencil_matvec.cu").read_text()
+    assert define(matvec, "BEAM_RUN") == BEAM_RUN
+    assert "#define BEAM_EDGES (SLAB_THREADS / BEAM_RUN)" in matvec
+    assert "beam_plan_ok(points, n_e)" in matvec
+    assert "(points == 1 || points == 2 || points == 4)" in matvec
+    assert BEAM_POINTS in (1, 2, 4)
+    # the one side table: no plain-offset table, no second K.u body
+    for src in ("stencil_body.cuh", "stencil_matvec.cu", "mg_fused.cu"):
+        text = (CSRC / src).read_text()
+        assert not re.search(r"\bstencil_acc", text), src
+        assert not re.search(r"\binterior\(", text), src
+        assert "long long q" not in text, src
     assert SIDE_DTYPE_F64.itemsize % 16 == 0       # 16-byte records
