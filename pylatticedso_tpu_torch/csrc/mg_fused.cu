@@ -43,14 +43,11 @@
 // thread already holds, so they add no pass over memory around the
 // stencil.  Re-reads of d (13 per value) go through L1, as in B1: a
 // shared-memory tile of d per brick measured slower than B4's slabs on an
-// H100 (PERF.md).  B3's slab launch does two 32-bit divisions a thread,
-// where the flat one-thread-per-item layout it was ported with did four
-// 64-bit ones (PERF.md).  B5 spreads the level
-// over a thread-block cluster (up to 16 SMs) so that each thread owns one
-// to four interior items and keeps their x, r, d and fd in registers; d,
-// the one vector that neighbours read, is exchanged through distributed
-// shared memory with a cluster barrier between phases (see the B5 section
-// below).
+// H100 (PERF.md).  B5 spreads the level over a thread-block cluster (up
+// to 16 SMs) so that each thread owns one to four interior items and
+// keeps their x, r, d and fd in registers; d, the one vector that
+// neighbours read, is exchanged through distributed shared memory with a
+// cluster barrier between phases (see the B5 section below).
 
 #include <cooperative_groups.h>
 

@@ -31,9 +31,8 @@
 // and dots it with g at both endpoints in a fixed order: no atomics,
 // bitwise-equal repeats.  It moves u, g and r^2 in and gr out (4 * (24 +
 // 24 + 24 + 24) F = 57.2 MB at 50^3 in float32 -> 17.1 us, bound by
-// bytes); a thread loads 25 values (u and g at two endpoints, r^2) where
-// the one-thread-per-side-pair kernel it replaces loaded 37 and formed
-// every strain twice.
+// bytes); a thread loads 25 values (u and g at two endpoints, r^2) and
+// forms the beam's strains once for both of its sides.
 //
 // Layout: u is ghost-padded [nc, 6, Xp, Yp, Zp] and r^2 [n_e, Xp, Yp, Zp]
 // (Xp = X + 2, ...); every shifted read of an interior point stays in
@@ -125,17 +124,28 @@ stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
 // offsets, gives the rest: A's flat point is Q + e * Fp - dr, and u + qA +
 // du is B's first row.
 //
-// One block per BEAM_RUN * PTS points of one padded plane (blockIdx.z)
-// and SLAB_THREADS / BEAM_RUN edges (blockIdx.x, the fastest-varying: the
-// blocks of one stretch of points run together and share u and g in L2):
-// a warp per edge, lane l taking points l, l + BEAM_RUN, ... of the
-// stretch, so every load of a warp is contiguous and a thread's later
-// points are its first point's addresses plus a constant (no index math
-// of their own).
+// One block per run of BEAM_RUN points of one padded plane (blockIdx.y
+// the run, blockIdx.z the plane) and BEAM_EDGES edges (blockIdx.x, the
+// fastest-varying: the blocks of one stretch of points run together and
+// share u and g in L2): a warp per edge, lane l at point l of the run, so
+// the edge's records are one address per warp and every load of a warp is
+// contiguous.  Threads of 2 or 4 points (a lane's points BEAM_RUN apart)
+// were measured and dropped: with the registers they take, neither was
+// faster on an H100 in every run (PERF.md).
 #define BEAM_RUN 32
 #define BEAM_EDGES (SLAB_THREADS / BEAM_RUN)
 
-template <typename T, typename C, typename SideT, int PTS>
+// true when the padded point (px, py, pz) shifted by the packed offset o
+// is an interior point
+__device__ __forceinline__ bool endpoint_interior(int px, int py, int pz,
+                                                  int o, int X, int Y,
+                                                  int Z) {
+  return (unsigned)(px + (o & 0xff) - 2) < (unsigned)X
+      && (unsigned)(py + ((o >> 8) & 0xff) - 2) < (unsigned)Y
+      && (unsigned)(pz + ((o >> 16) & 0xff) - 2) < (unsigned)Z;
+}
+
+template <typename T, typename C, typename SideT>
 __global__ void __launch_bounds__(SLAB_THREADS)
 stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
                       const T* __restrict__ r2, T* __restrict__ out,
@@ -144,137 +154,84 @@ stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
                       int X, int Y, int Z, C E, C kG, C G2) {
   const int Yp = Y + 2, Zp = Z + 2, P = Yp * Zp, Fp = (X + 2) * P;
   const int e = blockIdx.x * BEAM_EDGES + threadIdx.x / BEAM_RUN;
-  if (e >= n_e) return;
-  const int f0 = blockIdx.y * (BEAM_RUN * PTS) + threadIdx.x % BEAM_RUN;
-  const int px = blockIdx.z;
+  const int f = blockIdx.y * BEAM_RUN + threadIdx.x % BEAM_RUN;
+  if (e >= n_e || f >= P) return;
+  const int px = blockIdx.z, py = f / Zp, pz = f - py * Zp;
+  const int Q = px * P + f;
   const int4 bm = beams[e];
-  // endpoint offsets; the x test is the block's
-  const int ax = px + (bm.z & 0xff) - 1, ay = ((bm.z >> 8) & 0xff) - 1,
-            az = ((bm.z >> 16) & 0xff) - 1;
-  const int bx = px + (bm.w & 0xff) - 1, by = ((bm.w >> 8) & 0xff) - 1,
-            bz = ((bm.w >> 16) & 0xff) - 1;
-  const bool xA = ax >= 1 && ax <= X, xB = bx >= 1 && bx <= X;
-  if (!xA && !xB) {
-#pragma unroll
-    for (int p = 0; p < PTS; ++p) {
-      const int f = f0 + p * BEAM_RUN;
-      if (f < P) st(out + e * Fp + px * P + f, (C)0);
-    }
+  const bool inA = endpoint_interior(px, py, pz, bm.z, X, Y, Z);
+  const bool inB = endpoint_interior(px, py, pz, bm.w, X, Y, Z);
+  T* o = out + (e * Fp + Q);
+  if (!inA && !inB) {
+    st(o, (C)0);
     return;
   }
   const SideT& sd = sides[bm.x];
-  const int Q0 = px * P + f0;
-  const int qA0 = Q0 + e * Fp - sd.dr;     // endpoint A of the first point
-  const T* uA = u + (bm.y * 6 * Fp + qA0);
-  const T* uB = u + (qA0 + sd.du);
-  const T* gA = g + (bm.y * 6 * Fp + qA0);
-  const T* gB = g + (qA0 + sd.du);
-  const T* rq = r2 + (e * Fp + Q0);
-  T* oq = out + (e * Fp + Q0);
+  const int qA = Q + e * Fp - sd.dr;
+  const T* uA = u + (bm.y * 6 * Fp + qA);
+  const T* uB = u + (qA + sd.du);
+  const T* gA = g + (bm.y * 6 * Fp + qA);
+  const T* gB = g + (qA + sd.du);
+  // both endpoints of a live beam lie in the padded grid: g is read at
+  // both and a non-interior endpoint's value is dropped by a select (so
+  // g's ghosts may hold anything)
+  C a[6], b[6], la[6], lb[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    a[k] = ld(uA + k * Fp);
+    b[k] = ld(uB + k * Fp);
+    const C ga = ld(gA + k * Fp), gb = ld(gB + k * Fp);
+    la[k] = inA ? ga : (C)0;
+    lb[k] = inB ? gb : (C)0;
+  }
+  const C r2v = ld(r2 + (e * Fp + Q));
   const C pi = (C)3.14159265358979323846;
   const C t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
   const C b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
   const C n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
   const C invL = sd.invL, hl = sd.halfL;
-  int py = f0 / Zp, pz = f0 - py * Zp;
-#pragma unroll
-  for (int p = 0; p < PTS; ++p) {
-    if (p > 0) {                    // the point BEAM_RUN further on
-      pz += BEAM_RUN;
-      while (pz >= Zp) {
-        pz -= Zp;
-        ++py;
-      }
-    }
-    if (f0 + p * BEAM_RUN >= P) break;
-    const bool inA = xA && (unsigned)(py + ay - 1) < (unsigned)Y
-                     && (unsigned)(pz + az - 1) < (unsigned)Z;
-    const bool inB = xB && (unsigned)(py + by - 1) < (unsigned)Y
-                     && (unsigned)(pz + bz - 1) < (unsigned)Z;
-    const int o = p * BEAM_RUN;
-    if (!inA && !inB) {
-      st(oq + o, (C)0);
-      continue;
-    }
-    // both endpoints of a live beam lie in the padded grid: g is read
-    // at both and a non-interior endpoint's value is dropped by a select
-    // (so g's ghosts may hold anything)
-    C a[6], b[6], la[6], lb[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      a[k] = ld(uA + k * Fp + o);
-      b[k] = ld(uB + k * Fp + o);
-      const C ga = ld(gA + k * Fp + o), gb = ld(gB + k * Fp + o);
-      la[k] = inA ? ga : (C)0;
-      lb[k] = inB ? gb : (C)0;
-    }
-    const C r2v = ld(rq + o);
-    const C du0 = b[0] - a[0], du1 = b[1] - a[1], du2 = b[2] - a[2];
-    const C th0 = a[3] + b[3], th1 = a[4] + b[4], th2 = a[5] + b[5];
-    const C dt0 = b[3] - a[3], dt1 = b[4] - a[4], dt2 = b[5] - a[5];
-    const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
-    const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
-               - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
-    const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
-               + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
-    const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
-    const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
-    const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
-    const C dI = (pi * (C)0.5) * r2v;
-    const C s0 = (E * pi) * e0, s1 = (kG * pi) * e1, s2 = (kG * pi) * e2;
-    const C s3 = G2 * dI * e3, s4 = E * dI * e4, s5 = E * dI * e5;
-    const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
-    const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
-    const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
-    const C ms0 = hl * (s2 * b0 - s1 * n0);
-    const C ms1 = hl * (s2 * b1 - s1 * n1);
-    const C ms2 = hl * (s2 * b2 - s1 * n2);
-    const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
-    const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
-    const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
-    st(oq + o, (lb[0] - la[0]) * fu0 + (lb[1] - la[1]) * fu1
-                   + (lb[2] - la[2]) * fu2 + (la[3] + lb[3]) * ms0
-                   + (la[4] + lb[4]) * ms1 + (la[5] + lb[5]) * ms2
-                   + (lb[3] - la[3]) * md0 + (lb[4] - la[4]) * md1
-                   + (lb[5] - la[5]) * md2);
-  }
-}
-
-// a beam plan the r^2-cotangent kernel can run: 1, 2 or 4 points a
-// thread
-__host__ inline bool beam_plan_ok(int points, int n_e) {
-  return (points == 1 || points == 2 || points == 4) && n_e >= 1;
-}
-
-template <typename T, typename C, typename SideT, int PTS>
-static void launch_vjp_pts(const void* up, const void* gp, const void* r2p,
-                           void* out, const void* sides, const void* beams,
-                           int n_e, int X, int Y, int Z, C E, C kG, C G2,
-                           cudaStream_t stream) {
-  const dim3 grid((n_e + BEAM_EDGES - 1) / BEAM_EDGES,
-                  ((Y + 2) * (Z + 2) + BEAM_RUN * PTS - 1) / (BEAM_RUN * PTS),
-                  X + 2);
-  stencil_vjp_r2_kernel<T, C, SideT, PTS><<<grid, SLAB_THREADS, 0, stream>>>(
-      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
-      (const SideT*)sides, (const int4*)beams, n_e, X, Y, Z, E, kG, G2);
+  const C du0 = b[0] - a[0], du1 = b[1] - a[1], du2 = b[2] - a[2];
+  const C th0 = a[3] + b[3], th1 = a[4] + b[4], th2 = a[5] + b[5];
+  const C dt0 = b[3] - a[3], dt1 = b[4] - a[4], dt2 = b[5] - a[5];
+  const C e0 = (du0 * t0 + du1 * t1 + du2 * t2) * invL;
+  const C e1 = (du0 * b0 + du1 * b1 + du2 * b2) * invL
+             - (th0 * n0 + th1 * n1 + th2 * n2) * (C)0.5;
+  const C e2 = (du0 * n0 + du1 * n1 + du2 * n2) * invL
+             + (th0 * b0 + th1 * b1 + th2 * b2) * (C)0.5;
+  const C e3 = (dt0 * t0 + dt1 * t1 + dt2 * t2) * invL;
+  const C e4 = (dt0 * b0 + dt1 * b1 + dt2 * b2) * invL;
+  const C e5 = (dt0 * n0 + dt1 * n1 + dt2 * n2) * invL;
+  const C dI = (pi * (C)0.5) * r2v;
+  const C s0 = (E * pi) * e0, s1 = (kG * pi) * e1, s2 = (kG * pi) * e2;
+  const C s3 = G2 * dI * e3, s4 = E * dI * e4, s5 = E * dI * e5;
+  const C fu0 = s0 * t0 + s1 * b0 + s2 * n0;
+  const C fu1 = s0 * t1 + s1 * b1 + s2 * n1;
+  const C fu2 = s0 * t2 + s1 * b2 + s2 * n2;
+  const C ms0 = hl * (s2 * b0 - s1 * n0);
+  const C ms1 = hl * (s2 * b1 - s1 * n1);
+  const C ms2 = hl * (s2 * b2 - s1 * n2);
+  const C md0 = s3 * t0 + s4 * b0 + s5 * n0;
+  const C md1 = s3 * t1 + s4 * b1 + s5 * n1;
+  const C md2 = s3 * t2 + s4 * b2 + s5 * n2;
+  st(o, (lb[0] - la[0]) * fu0 + (lb[1] - la[1]) * fu1
+            + (lb[2] - la[2]) * fu2 + (la[3] + lb[3]) * ms0
+            + (la[4] + lb[4]) * ms1 + (la[5] + lb[5]) * ms2
+            + (lb[3] - la[3]) * md0 + (lb[4] - la[4]) * md1
+            + (lb[5] - la[5]) * md2);
 }
 
 template <typename T, typename C, typename SideT>
 static int launch_vjp(const void* up, const void* gp, const void* r2p,
                       void* out, const void* sides, const void* beams,
-                      int points, int n_e, int X, int Y, int Z, C E, C kG,
-                      C G2, void* stream) {
-  if (!beam_plan_ok(points, n_e)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (points == 1)
-    launch_vjp_pts<T, C, SideT, 1>(up, gp, r2p, out, sides, beams, n_e, X,
-                                   Y, Z, E, kG, G2, st_);
-  else if (points == 2)
-    launch_vjp_pts<T, C, SideT, 2>(up, gp, r2p, out, sides, beams, n_e, X,
-                                   Y, Z, E, kG, G2, st_);
-  else
-    launch_vjp_pts<T, C, SideT, 4>(up, gp, r2p, out, sides, beams, n_e, X,
-                                   Y, Z, E, kG, G2, st_);
+                      int n_e, int X, int Y, int Z, C E, C kG, C G2,
+                      void* stream) {
+  if (n_e < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_e + BEAM_EDGES - 1) / BEAM_EDGES,
+                  ((Y + 2) * (Z + 2) + BEAM_RUN - 1) / BEAM_RUN, X + 2);
+  stencil_vjp_r2_kernel<T, C, SideT><<<grid, SLAB_THREADS, 0,
+                                       (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
+      (const SideT*)sides, (const int4*)beams, n_e, X, Y, Z, E, kG, G2);
   return (int)cudaGetLastError();
 }
 
@@ -324,29 +281,27 @@ extern "C" int stencil_matvec_f64(const void* up, const void* r2p, void* out,
 }
 
 // the r^2-cotangent: u ghost-padded [nc, 6, Xp, Yp, Zp] with zero ghosts,
-// g [nc, 6, Xp, Yp, Zp] (its ghosts are not read), r^2 and out [n_e, Xp,
-// Yp, Zp]; sides the table with the grid's offsets (Side, or SideD for
-// the float64 instance), beams the host's beam table; points a thread as
-// the host planned it (kernels/stencil.py beam_plan)
+// g [nc, 6, Xp, Yp, Zp] (its ghost values are dropped), r^2 and out [n_e,
+// Xp, Yp, Zp]; sides the table with the grid's offsets (Side, or SideD
+// for the float64 instance), beams the host's beam table
+// (kernels/stencil.py beam_table)
 extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
                                   const void* r2p, void* out,
                                   const void* sides, const void* beams,
-                                  int points, int n_e, int X, int Y, int Z,
+                                  int n_e, int X, int Y, int Z,
                                   float E, float kG, float G2, void* stream) {
-  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, beams,
-                                        points, n_e, X, Y, Z, E, kG, G2,
-                                        stream);
+  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, beams, n_e,
+                                        X, Y, Z, E, kG, G2, stream);
 }
 
 extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
                                   const void* r2p, void* out,
                                   const void* sides, const void* beams,
-                                  int points, int n_e, int X, int Y, int Z,
+                                  int n_e, int X, int Y, int Z,
                                   double E, double kG, double G2,
                                   void* stream) {
   return launch_vjp<double, double, SideD>(up, gp, r2p, out, sides, beams,
-                                           points, n_e, X, Y, Z, E, kG, G2,
-                                           stream);
+                                           n_e, X, Y, Z, E, kG, G2, stream);
 }
 
 template <typename T, typename C, typename SideT>
@@ -368,26 +323,17 @@ extern "C" int stencil_matvec_occupancy(int dtype, int threads) {
 }
 
 template <typename T, typename C, typename SideT>
-static int vjp_occupancy(int points) {
+static int vjp_occupancy() {
   int n = 0;
-  cudaError_t e = cudaErrorInvalidValue;
-  if (points == 1)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, stencil_vjp_r2_kernel<T, C, SideT, 1>, SLAB_THREADS, 0);
-  else if (points == 2)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, stencil_vjp_r2_kernel<T, C, SideT, 2>, SLAB_THREADS, 0);
-  else if (points == 4)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, stencil_vjp_r2_kernel<T, C, SideT, 4>, SLAB_THREADS, 0);
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, stencil_vjp_r2_kernel<T, C, SideT>, SLAB_THREADS, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// blocks of the r^2-cotangent kernel (dtype 0 float, 2 double) of
-// SLAB_THREADS threads taking `points` points each that one SM holds at
-// once on the current device; a negative value is -cudaError
-extern "C" int stencil_vjp_r2_occupancy(int dtype, int points) {
-  if (dtype == 0) return vjp_occupancy<float, float, Side>(points);
-  if (dtype == 2) return vjp_occupancy<double, double, SideD>(points);
+// blocks of the r^2-cotangent kernel (dtype 0 float, 2 double) that one
+// SM holds at once on the current device; a negative value is -cudaError
+extern "C" int stencil_vjp_r2_occupancy(int dtype) {
+  if (dtype == 0) return vjp_occupancy<float, float, Side>();
+  if (dtype == 2) return vjp_occupancy<double, double, SideD>();
   return -(int)cudaErrorInvalidValue;
 }

@@ -30,9 +30,9 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "stencil_matvec_bf16": "pppppiiiiifffp",
         "stencil_matvec_f64": "pppppiiiiidddp",
         "stencil_matvec_occupancy": "ii",
-        "stencil_vjp_r2_f32": "ppppppiiiiifffp",
-        "stencil_vjp_r2_f64": "ppppppiiiiidddp",
-        "stencil_vjp_r2_occupancy": "ii",
+        "stencil_vjp_r2_f32": "ppppppiiiifffp",
+        "stencil_vjp_r2_f64": "ppppppiiiidddp",
+        "stencil_vjp_r2_occupancy": "i",
     },
     "mg_fused": {
         "mg_residual": "ipppppppiiiiifffp",

@@ -188,21 +188,18 @@ def slab_plan(nc: int, reach) -> Dict:
 
 
 # The r^2-cotangent runs one thread per beam (csrc/stencil_matvec.cu): a
-# block takes BEAM_RUN * points consecutive points of one padded plane
-# for SLAB_THREADS // BEAM_RUN template edges, one warp per edge, lane l
-# taking points l, l + BEAM_RUN, ...: the edge's record is one address
-# per warp, every load of a warp is contiguous, and a thread's later
-# points add a constant to its first point's addresses.  The class rule
-# of the slabs would give Octet's 24 edges runs of 4 points.
+# block takes a run of BEAM_RUN consecutive points of one padded plane
+# for SLAB_THREADS // BEAM_RUN template edges, one warp per edge: the
+# edge's record is one address per warp and every load of a warp is
+# contiguous.  The class rule of the slabs would give Octet's 24 edges
+# runs of 4 points.
 BEAM_RUN = 32                   # csrc's BEAM_RUN: compiled in
-BEAM_POINTS = 2                 # points a thread (1, 2 or 4; PERF.md)
 
 
 def beam_plan(n_e: int, reach) -> Dict:
     """The r^2-cotangent kernel's plan for a template of ``n_e`` edges
     whose sides reach ``reach`` points per axis: runs of BEAM_RUN points,
-    BEAM_POINTS points a thread, ``edges`` edges a block, ``groups``
-    blocks over the edges of each stretch of points.
+    ``edges`` edges a block, ``groups`` blocks over the edges of each run.
     The kernel skips a beam with no interior endpoint without reading it,
     which keeps every read inside the padded grid only while a side reads
     at most SLAB_HALO points away: raises ValueError for a template that
@@ -214,9 +211,8 @@ def beam_plan(n_e: int, reach) -> Dict:
     if n_e < 1:
         raise ValueError(f"beam plan: {n_e} edges")
     edges = SLAB_THREADS // BEAM_RUN
-    return {"run": BEAM_RUN, "points": BEAM_POINTS, "edges": edges,
-            "threads": SLAB_THREADS, "groups": -(-n_e // edges),
-            "halo": (SLAB_HALO,) * 3}
+    return {"run": BEAM_RUN, "edges": edges, "threads": SLAB_THREADS,
+            "groups": -(-n_e // edges), "halo": (SLAB_HALO,) * 3}
 
 
 class _B1(torch.autograd.Function):
@@ -468,7 +464,7 @@ class StencilMatvec:
         if device is not None:
             n = launch.functions("stencil_matvec")[
                 "stencil_vjp_r2_occupancy"](
-                    {torch.float32: 0, torch.float64: 2}[io], plan["points"])
+                    {torch.float32: 0, torch.float64: 2}[io])
             if n < 0:
                 raise RuntimeError(f"r^2-cotangent occupancy query failed: "
                                    f"cudaError {-n}")
@@ -481,9 +477,10 @@ class StencilMatvec:
 
     def _static(self, index: int, io: torch.dtype, vjp: bool) -> tuple:
         """The launch arguments that never change on device ``index`` for
-        storage ``io``: the side table (``tables``) and class_start (B1)
-        or the beam table (the r^2-cotangent), the plan's run, the count
-        (classes, or edges), grid and constants."""
+        storage ``io``: the side table (``tables``) with class_start and
+        the slab plan's run (B1), or with the beam table (the
+        r^2-cotangent, its plan asked of the card), the count (classes, or
+        edges), grid and constants."""
         key = (index, io, vjp)
         args = self._static_args.get(key)
         if args is None:
@@ -493,7 +490,7 @@ class StencilMatvec:
             if vjp:
                 p = self.beam_plan(io, index)
                 args = (table.data_ptr(), self.beams(dev).data_ptr(),
-                        p["points"], self.n_e, *self.grid, *self.consts)
+                        self.n_e, *self.grid, *self.consts)
             else:
                 p = self.slab_plan(io, index)
                 args = (table.data_ptr(), class_start.data_ptr(), p["run"],

@@ -250,15 +250,14 @@ def _index(device: torch.device) -> Optional[int]:
 
 def _plan_rec(plan: Dict) -> Dict:
     """A slab or beam plan as the report keeps it: run, threads per block
-    (one per class and point, or a warp per edge), edges a block and
-    points a thread (beam plans), blocks one SM holds (asked of the card;
-    None off it), halo and dynamic shared memory (none: the kernels read
-    through L1)."""
+    (one per class and point, or a warp per edge), edges a block (beam
+    plans), blocks one SM holds (asked of the card; None off it), halo and
+    dynamic shared memory (none: the kernels read through L1)."""
     rec = {"run": plan["run"], "threads": plan["threads"],
            "blocks_per_sm": plan.get("blocks_per_sm"),
            "halo": list(plan["halo"]), "smem_bytes": 0}
     if "edges" in plan:
-        rec.update(edges=plan["edges"], points=plan["points"])
+        rec["edges"] = plan["edges"]
     return rec
 
 
@@ -266,8 +265,8 @@ def _plan_text(plan: Dict) -> str:
     bps = plan["blocks_per_sm"]
     if "edges" in plan:
         head = (f"beam plan: runs of {plan['run']} points, a warp per "
-                f"edge, {plan['points']} points a thread, {plan['edges']} "
-                f"edges = {plan['threads']} threads a block")
+                f"edge, {plan['edges']} edges = {plan['threads']} threads "
+                f"a block")
     else:
         head = (f"slab plan: runs of {plan['run']} points, one thread per "
                 f"class and point = {plan['threads']} threads a block")

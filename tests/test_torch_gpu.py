@@ -461,7 +461,7 @@ def test_beam_r2_matches_plain_on_card(name, cells, monkeypatch):
     """The r^2-cotangent kernel (float32 and float64) against its plain
     closed form, its output NaN-filled before the launch so that every
     position must be written (the border anchors, whose endpoints leave
-    the padded grid, write zero); g's ghosts are never read (NaN there
+    the padded grid, write zero); g's ghost values are dropped (NaN there
     changes nothing); bitwise on repeat."""
     _need_card()
     pad = lambda a: torch.nn.functional.pad(a, (1,) * 6)

@@ -61,16 +61,16 @@ def test_parser_reads_pointers_ints_floats_and_doubles():
 
 
 @pytest.mark.parametrize("source,name,codes", [
-    ("stencil_matvec", "stencil_vjp_r2_f32", "ppppppiiiiifffp"),
-    ("stencil_matvec", "stencil_vjp_r2_f64", "ppppppiiiiidddp"),
-    ("stencil_matvec", "stencil_vjp_r2_occupancy", "ii"),
+    ("stencil_matvec", "stencil_vjp_r2_f32", "ppppppiiiifffp"),
+    ("stencil_matvec", "stencil_vjp_r2_f64", "ppppppiiiidddp"),
+    ("stencil_matvec", "stencil_vjp_r2_occupancy", "i"),
     ("mg_fused", "mg_residual", "ipppppppiiiiifffp"),
     ("mg_fused", "mg_residual_occupancy", "ii"),
 ])
 def test_planned_launchers_take_the_run(source, name, codes):
-    """B3 and the r^2-cotangent kernel take their host plan (B3 its run,
-    the r^2-cotangent its points a thread: the int after the table
-    pointers), and each has its own occupancy query (dtype, and threads
-    or points): the source and the table agree on all five."""
+    """B3 takes its host plan's run (the int after the table pointers)
+    and the r^2-cotangent its beam table (no plan argument: its run is
+    compiled in), and each has its own occupancy query: the source and
+    the table agree on all five."""
     assert parse(source)[name] == ("int", codes)
     assert launch.SIGNATURES[source][name] == codes

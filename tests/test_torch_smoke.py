@@ -71,8 +71,7 @@ def test_phases_rehearse_on_cpu():
         for st in ("f32", "f64")]
     for c in rep["vjp_cases"] + rep["vjp_grids"]:
         p = c["plan"]
-        assert (p["run"], p["edges"], p["threads"], p["points"]) == \
-            (32, 4, 128, 2)
+        assert (p["run"], p["edges"], p["threads"]) == (32, 4, 128)
         assert p["blocks_per_sm"] is None and p["smem_bytes"] == 0
         assert c["device_ms"] is None and c["max_rel_err"] <= c["tol"]
         assert "before_ms" not in c
@@ -83,8 +82,7 @@ def test_phases_rehearse_on_cpu():
     for tag in ("B1 VJP Octet 4^3 f32", "B1 VJP Octet 4^3 f64",
                 "r^2-cotangent BCC+Hybrid1+Hybrid4 2^3 f64"):
         assert any(line.startswith(tag) and "beam plan: runs of 32 points, "
-                   "a warp per edge, 2 points a thread, 4 edges = 128 "
-                   "threads a block" in line
+                   "a warp per edge, 4 edges = 128 threads a block" in line
                    and "before the redesign not recorded" in line
                    for line in lines), tag
     # B2-B5: every grid (the hybrid's coarse level too), both storages

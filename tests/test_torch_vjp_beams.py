@@ -5,7 +5,7 @@ held to the kernel's index mapping and arithmetic
 numpy:
 
 * the launch covers every (edge, padded r^2 position) once;
-* a beam's endpoint tests (from the packed 3-D offsets) skip exactly the
+* a beam's endpoint tests (from the packed 3-D offsets) drop exactly the
   sides the one-thread-per-side-pair kernel skipped (its flat range and
   interior tests), and every read of a beam the kernel computes lies inside
   the padded grid, at the element the flat layout names;
@@ -20,7 +20,7 @@ import torch
 
 from pylatticedso_tpu_torch import smoke
 from pylatticedso_tpu_torch.kernels.stencil import (
-    BEAM_POINTS, BEAM_RUN, SIDE_DTYPE, SIDE_DTYPE_F64, SLAB_THREADS,
+    BEAM_RUN, SIDE_DTYPE, SIDE_DTYPE_F64, SLAB_THREADS,
     beam_plan, beam_table, edge_sides, stencil_reach)
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
@@ -44,21 +44,20 @@ def _unpack(o):
     return np.array([((int(o) >> (8 * a)) & 0xFF) - 1 for a in range(3)])
 
 
-def _launch(plan, grid, n_e, points):
+def _launch(plan, grid, n_e):
     """The launcher's grid and the kernel's thread mapping: per (edge
-    block, run block, thread, point of the thread), the edge and the flat
-    point of a plane it takes and whether it is live; the padded planes
-    are blockIdx.z, one each."""
+    block, run block, thread), the edge and the flat point of a plane the
+    thread takes and whether it is live; the padded planes are blockIdx.z,
+    one each."""
     X, Y, Z = grid
     P = (Y + 2) * (Z + 2)
     run = plan["run"]
     per = SLAB_THREADS // run
-    t = np.arange(plan["threads"])[None, None, :, None]
-    p = np.arange(points)[None, None, None, :]
-    bx = np.arange(-(-n_e // per))[:, None, None, None]
-    by = np.arange(-(-P // (run * points)))[None, :, None, None]
-    e = bx * per + t // run + 0 * by + 0 * p
-    f = by * (run * points) + t % run + p * run + 0 * bx
+    t = np.arange(plan["threads"])[None, None, :]
+    bx = np.arange(-(-n_e // per))[:, None, None]
+    by = np.arange(-(-P // run))[None, :, None]
+    e = bx * per + t // run + 0 * by
+    f = by * run + t % run + 0 * bx
     return e, f, (e < n_e) & (f < P), np.arange(X + 2)
 
 
@@ -74,16 +73,14 @@ def test_beam_launch_covers_every_position_once(name):
     assert plan["threads"] == SLAB_THREADS and plan["run"] == BEAM_RUN
     assert plan["edges"] * plan["run"] == SLAB_THREADS
     assert plan["groups"] == -(-n_e // plan["edges"])
-    assert plan["points"] == BEAM_POINTS
-    for points in (1, 2, 4):                # every plan the launcher takes
-        for cells in CELLS:
-            grid = tuple(c + 1 for c in cells)
-            e, f, live, planes = _launch(plan, grid, n_e, points)
-            P = (grid[1] + 2) * (grid[2] + 2)
-            count = np.zeros((n_e, P), np.int64)
-            np.add.at(count, (e[live], f[live]), 1)
-            assert np.all(count == 1), (cells, points)
-            assert np.array_equal(planes, np.arange(grid[0] + 2))
+    for cells in CELLS:
+        grid = tuple(c + 1 for c in cells)
+        e, f, live, planes = _launch(plan, grid, n_e)
+        P = (grid[1] + 2) * (grid[2] + 2)
+        count = np.zeros((n_e, P), np.int64)
+        np.add.at(count, (e[live], f[live]), 1)
+        assert np.all(count == 1), (cells, plan)
+        assert np.array_equal(planes, np.arange(grid[0] + 2))
 
 
 def _parent_in(Q, dr, grid):
