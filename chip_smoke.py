@@ -13,9 +13,14 @@ the unfused f32 V-cycle; then the design-gradient step (the implicit
 adjoint through B1's VJP) on its three paths: float64 implicit against
 analytic, a float64 displacement objective with an imposed displacement
 against a central difference, and the same problem in float32 on the
-fused bf16 route (pylatticedso_tpu_torch/smoke.py); last, each of these
-steps takes two more warm steps under torch.profiler (device busy time
-and idle share).  Prints the card's
+fused bf16 route; then the design optimizer through optimize_lattice: the
+50^3 Octet with one radius per cell (125,000) under a density bound, in
+float64 on the multigrid route, three projected-gradient iterations, its
+gradient against a central difference, and SLSQP, the routing and the
+unstructured problem on an 8^3 grid (pylatticedso_tpu_torch/smoke.py);
+last, each of the compliance and design-gradient steps takes two more
+warm steps under torch.profiler (device busy time and idle share).
+Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
 there is no card (exit 1) or the port cannot be imported (exit 2: the

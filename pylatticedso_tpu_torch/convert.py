@@ -1,4 +1,5 @@
-"""Carry the JAX step's inputs and frozen multigrid state into the port.
+"""Carry the JAX step's inputs and frozen multigrid state, and the
+optimizer's density model and parameterization, into the port.
 
 Every function takes numpy arrays (``np.asarray`` of the JAX values), never
 JAX objects, so this module imports no JAX: a test converts the JAX tree to
@@ -12,7 +13,8 @@ import numpy as np
 import torch
 
 __all__ = ["precond_state_from_jax", "step_inputs_from_jax",
-           "objective_from_jax"]
+           "objective_from_jax", "kriging_from_jax",
+           "parameterization_from_jax"]
 
 
 def _t(a, dtype, device):
@@ -117,3 +119,31 @@ def objective_from_jax(objective_type: str, selectors=(),
         so, si = sels[0], sels[1]
         return lambda u, f_: -(torch.sum(so * u) * torch.sum(si * u))
     raise ValueError(f"unknown objective type {objective_type!r}")
+
+
+def kriging_from_jax(fields: dict):
+    """A JAX ``opti.density.KrigingDensity`` as its numpy fields
+    (``{f.name: getattr(model, f.name)}`` over its dataclass fields) -> the
+    port's ``KrigingDensity`` with the same values."""
+    from .opti.density import _FIELDS, KrigingDensity
+    return KrigingDensity(**{
+        k: float(fields[k]) if np.ndim(fields[k]) == 0
+        else np.array(fields[k], dtype=float) for k in _FIELDS})
+
+
+def parameterization_from_jax(fields: dict):
+    """A JAX ``opti.parameterization.Parameterization`` as its fields (the
+    bounds, start point and cell centers as numpy) -> the port's, with the
+    same kind, sizes, bounds and start point."""
+    import dataclasses
+
+    from .opti.parameterization import Parameterization
+    kw = {}
+    for f in dataclasses.fields(Parameterization):
+        v = fields[f.name]
+        if isinstance(v, np.ndarray):
+            v = np.array(v, dtype=float)
+        elif f.name == "_terms" and v is not None:
+            v = list(v)
+        kw[f.name] = v
+    return Parameterization(**kw)

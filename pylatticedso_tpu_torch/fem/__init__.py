@@ -1,1 +1,1 @@
-"""Linear solvers."""
+"""Linear solvers, boundary conditions and the unstructured beam operator."""

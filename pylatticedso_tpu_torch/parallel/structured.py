@@ -627,9 +627,10 @@ def make_structured_compliance_step(slat: StructuredLattice,
     ``step.precond_state(r)`` gives a frozen multigrid state;
     ``step.raw(radius_field, free, f, u0)`` is the differentiable
     ``(obj, u)``; ``step.batch(radius_fields)`` the value and gradient of
-    each of ``[B, ...]`` candidates (cold solves).  After each call
-    ``step.last_solve`` holds the forward solve's CG iteration count,
-    recurrence residual norm and convergence flag, and
+    each of ``[B, ...]`` candidates (cold solves).  ``step.solves()``
+    lists the records of the last ``step`` or ``raw`` call's solves.
+    After each step ``step.last_solve`` holds the forward solve's CG
+    iteration count, recurrence residual norm and convergence flag, and
     ``step.last_adjoint`` the adjoint solve's (None when there was none).
     """
     from ..fem.solve import custom_linear_solve, pcg
@@ -714,7 +715,9 @@ def make_structured_compliance_step(slat: StructuredLattice,
         return free * u + (1.0 - free) * u_imp
 
     def raw(radius_field, free, f, u0, pstate=None):
-        """The differentiable (objective, u) of one design."""
+        """The differentiable (objective, u) of one design; starts a new
+        record of solves (``step.solves()``)."""
+        solves.clear()
         u = _solve(radius_field, free, f, u0, pstate)
         return objective(u, f), u
 
@@ -806,7 +809,6 @@ def make_structured_compliance_step(slat: StructuredLattice,
         rs = torch.as_tensor(radius_fields, dtype=dt, device=dev)
         cs, gs = [], []
         for rb in rs:
-            solves.clear()
             c, g, _u = _vag(rb, torch.zeros_like(f))
             cs.append(c)
             gs.append(g)
@@ -814,6 +816,9 @@ def make_structured_compliance_step(slat: StructuredLattice,
 
     step.batch = step_batch
     step.raw = raw
+    # the last step() or raw() call's solves, in order: the forward, then
+    # the adjoint once the gradient was taken
+    step.solves = lambda: list(solves)
     step.operands = (free, f)
     step._operands = step.operands      # the JAX step's name for them
     step.matvec = matvec

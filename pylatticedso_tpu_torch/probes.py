@@ -24,6 +24,7 @@ prints what the scripts printed: ms and GFLOP/s per kind, and P2's result.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from typing import Dict
 
@@ -49,6 +50,19 @@ KERNELS = {
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _CHAIN_SHAPE = (ROWS, T)
+
+
+@functools.cache
+def _functions() -> Dict:
+    """probes.cu's functions; the library's compiled-in chain length is
+    held to K once, when this process first binds the library, not on
+    every launch."""
+    fns = launch.functions("probes")
+    length = fns["probe_chain_length"]()
+    if length != K:
+        raise RuntimeError(f"probes.cu was built with chain length "
+                           f"{length}, this module runs {K}")
+    return fns
 
 
 def _check(x: torch.Tensor, shape, what: str) -> None:
@@ -81,9 +95,7 @@ def chain(x: torch.Tensor, kind: str) -> torch.Tensor:
         return plain_chain(x, kind)
     if not x.is_cuda:
         raise ValueError(f"P1 runs on a CPU or CUDA tensor, got {x.device}")
-    fns = launch.functions("probes")
-    if fns["probe_chain_length"]() != K:
-        raise RuntimeError("probes.cu was built with another chain length")
+    fns = _functions()
     out = torch.empty_like(x)
     dev = x.get_device()
     rc = fns["probe_chain"](x.data_ptr(), out.data_ptr(), ROWS, T,

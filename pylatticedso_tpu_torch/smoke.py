@@ -20,7 +20,11 @@ VJP) runs its three paths (``design_phase``): (a) float64 implicit against
 analytic compliance gradients, (b) float64 displacement objective with an
 imposed displacement against a central finite difference, (c) the same
 problem in float32 on the fused bf16 route under bench.py's protocol.  The
-probes P1 and P2 run through their own entry (``probes.main``).
+design optimizer runs through ``opti.optimize_lattice`` (``optimizer_phase``:
+(o1) the n^3 Octet with one radius per cell under a relative-density
+bound, float64 on the multigrid route, projected gradient;
+(o2) FEM_AUTO's routing, SLSQP and the unstructured problem on an 8^3
+grid).  The probes P1 and P2 run through their own entry (``probes.main``).
 
 B5 is also run under every cluster size and layout of d the card can hold
 (``_b5_sweep``: the same bits as its plan's, each timed by CUDA events and
@@ -38,6 +42,7 @@ import contextlib
 import os
 import subprocess
 import time
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -97,6 +102,18 @@ STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 RESIDUAL_TOL = 1e-5
 ITERATION_RISE = 1.1         # a route's warm CG iterations vs the f32 route
 HYBRID = ["BCC", "Hybrid1", "Hybrid4"]
+# the optimizer phase: its density bound and slack, iterations, the
+# central difference's step in theta and limit, and the density fit of the
+# Octet radius grid 0.01-0.1 (10 points): a copy, in the port's tree, of
+# the fit the JAX package caches in data/outputs/density_datasets/
+OPT_DENSITY = 0.10
+OPT_DENSITY_SLACK = 1e-6
+OPT_ITERS = 3
+OPT_SMALL = 8                # (o2)'s cells per side
+OPT_FD_EPS = 1e-4
+OPT_FD_TOL = 1e-5
+OCTET_DENSITY_FIT = (Path(__file__).resolve().parent / "fits"
+                     / "Octet_0.01_0.1_10.gpr.npz")
 PAD = (1, 1, 1, 1, 1, 1)
 
 
@@ -1070,17 +1087,26 @@ def probe_phase(device: torch.device) -> Dict:
             raise AssertionError(f"P1 ({kind}) is not bitwise equal to its "
                                  f"plain version")
         nbytes = 2 * x.numel() * 4
+        # the bound in FP32 instructions: each step v * 1.0001 + 0.5 is a
+        # multiply and an add rounded on their own (the script's and the
+        # plain version's arithmetic, __fmul_rn/__fadd_rn in the kernel),
+        # and Hopper has no f32 instruction that does both with two
+        # roundings, so 2 instructions a step (probes.flops counts them)
+        # at the FMA-counted peak / 2 = 33.5e12 lane-instructions/s
         rec = {"kernel": "P1", "case": kind, "max_abs_err": 0.0,
                "max_rel_err": 0.0, "flops": probes.flops(kind),
-               **_bound_of((nbytes, probes.flops(kind)))}
+               **_bound_of((nbytes, probes.flops(kind)),
+                           PEAK_F32_PER_S / 2)}
         if cuda:
             rec["ms"] = _median_ms(lambda: probes.chain(x, kind), device,
                                    reps=7, batch=10)
+            rec["device_ms"] = _graph_ms(lambda: probes.chain(x, kind),
+                                         device)
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=3, batch=2)
             rec["gflops"] = probes.flops(kind) / rec["ms"] / 1e6
         else:
-            rec["ms"] = rec["gflops"] = None
+            rec["ms"] = rec["gflops"] = rec["device_ms"] = None
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=1)
         rec["library_ms"] = None
@@ -1327,6 +1353,193 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
     return rep
 
 
+# ------------------------------------------------------------ optimizer
+def _opt_config(n: int, sim_type: str) -> Dict:
+    """bench.py's lattice and load (``bench.py:173-181``: n^3 Octet, cell
+    size 1, radius 0.05, Zmin clamped in all six DOF, a total Z force of
+    -1 on Zmax) with the optimizer's block: compliance min, one radius per
+    cell, relative density at most OPT_DENSITY."""
+    return {
+        "geometry": {"cell_size": {"x": 1, "y": 1, "z": 1},
+                     "number_of_cells": {"x": n, "y": n, "z": n},
+                     "radii": [0.05], "geom_types": ["Octet"]},
+        "boundary_conditions": {
+            "Displacement": {"Fixed": {"Surface": ["Zmin"],
+                                       "DOF": ["X", "Y", "Z", "RX", "RY",
+                                               "RZ"],
+                                       "Value": [0, 0, 0, 0, 0, 0]}},
+            "Force": {"Load": {"Surface": ["Zmax"], "DOF": ["Z"],
+                               "Value": [-1.0]}}},
+        "optimization_informations": {
+            "simulation_type": sim_type, "objective_type": "compliance",
+            "objective_function": "min",
+            "optimization_parameters": {"type": "unit_cell"},
+            "constraints": {"relative_density": {"value": OPT_DENSITY,
+                                                 "mode": "upper"}}}}
+
+
+def _unit_direction(k: int, device, seed: int) -> torch.Tensor:
+    """A seeded random unit vector of positive entries (0.5-1.5 before
+    scaling): a direction of random signs makes g.v a sum that cancels to
+    ~1/sqrt(k) of its terms (``design_phase``'s finding), and the check
+    then measures that cancellation instead of the gradient."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    v = 0.5 + torch.rand(k, generator=gen, device=device,
+                         dtype=torch.float64)
+    return v / torch.linalg.norm(v)
+
+
+def _fd_check(value, vg, theta, v, eps: float) -> Dict:
+    """g.v at ``theta`` (``vg``) against the central difference of
+    ``value`` along ``v`` with step ``eps`` in theta."""
+    _val, g = vg(theta)
+    dd = float(torch.sum(g * v))
+    fd = (float(value(theta + eps * v)) - float(value(theta - eps * v))) \
+        / (2.0 * eps)
+    return {"directional": dd, "finite_difference": fd, "eps": eps,
+            "fd_rel_err": abs(fd - dd) / abs(dd)}
+
+
+def _same_bits(a, b) -> bool:
+    return all(x.cpu().numpy().tobytes() == y.cpu().numpy().tobytes()
+               for x, y in zip(a, b))
+
+
+def optimizer_phase(device: torch.device, n: int, small: int = OPT_SMALL,
+                    seed: int = 5) -> Dict:
+    """The design optimizer through ``optimize_lattice``, as a user runs
+    it, on the card.  (o1) n^3: the structured route (FEM_STRUCTURED),
+    float64, the multigrid preconditioner with the bench's options, the
+    projected gradient for OPT_ITERS iterations; its launch counts
+    are read just after the drive (the wrappers are made inside it, at
+    0), then the first iterate's gradient is held against a central
+    difference of the objective.  (o2) small^3: FEM_AUTO must route to the
+    structured problem; SLSQP for OPT_ITERS iterations must end feasible
+    and no worse than the uniform feasible start; the unstructured
+    problem's gradient against a central difference; and two evaluations
+    of each problem the same bits."""
+    from .design import build_lattice
+    from .opti import optimize_lattice
+    from .opti.density import KrigingDensity
+    from .opti.optimizer import OptimizationProblem
+    from .opti.structured_optimizer import StructuredOptimizationProblem
+
+    cuda = device.type == "cuda"
+    model = KrigingDensity.load(OCTET_DENSITY_FIT)
+    out = {}
+
+    # (o1) full width
+    t = time.perf_counter()
+    lat = build_lattice(_opt_config(n, "FEM_STRUCTURED"))
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    problem, res = optimize_lattice(
+        lat, driver="projected", max_iterations=OPT_ITERS, precond="mg",
+        mg_opts=dict(MG_OPTS, **ROUTES["f32"]), density_model=model,
+        device=device)
+    _sync(device)
+    drive_s = time.perf_counter() - t
+    ctr = _counters(problem._step)
+    counts = _read(ctr)
+    plain = _plain_calls(ctr)
+    single = [lvl.fused.single_ok for lvl in ctr["levels"]]
+    hist = problem.history
+    # optimize_projected accepts a trial that does not raise the objective
+    # above the last accepted one, starting from the first evaluation's
+    first = problem.evaluations[0]["objective"]
+    accepted, best = 0, first
+    for h in hist:
+        if h["objective"] <= best:
+            accepted, best = accepted + 1, h["objective"]
+    evaluations = list(problem.evaluations)       # the drive's
+    theta1 = problem._theta(hist[0]["parameters"])
+    v = _unit_direction(problem.param.n_params, device, seed)
+    with torch.no_grad():
+        fd = _fd_check(problem._objective_theta_structured,
+                       problem._value_and_grad, theta1, v, OPT_FD_EPS)
+    o1 = {"cells": n, "dofs": int(6 * lat.num_nodes),
+          "beams": lat.num_edges, "params": problem.param.n_params,
+          "build_lattice_s": build_s, "setup_s": dict(problem.setup_s),
+          "drive_s": drive_s, "evaluations": evaluations,
+          "history_objective": [h["objective"] for h in hist],
+          "history_density": [h["relative_density"] for h in hist],
+          "first_objective": first, "accepted": accepted,
+          "objective": res.objective,
+          "density": res.density, "iterations": res.iterations,
+          "kernel_launches": counts, "plain_gather_calls": plain, **fd}
+    out["o1"] = o1
+    if accepted < 1:
+        raise AssertionError(f"(o1) no accepted iterate in {len(hist)}")
+    if not res.objective <= first:
+        raise AssertionError(f"(o1) final objective {res.objective:.9e} "
+                             f"above the first {first:.9e}")
+    if not res.density <= OPT_DENSITY + OPT_DENSITY_SLACK:
+        raise AssertionError(f"(o1) density {res.density:.9f} > "
+                             f"{OPT_DENSITY} + {OPT_DENSITY_SLACK}")
+    if not fd["fd_rel_err"] <= OPT_FD_TOL:
+        raise AssertionError(f"(o1) g.v {fd['directional']:.9e} vs central "
+                             f"difference {fd['finite_difference']:.9e}: "
+                             f"rel err {fd['fd_rel_err']:.3e} > {OPT_FD_TOL}")
+    if cuda:
+        _check_launches("f32", counts, single, implicit=True, f64=True)
+        if plain:
+            raise AssertionError(f"(o1) the plain gather form ran {plain} "
+                                 f"times as an operator")
+
+    # (o2) a small grid: routing, SLSQP, the unstructured problem
+    lat_s = build_lattice(_opt_config(small, "FEM_AUTO"))
+    sp, res_s = optimize_lattice(lat_s, driver="slsqp",
+                                 max_iterations=OPT_ITERS,
+                                 density_model=model, device=device)
+    if not isinstance(sp, StructuredOptimizationProblem):
+        raise AssertionError(f"(o2) FEM_AUTO routed to {type(sp).__name__}")
+    apply = sp._step.matvec.apply
+    counts_s = {"B1f64": apply.launches_f64, "VJP": apply.launches_vjp,
+                "B1": apply.launches, "plain_gather_calls":
+                sp._step.matvec.plain_calls}
+    x_feas = sp.feasible_x0()
+    start = sp.objective(x_feas)
+    sp._u_warm = None
+    a = sp._value_and_grad(x_feas)
+    sp._u_warm = None
+    b = sp._value_and_grad(x_feas)
+    up = OptimizationProblem(lat_s, opt_params={"type": "unit_cell"},
+                             constraints=lat_s.config.optimization[
+                                 "constraints"],
+                             density_model=model, device=device)
+    th = up._theta(x_feas)
+    fd_s = _fd_check(lambda x: up._value_and_grad(x)[0], up._value_and_grad,
+                     th, _unit_direction(up.param.n_params, device, seed + 1),
+                     OPT_FD_EPS)
+    c1, c2 = up._value_and_grad(th), up._value_and_grad(th)
+    o2 = {"cells": small, "routed": type(sp).__name__,
+          "objective": res_s.objective, "density": res_s.density,
+          "iterations": res_s.iterations, "feasible_start_objective": start,
+          "message": res_s.message, "kernel_launches": counts_s,
+          "same_bits_structured": _same_bits(a, b),
+          "same_bits_unstructured": _same_bits(c1, c2),
+          "unstructured": fd_s}
+    out["o2"] = o2
+    if not res_s.density <= OPT_DENSITY + OPT_DENSITY_SLACK:
+        raise AssertionError(f"(o2) SLSQP ended infeasible: density "
+                             f"{res_s.density:.9f}")
+    if not res_s.objective <= start:
+        raise AssertionError(f"(o2) SLSQP's objective {res_s.objective:.9e} "
+                             f"is above the feasible start's {start:.9e}")
+    if not fd_s["fd_rel_err"] <= OPT_FD_TOL:
+        raise AssertionError(f"(o2) unstructured g.v vs central difference: "
+                             f"rel err {fd_s['fd_rel_err']:.3e} > "
+                             f"{OPT_FD_TOL}")
+    if not (o2["same_bits_structured"] and o2["same_bits_unstructured"]):
+        raise AssertionError(f"(o2) two evaluations differ in their bits: "
+                             f"{o2}")
+    if cuda and not (counts_s["B1f64"] > 0 and counts_s["VJP"] > 0
+                     and counts_s["B1"] == 0
+                     and counts_s["plain_gather_calls"] == 0):
+        raise AssertionError(f"(o2) launches {counts_s}")
+    return out
+
+
 def profile_phase(step, r: torch.Tensor, u: torch.Tensor, pstate,
                   device: torch.device, route: str, steps: int = 2) -> Dict:
     """Device time by kernel over ``steps`` warm-started steps of a built
@@ -1402,15 +1615,17 @@ def _entry(name, source, replaces, launches, recs, head, per_level,
 def kernels_line(cases: List[Dict], fused_cases: List[Dict],
                  mains: Dict[str, Dict], cases64: List[Dict],
                  vjp_cases: List[Dict], probe: Dict,
-                 design: Dict) -> List[Dict]:
+                 design: Dict, opt: Dict) -> List[Dict]:
     """The ``kernels`` entries of B1 (float32, float64, VJP), B2-B5, P1
     and P2.  ``launches`` sums each kernel's launches over the main paths
-    (the three routes' compliance steps and the three design-gradient
-    paths, each read just after its drive; the probes' entry for P1 and
-    P2); the timed shape is the largest the main path gives the kernel, in
-    the bench's bf16 storage for B2-B5."""
+    (the three routes' compliance steps, the three design-gradient paths
+    and the optimizer's full-width drive (o1), each read just after its
+    drive; the probes' entry for P1 and P2); the timed shape is the
+    largest the main path gives the kernel, in the bench's bf16 storage
+    for B2-B5."""
     runs = [mains[r]["kernel_launches"] for r in mains] \
-        + [design[p]["kernel_launches"] for p in ("a", "b", "c")]
+        + [design[p]["kernel_launches"] for p in ("a", "b", "c")] \
+        + [opt["o1"]["kernel_launches"]]
 
     def launches(tag):
         return [sum(x) for x in zip(*[run[tag] for run in runs])]
@@ -1569,9 +1784,12 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         lib = "" if c["library_ms"] is None \
             else (f", torch.mul {_ms(c['library_ms'])} (P2 / torch.mul "
                   f"{c['ms'] / c['library_ms']:.3f}, not gated)")
+        graph = "" if c["kernel"] != "P1" \
+            else f" (device, graph replay {_ms(c['device_ms'])})"
         log(f"{c['kernel']} {c['case']}: bitwise equal to plain | kernel "
-            f"{_ms(c['ms'])}{rate}, plain {c['plain_ms']:.4f} ms{lib}, "
-            f"bound {c['bound_ms']:.6f} ms ({c['bound_by']}) [{card}]")
+            f"{_ms(c['ms'])}{graph}{rate}, plain {c['plain_ms']:.4f} "
+            f"ms{lib}, bound {c['bound_ms']:.6f} ms ({c['bound_by']}) "
+            f"[{card}]")
     log(f"probes entry launches {probe['launches']}")
     budget.check("probes")
 
@@ -1642,6 +1860,37 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{c['kernel_launches']}; B5 launches per level by cluster size "
         f"{c['b5_clusters']} [{card}]")
     budget.check("design gradient")
+
+    opt = optimizer_phase(dev, n, small=min(OPT_SMALL, n))
+    o1, o2 = opt["o1"], opt["o2"]
+    ev = o1["evaluations"]
+    log(f"optimizer (o1) {n}^3 Octet unit_cell ({o1['params']} radii, "
+        f"{o1['dofs']} DOF), f64 MG, projected, {OPT_ITERS} iterations: "
+        f"build_lattice {o1['build_lattice_s']:.2f} s; problem "
+        f"{sum(o1['setup_s'].values()):.2f} s "
+        f"{ {k: round(v, 2) for k, v in o1['setup_s'].items()} }; drive "
+        f"{o1['drive_s']:.2f} s; value-and-gradient s "
+        f"{[round(e['seconds'], 3) for e in ev]}; CG iterations "
+        f"forward/adjoint {[(e['forward'], e['adjoint']) for e in ev]}; "
+        f"objective {o1['first_objective']:.9e} -> "
+        f"{o1['objective']:.9e} ({o1['accepted']} accepted of "
+        f"{len(o1['history_objective'])}); density {o1['density']:.9f} "
+        f"(bound {OPT_DENSITY}); g.v {o1['directional']:.9e} vs central "
+        f"difference {o1['finite_difference']:.9e} (eps {OPT_FD_EPS}): rel "
+        f"err {o1['fd_rel_err']:.2e} (tol {OPT_FD_TOL:.0e}); plain gather "
+        f"calls {o1['plain_gather_calls']}; launches "
+        f"{o1['kernel_launches']} [{card}]")
+    u = o2["unstructured"]
+    log(f"optimizer (o2) {o2['cells']}^3 Octet FEM_AUTO -> {o2['routed']}, "
+        f"SLSQP {o2['iterations']} iterations: objective {o2['objective']:.9e}"
+        f" vs the feasible start's {o2['feasible_start_objective']:.9e}, "
+        f"density {o2['density']:.9f} ({o2['message']}); unstructured g.v "
+        f"{u['directional']:.9e} vs central difference "
+        f"{u['finite_difference']:.9e}: rel err {u['fd_rel_err']:.2e}; same "
+        f"bits on repeat: structured {o2['same_bits_structured']}, "
+        f"unstructured {o2['same_bits_unstructured']}; launches "
+        f"{o2['kernel_launches']} [{card}]")
+    budget.check("optimizer")
     # the profiles come last: once torch.profiler has traced the card, the
     # process's later launches cost the host more (on an H100 the phases
     # run after the profiles read 30-50% more s/step)
@@ -1659,7 +1908,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     return {"device": info, "build": built, "cases": cases,
             "fused_cases": fused_cases, "cases64": cases64,
             "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
-            "mains": mains, "design": design,
+            "mains": mains, "design": design, "optimizer": opt,
             "kernels": kernels_line(cases, fused_cases, mains, cases64,
-                                    vjp_cases + vjp_grids, probe, design),
+                                    vjp_cases + vjp_grids, probe, design,
+                                    opt),
             "wall_s": budget.elapsed()}

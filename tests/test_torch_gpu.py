@@ -487,3 +487,112 @@ def test_beam_r2_matches_plain_on_card(name, cells, monkeypatch):
         assert err <= tol, (dtype, err)
         assert B.beam_plan(dtype, 0)["blocks_per_sm"] > 0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------ optimizer
+def _cantilever(n, geoms, radii):
+    return {"geometry": {"cell_size": {"x": 1, "y": 1, "z": 1},
+                         "number_of_cells": dict(zip("xyz", n)),
+                         "radii": radii, "geom_types": geoms},
+            "boundary_conditions": {
+                "Displacement": {"Fixed": {
+                    "Surface": ["Xmin"],
+                    "DOF": ["X", "Y", "Z", "RX", "RY", "RZ"],
+                    "Value": [0, 0, 0, 0, 0, 0]}},
+                "Force": {"Load": {"Surface": ["Xmax"], "DOF": ["Z"],
+                                   "Value": [-0.1]}}}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geoms,radii", [(["Octet"], [0.05]),
+                                         (["BCC", "Hybrid1"], [0.05, 0.04])])
+def test_optimizer_problems_on_card_match_the_cpu(geoms, radii):
+    """The structured problem (float64, Jacobi: B1<double> and the
+    r^2-cotangent kernel, no plain gather) and the unstructured one on the
+    card against the same problems on the CPU: value and gradient within
+    1e-10; the same bits on repeat on the card."""
+    _need_card()
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.opti.optimizer import OptimizationProblem
+    from pylatticedso_tpu_torch.opti.structured_optimizer import \
+        StructuredOptimizationProblem
+    lat = build_lattice(_cantilever((3, 2, 2), geoms, radii))
+    kw = dict(opt_params={"type": "unit_cell"}, constraints={})
+    for cls in (StructuredOptimizationProblem, OptimizationProblem):
+        card = cls(lat, device="cuda", **kw)
+        cpu = cls(lat, device="cpu", **kw)
+        x = 0.3 + 0.4 * np.random.default_rng(12).random(
+            card.param.n_params)
+        v, g = card._value_and_grad(x)
+        vc, gc = cpu._value_and_grad(x)
+        assert abs(float(v) - float(vc)) <= 1e-10 * abs(float(vc))
+        err = float((g.cpu() - gc).abs().max() / gc.abs().max())
+        assert err <= 1e-10, (cls.__name__, err)
+        if cls is StructuredOptimizationProblem:
+            apply = card._step.matvec.apply
+            assert apply.launches_f64 > 0 and apply.launches_vjp > 0
+            assert apply.launches == 0 and card._step.matvec.plain_calls == 0
+            card._u_warm = None
+        v2, g2 = card._value_and_grad(x)
+        assert torch.equal(v, v2) and torch.equal(g, g2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_unstructured_segment_sums_same_bits_on_card():
+    """The unstructured operator's per-node sums (K.u, diag K, the
+    endpoint gather's gradient, the node energies) add in one fixed order:
+    the same bits on every call on the card, and within 1e-12 of the
+    CPU's."""
+    _need_card()
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.fem.operator import build_operator
+    lat = build_lattice({"geometry": {
+        "cell_size": {"x": 1, "y": 1, "z": 1},
+        "number_of_cells": {"x": 6, "y": 6, "z": 6}, "radii": [0.05],
+        "geom_types": ["Octet"]}})
+    r = 0.03 + 0.05 * np.random.default_rng(13).random(lat.num_edges)
+    op = build_operator(lat.nodes, lat.edges, r, 1013.0, 0.3, device="cuda")
+    u = torch.randn((lat.num_nodes, 6), dtype=torch.float64, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(14))
+    w = torch.randn_like(u)
+
+    def once():
+        uu = u.clone().requires_grad_(True)
+        y = op.matvec(uu)
+        (gu,) = torch.autograd.grad(torch.sum(w * y), uu)
+        return y.detach(), op.diagonal(), gu
+
+    first = once()
+    for _ in range(3):
+        for a, b in zip(first, once()):
+            assert torch.equal(a, b)
+    e1 = lat.node_energies(u.cpu().numpy(), device="cuda")
+    assert np.array_equal(e1, lat.node_energies(u.cpu().numpy(),
+                                                device="cuda"))
+    opc = build_operator(lat.nodes, lat.edges, r, 1013.0, 0.3, device="cpu")
+    y_cpu = opc.matvec(u.cpu())
+    err = float((first[0].cpu() - y_cpu).abs().max() / y_cpu.abs().max())
+    assert err <= 1e-12, err
+
+
+@pytest.mark.gpu
+def test_kriging_fit_raises_without_sklearn(monkeypatch):
+    """The density model's fit needs scikit-learn, imported when fit is
+    called: without it (as on the card's machine) it raises ImportError;
+    a loaded model evaluates on the card."""
+    _need_card()
+    import sys
+    from pylatticedso_tpu_torch.opti.density import KrigingDensity
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError):
+        KrigingDensity.fit({(0.01,): 0.0075, (0.05,): 0.113, (0.1,): 0.378})
+    model = KrigingDensity(
+        X_train_scaled=np.array([[-1.0], [0.0], [1.0]]),
+        alpha=np.array([0.5, -0.2, 0.1]), length_scale=np.array([0.6]),
+        const=0.75, y_mean=0.16, y_std=0.12, scaler_mean=np.array([0.055]),
+        scaler_scale=np.array([0.029]))
+    v, g = model.mean_and_grad(np.array([0.05]), device="cuda")
+    vc, gc = model.mean_and_grad(np.array([0.05]), device="cpu")
+    assert v.is_cuda and abs(float(v) - float(vc)) <= 1e-14
+    assert abs(float(g) - float(gc)) <= 1e-12 * abs(float(gc))

@@ -42,3 +42,29 @@ def test_no_jax_import(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in BANNED]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+# the optimizer slice's modules (the JAX package's path under the port)
+SLICE = ["config.py", "materials.py", "gradients.py", "utils/timing.py",
+         "native/__init__.py", "design/tags.py", "design/lattice.py",
+         "design/__init__.py", "fem/bc.py", "fem/elements.py",
+         "fem/operator.py", "opti/parameterization.py", "opti/density.py",
+         "opti/optimizer.py", "opti/structured_optimizer.py",
+         "opti/__init__.py"]
+
+
+@pytest.mark.parametrize("rel", SLICE)
+def test_scan_covers_the_optimizer_slice(rel):
+    path = ROOT / "pylatticedso_tpu_torch" / rel
+    assert path in FILES
+    assert (ROOT / "pylatticedso_tpu" / rel).exists()
+
+
+def test_native_builds_its_own_copy():
+    """The port compiles its own dedup.cpp into its build directory and
+    never loads the JAX package's library."""
+    from pylatticedso_tpu_torch import native
+    assert native._SRC == ROOT / "pylatticedso_tpu_torch/native/dedup.cpp"
+    assert native._SRC.read_text() == \
+        (ROOT / "pylatticedso_tpu/native/dedup.cpp").read_text()
+    assert native._LIB_PATH.parent == ROOT / "pylatticedso_tpu_torch/_build"

@@ -9,6 +9,7 @@ kernels are held against these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py``.
 """
 
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -68,3 +69,25 @@ def test_entry_runs_the_plain_versions_on_request():
     assert lines[0].startswith("1d: ") and "GFLOP/s" in lines[0]
     assert lines[1].startswith("2d: ")
     assert lines[2].startswith("probe x * 2.0: ok")
+
+
+def test_chain_length_is_checked_once_when_the_library_binds(monkeypatch):
+    """P1's wrapper holds probes.cu's compiled-in chain length to K once,
+    when the process first binds the library, and not on every launch; a
+    library built with another length is refused."""
+    calls = []
+    fake = {"probe_chain_length": lambda: calls.append(1) or probes.K}
+    monkeypatch.setattr(probes.launch, "functions", lambda source: fake)
+    probes._functions.cache_clear()
+    try:
+        assert probes._functions() is fake
+        assert probes._functions() is fake
+        assert calls == [1]
+        assert "probe_chain_length" not in inspect.getsource(probes.chain)
+        probes._functions.cache_clear()
+        fake["probe_chain_length"] = lambda: probes.K + 1
+        with pytest.raises(RuntimeError, match="chain length"):
+            probes._functions()
+        assert probes._functions.cache_info().currsize == 0
+    finally:
+        probes._functions.cache_clear()

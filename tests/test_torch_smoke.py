@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from pylatticedso_tpu_torch import smoke
+from pylatticedso_tpu_torch import probes, smoke
 
 # one torch thread per test worker: the suite runs several workers at once
 torch.set_num_threads(1)
@@ -139,6 +139,43 @@ def test_phases_rehearse_on_cpu():
         [("P1", "1d"), ("P1", "2d"), ("P2", "8x128")]
     p2 = rep["probe"]["cases"][-1]
     assert p2["ms"] is None and p2["library_ms"] is None     # no card
+    # P1's bound in FP32 instructions: a multiply and an add, each rounded
+    # on its own, a step, at half the FMA-counted float32 peak; its
+    # CUDA-graph time is measured on the card only
+    want_ms = {"1d": 0.00367, "2d": 0.02934}
+    for c in rep["probe"]["cases"][:2]:
+        assert c["bound_by"] == "operations" and c["device_ms"] is None
+        assert c["bound_ms"] == pytest.approx(
+            1e3 * probes.flops(c["case"]) / (smoke.PEAK_F32_PER_S / 2))
+        assert round(c["bound_ms"], 5) == want_ms[c["case"]]
+        assert any(line.startswith(f"P1 {c['case']}: bitwise equal") and
+                   "(device, graph replay not measured)" in line
+                   for line in lines)
+    # the optimizer through optimize_lattice: (o1) at n, (o2) at min(8, n)
+    o1, o2 = rep["optimizer"]["o1"], rep["optimizer"]["o2"]
+    assert (o1["cells"], o1["params"], o1["iterations"]) == (4, 64, 3)
+    assert o1["accepted"] >= 1
+    assert o1["objective"] <= o1["first_objective"]
+    assert o1["density"] <= smoke.OPT_DENSITY + smoke.OPT_DENSITY_SLACK
+    assert o1["fd_rel_err"] <= smoke.OPT_FD_TOL
+    assert len(o1["evaluations"]) == smoke.OPT_ITERS + 1
+    assert all(e["forward"] > 0 and e["adjoint"] > 0
+               for e in o1["evaluations"])
+    assert set(o1["setup_s"]) == {"problem", "node_map", "fields", "step"}
+    assert o1["plain_gather_calls"] == 0
+    assert o1["kernel_launches"] == {
+        k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4", "B5")}
+    assert o2["cells"] == 4
+    assert o2["routed"] == "StructuredOptimizationProblem"
+    assert o2["density"] <= smoke.OPT_DENSITY + smoke.OPT_DENSITY_SLACK
+    assert o2["objective"] <= o2["feasible_start_objective"]
+    assert o2["unstructured"]["fd_rel_err"] <= smoke.OPT_FD_TOL
+    assert o2["same_bits_structured"] and o2["same_bits_unstructured"]
+    assert any(line.startswith("optimizer (o1) 4^3 Octet unit_cell (64 "
+                               "radii") for line in lines)
+    assert any(line.startswith("optimizer (o2) 4^3 Octet FEM_AUTO -> "
+                               "StructuredOptimizationProblem")
+               for line in lines)
     # the design-gradient paths under their gates
     design = rep["design"]
     assert design["a"]["grad_rel_err"] <= smoke.IMPLICIT_VS_ANALYTIC_TOL
