@@ -4,12 +4,13 @@
 
 Builds every CUDA kernel of the port with nvcc, holds each against its
 plain torch version on the card (B1 in float32 and float64 and its VJP,
-the r^2-cotangent kernel at every grid, B2-B5, the probes P1 and P2),
-then drives the port's main path once at
-full width on each of its routes: the 50^3 Octet compliance step with the
-multigrid preconditioner, bench.py's protocol, with the fused bf16 V-cycle
-(bench.py's default), the unfused bf16-I/O smoother (BENCH_MG_FUSED=0) and
-the unfused f32 V-cycle; then the design-gradient step (the implicit
+the r^2-cotangent kernel at every grid, B2-B5 and their bf16-compute
+instances B3c-B5c, the probes P1 and P2), then drives the port's main
+path once at full width on each of its routes: the 50^3 Octet compliance
+step with the multigrid preconditioner, bench.py's protocol, with the
+fused bf16 V-cycle (bench.py's default), the unfused bf16-I/O smoother
+(BENCH_MG_FUSED=0), the unfused f32 V-cycle and the fused V-cycle in bf16
+arithmetic (PLDSO_MG_FUSED_COMPUTE=bf16); then the design-gradient step (the implicit
 adjoint through B1's VJP) on its three paths: float64 implicit against
 analytic, a float64 displacement objective with an imposed displacement
 against a central difference, and the same problem in float32 on the

@@ -19,6 +19,19 @@
 // host sync.  r1 is not masked by fm: non-free points carry r values that
 // fd = 0 cancels, as in the TPU kernel.
 //
+// Each kernel has a bf16-compute instance (CB, the launchers' `compute`
+// flag; the wrappers name them B3c, B4c, B5c), the TPU kernels' instance
+// under PLDSO_MG_FUSED_COMPUTE=bf16 (make_stencil_acc(T, ct=bfloat16),
+// stencil_pallas.py:724-729, :761-766, :812-817): K.x is the dense form
+// in bf16 arithmetic (stencil_body.cuh dense_acc, from the sides' dense
+// records), widened to float; everything else is the float instance's,
+// with the Chebyshev update's operations each rounded on their own.  B5c
+// keeps x, r and d in float as B5 does and rounds d to bf16 at every
+// stencil read.  Bounds as below, with the dense form's operations (28 +
+// 12 for each term of E and of the row: 208 a side for Octet's 9 + 6
+// terms) at the non-tensor bf16 rate, twice the float rate: B3c at 50^3,
+// 1.32 GFLOP -> 9.9 us, is bound by bytes as B3 is.
+//
 // Layout: every vector is ghost-padded [nc, 6, Xp, Yp, Zp] (B1's layout,
 // not the TPU kernels' align8 [rows, Fp] flats) and r^2 is
 // [n_e, Xp, Yp, Zp].  B3, B4: one thread per (class, padded point) in
@@ -63,9 +76,19 @@ struct ChebCoefs {
 struct Stencil {
   const Side* sides;
   const int* class_start;
+  const DenseSide* dense;    // the sides' dense form, in the same order
   int nc, X, Y, Z;
   float E, kG, G2;
 };
+
+// The bf16-compute instances (CB) round every f32 operation of their
+// pointwise update on its own, as the plain version and the TPU kernel
+// compute it: d1 = c1 d + (c2i r) f, whose multiply and add nvcc would
+// otherwise contract into one fused multiply-add
+__device__ __forceinline__ float cheb_d_rn(float c1, float d, float c2i,
+                                           float r, float f) {
+  return __fadd_rn(__fmul_rn(c1, d), __fmul_rn(__fmul_rn(c2i, r), f));
+}
 
 // ------------------------------------------------------------------ B3
 // One block per slab of PADDED points, as B4 (below): blockIdx.y is the
@@ -73,8 +96,9 @@ struct Stencil {
 // point t % run for class t / run.  Interior points run the stencil on x
 // and write fm (b - K x), rounded once to the storage type; ghost points
 // write zeros, so out can come from torch.empty.  `sides` holds the
-// grid's offsets.
-template <typename T>
+// grid's offsets.  CB: K x in the dense form's bf16 arithmetic
+// (slab_dense), widened to float for the same update.
+template <typename T, bool CB>
 __global__ void __launch_bounds__(SLAB_THREADS)
 mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
                    const T* __restrict__ fm, const T* __restrict__ r2,
@@ -91,8 +115,12 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
     return;
   }
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  slab_acc<float, Side>(x, Fp, q, r2 + q, c, s.sides, s.class_start[c],
-                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  if (CB)
+    slab_dense<T, T>(x, Fp, q, r2 + q, c, s.sides, s.dense,
+                     s.class_start[c], s.class_start[c + 1], acc);
+  else
+    slab_acc<float, Side>(x, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     const int o = (c * 6 + k) * Fp + q;
@@ -107,8 +135,9 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
 // d and update their own values (x, r, fd and the centre d read once);
 // ghost points write zeros, so outputs can come from torch.empty and
 // every neighbour read of the next launch sees zero ghosts.  `sides`
-// holds the grid's offsets.
-template <typename T, bool FINAL>
+// holds the grid's offsets.  CB: K d in the dense form's bf16 arithmetic
+// (slab_dense on d rounded to bf16), the update in float on the stored d.
+template <typename T, bool FINAL, bool CB>
 __global__ void __launch_bounds__(SLAB_THREADS)
 mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const T* __restrict__ d, const T* __restrict__ fd,
@@ -136,15 +165,20 @@ mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
   const float c2i = c2 * sc[1];
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
-                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  if (CB)
+    slab_dense<T, T>(d, Fp, q, r2 + q, c, s.sides, s.dense,
+                     s.class_start[c], s.class_start[c + 1], acc);
+  else
+    slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     const int o = (c * 6 + k) * Fp + q;
     const float dc = ld(d + o);
     const float x1 = ld(x + o) + dc;
     const float r1 = ld(r + o) - acc[k];
-    const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
+    const float d1 = CB ? cheb_d_rn(c1, dc, c2i, r1, ld(fd + o))
+                        : c1 * dc + (c2i * r1) * ld(fd + o);
     if (FINAL) {
       st(x1o + o, x1 + d1);
     } else {
@@ -228,6 +262,45 @@ __device__ __forceinline__ void b5_stencil(
   }
 }
 
+// The dense form of K.d at one item (CB): self values from registers and
+// neighbours from the layout, each float d rounded to bf16 as it is read
+// (the TPU kernel casts its float d to the compute type at every stencil
+// read); the sides' dense records from global memory, through the
+// read-only path.  Unrolled by two, as b5_stencil.
+template <int LAYOUT, typename TR>
+__device__ __forceinline__ void b5_dense(
+    const float* d, const TR* r2, int Fp, int q, const float dv[6],
+    const Side* sides, const DenseSide* __restrict__ dense, int s_begin,
+    int s_end, float acc[6]) {
+  __nv_bfloat162 us[3], a[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    us[i] = __floats2bfloat162_rn(dv[2 * i], dv[2 * i + 1]);
+    a[i] = __float2bfloat162_rn(0.f);
+  }
+#pragma unroll 2
+  for (int s = s_begin; s < s_end; ++s) {
+    const Side& sd = sides[s];
+    __nv_bfloat162 cols[DENSE_WORDS];
+    dense_cols(dense + s, cols);
+    const int base = q + sd.du;
+    __nv_bfloat162 uo[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float* p = d + base + 2 * i * Fp;
+      uo[i] = LAYOUT == B5_GLOBAL
+                  ? __floats2bfloat162_rn(__ldcg(p), __ldcg(p + Fp))
+                  : __floats2bfloat162_rn(p[0], p[Fp]);
+    }
+    dense_acc(cols, sd.side, us, uo, ldh(r2 + q + sd.dr), a);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acc[2 * i] = __low2float(a[i]);
+    acc[2 * i + 1] = __high2float(a[i]);
+  }
+}
+
 // write a thread's new d value at flat offset o into the layout
 template <int LAYOUT>
 __device__ __forceinline__ void b5_put(float* d,
@@ -254,7 +327,7 @@ __device__ __forceinline__ void b5_sync(cooperative_groups::cluster_group& cl,
     cl.sync();
 }
 
-template <typename T, bool WITH_X0, int LAYOUT>
+template <typename T, bool WITH_X0, int LAYOUT, bool CB>
 __global__ void __launch_bounds__(B5_MAX_THREADS, 1)
 mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
                     const T* __restrict__ fd, const float* __restrict__ sc,
@@ -339,7 +412,10 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
     if (!have[j]) continue;
     const int c = cc[j], q = qq[j];
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (WITH_X0)
+    if (WITH_X0 && CB)
+      slab_dense<T, T>(x0, Fp, q, r2 + q, c, sides, s.dense, cstart[c],
+                       cstart[c + 1], acc);
+    else if (WITH_X0)
       slab_acc<float, Side>(x0, Fp, q, r2 + q, c, sides, cstart[c],
                             cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
@@ -374,13 +450,18 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
       if (!have[j]) continue;
       const int c = cc[j];
       float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      b5_stencil<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, cstart[c],
-                         cstart[c + 1], s.E, s.kG, s.G2, acc);
+      if (CB)
+        b5_dense<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, s.dense, cstart[c],
+                         cstart[c + 1], acc);
+      else
+        b5_stencil<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, cstart[c],
+                           cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
         x[j][k] = x[j][k] + dv[j][k];
         r[j][k] = r[j][k] - acc[k];
-        dv[j][k] = c1 * dv[j][k] + (c2i * r[j][k]) * f[j][k];
+        dv[j][k] = CB ? cheb_d_rn(c1, dv[j][k], c2i, r[j][k], f[j][k])
+                      : c1 * dv[j][k] + (c2i * r[j][k]) * f[j][k];
       }
     }
     // no block overwrites d before every block has read it
@@ -397,117 +478,161 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
 }
 
 // --------------------------------------------------------------- launchers
+// dtype: 0 float, 1 bfloat16 storage; compute: 0 float (the gather form),
+// 1 bfloat16 (the dense form, `dense` the sides' dense records in the
+// side table's order); any other value is refused.
 static Stencil make_stencil(const void* sides, const void* class_start,
-                            int nc, int X, int Y, int Z,
+                            const void* dense, int nc, int X, int Y, int Z,
                             float E, float kG, float G2) {
   Stencil s;
   s.sides = (const Side*)sides;
   s.class_start = (const int*)class_start;
+  s.dense = (const DenseSide*)dense;
   s.nc = nc; s.X = X; s.Y = Y; s.Z = Z;
   s.E = E; s.kG = kG; s.G2 = G2;
   return s;
 }
 
-// B3: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
-// sides and class_start the table with the grid's offsets; run as the
-// host planned it (kernels/stencil.py slab_plan)
-extern "C" int mg_residual(int dtype, const void* x, const void* b,
-                           const void* fm, const void* r2, void* out,
-                           const void* sides, const void* class_start,
+static bool flags_ok(int dtype, int compute, const void* dense) {
+  return (dtype == 0 || dtype == 1) && (compute == 0 || compute == 1)
+      && (compute == 0 || dense != nullptr);
+}
+
+typedef __nv_bfloat16 bf;
+
+template <typename T, bool CB>
+static void residual(const dim3& grid, const void* x, const void* b,
+                     const void* fm, const void* r2, void* out,
+                     const Stencil& s, int run, cudaStream_t stream) {
+  mg_residual_kernel<T, CB><<<grid, s.nc * run, 0, stream>>>(
+      (const T*)x, (const T*)b, (const T*)fm, (const T*)r2, (T*)out, s, run);
+}
+
+// B3: vectors ghost-padded [nc, 6, Xp, Yp, Zp]; sides and class_start the
+// table with the grid's offsets; run as the host planned it
+// (kernels/stencil.py slab_plan)
+extern "C" int mg_residual(int dtype, int compute, const void* x,
+                           const void* b, const void* fm, const void* r2,
+                           void* out, const void* sides,
+                           const void* class_start, const void* dense,
                            int run, int nc, int X, int Y, int Z,
                            float E, float kG, float G2, void* stream) {
-  if ((dtype != 0 && dtype != 1) || !slab_plan_ok(run, nc))
+  if (!flags_ok(dtype, compute, dense) || !slab_plan_ok(run, nc))
     return (int)cudaErrorInvalidValue;
-  const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
+  const Stencil s = make_stencil(sides, class_start, dense, nc, X, Y, Z, E,
+                                 kG, G2);
   const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X + 2);
   cudaStream_t st_ = (cudaStream_t)stream;
-  if (dtype == 0) {
-    mg_residual_kernel<float><<<grid, nc * run, 0, st_>>>(
-        (const float*)x, (const float*)b, (const float*)fm,
-        (const float*)r2, (float*)out, s, run);
-  } else {
-    typedef __nv_bfloat16 bf;
-    mg_residual_kernel<bf><<<grid, nc * run, 0, st_>>>(
-        (const bf*)x, (const bf*)b, (const bf*)fm, (const bf*)r2, (bf*)out,
-        s, run);
-  }
+  if (dtype == 0)
+    compute ? residual<float, true>(grid, x, b, fm, r2, out, s, run, st_)
+            : residual<float, false>(grid, x, b, fm, r2, out, s, run, st_);
+  else
+    compute ? residual<bf, true>(grid, x, b, fm, r2, out, s, run, st_)
+            : residual<bf, false>(grid, x, b, fm, r2, out, s, run, st_);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CB>
 static int residual_occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, mg_residual_kernel<T>, threads, 0);
+      &n, mg_residual_kernel<T, CB>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
 // blocks of B3 of `threads` threads that one SM holds at once on the
 // current device; a negative value is -cudaError
-extern "C" int mg_residual_occupancy(int dtype, int threads) {
-  if (dtype == 0) return residual_occupancy<float>(threads);
-  if (dtype == 1) return residual_occupancy<__nv_bfloat16>(threads);
-  return -(int)cudaErrorInvalidValue;
+extern "C" int mg_residual_occupancy(int dtype, int compute, int threads) {
+  if (!flags_ok(dtype, compute, (const void*)1))
+    return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return compute ? residual_occupancy<float, true>(threads)
+                   : residual_occupancy<float, false>(threads);
+  return compute ? residual_occupancy<bf, true>(threads)
+                 : residual_occupancy<bf, false>(threads);
 }
 
-template <typename T, bool FINAL>
+template <typename T, bool FINAL, bool CB>
 static void cheb_run(const void* x, const void* r, const void* d,
                      const void* fd, const void* sc, const void* r2,
                      void* x1, void* r1, void* d1, float c1, float c2,
                      const Stencil& s, int run, cudaStream_t stream) {
   const dim3 grid(((s.Y + 2) * (s.Z + 2) + run - 1) / run, s.X + 2);
-  mg_cheb_run_kernel<T, FINAL><<<grid, s.nc * run, 0, stream>>>(
+  mg_cheb_run_kernel<T, FINAL, CB><<<grid, s.nc * run, 0, stream>>>(
       (const T*)x, (const T*)r, (const T*)d, (const T*)fd, (const float*)sc,
       (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s, run);
 }
 
-// B4: dtype 0 float, 1 bfloat16; vectors ghost-padded [nc, 6, Xp, Yp, Zp];
-// sides and class_start the table with the grid's offsets; run as the
-// host planned it (kernels/stencil.py slab_plan)
-extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
-                           const void* r, const void* d, const void* fd,
-                           const void* sc, const void* r2, void* x1,
-                           void* r1, void* d1, float c1, float c2,
-                           const void* sides, const void* class_start,
-                           int run, int nc, int X, int Y, int Z,
-                           float E, float kG, float G2, void* stream) {
-  if ((dtype != 0 && dtype != 1) || !slab_plan_ok(run, nc))
-    return (int)cudaErrorInvalidValue;
-  const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
-  cudaStream_t st_ = (cudaStream_t)stream;
-  typedef __nv_bfloat16 bf;
-  if (dtype == 0 && final_)
-    cheb_run<float, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                          st_);
-  else if (dtype == 0)
-    cheb_run<float, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                           st_);
-  else if (final_)
-    cheb_run<bf, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run, st_);
+template <typename T, bool CB>
+static void cheb_run_final(int final_, const void* x, const void* r,
+                           const void* d, const void* fd, const void* sc,
+                           const void* r2, void* x1, void* r1, void* d1,
+                           float c1, float c2, const Stencil& s, int run,
+                           cudaStream_t stream) {
+  if (final_)
+    cheb_run<T, true, CB>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                          stream);
   else
-    cheb_run<bf, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run, st_);
+    cheb_run<T, false, CB>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                           stream);
+}
+
+// B4: vectors ghost-padded [nc, 6, Xp, Yp, Zp]; sides and class_start the
+// table with the grid's offsets; run as the host planned it
+// (kernels/stencil.py slab_plan)
+extern "C" int mg_cheb_run(int dtype, int compute, int final_,
+                           const void* x, const void* r, const void* d,
+                           const void* fd, const void* sc, const void* r2,
+                           void* x1, void* r1, void* d1, float c1, float c2,
+                           const void* sides, const void* class_start,
+                           const void* dense, int run, int nc, int X, int Y,
+                           int Z, float E, float kG, float G2,
+                           void* stream) {
+  if (!flags_ok(dtype, compute, dense) || !slab_plan_ok(run, nc))
+    return (int)cudaErrorInvalidValue;
+  const Stencil s = make_stencil(sides, class_start, dense, nc, X, Y, Z, E,
+                                 kG, G2);
+  cudaStream_t st_ = (cudaStream_t)stream;
+  if (dtype == 0 && compute)
+    cheb_run_final<float, true>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                                c2, s, run, st_);
+  else if (dtype == 0)
+    cheb_run_final<float, false>(final_, x, r, d, fd, sc, r2, x1, r1, d1,
+                                 c1, c2, s, run, st_);
+  else if (compute)
+    cheb_run_final<bf, true>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                             c2, s, run, st_);
+  else
+    cheb_run_final<bf, false>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                              c2, s, run, st_);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool FINAL>
+template <typename T, bool FINAL, bool CB>
 static int cheb_run_occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, mg_cheb_run_kernel<T, FINAL>, threads, 0);
+      &n, mg_cheb_run_kernel<T, FINAL, CB>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, bool CB>
+static int cheb_run_occupancy_final(int final_, int threads) {
+  return final_ ? cheb_run_occupancy<T, true, CB>(threads)
+                : cheb_run_occupancy<T, false, CB>(threads);
 }
 
 // blocks of B4 of `threads` threads that one SM holds at once on the
 // current device; a negative value is -cudaError
-extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int threads) {
-  typedef __nv_bfloat16 bf;
+extern "C" int mg_cheb_run_occupancy(int dtype, int compute, int final_,
+                                     int threads) {
+  if (!flags_ok(dtype, compute, (const void*)1))
+    return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return final_ ? cheb_run_occupancy<float, true>(threads)
-                  : cheb_run_occupancy<float, false>(threads);
-  if (dtype == 1)
-    return final_ ? cheb_run_occupancy<bf, true>(threads)
-                  : cheb_run_occupancy<bf, false>(threads);
-  return -(int)cudaErrorInvalidValue;
+    return compute ? cheb_run_occupancy_final<float, true>(final_, threads)
+                   : cheb_run_occupancy_final<float, false>(final_, threads);
+  return compute ? cheb_run_occupancy_final<bf, true>(final_, threads)
+                 : cheb_run_occupancy_final<bf, false>(final_, threads);
 }
 
 // largest dynamic shared memory one block may use on sm_90 (232,448 bytes)
@@ -516,7 +641,7 @@ static const int MAX_DEVICES = 64;
 
 // B5's function attributes, set once per device (they are per-device
 // state), each call's return code checked
-template <typename T, bool WITH_X0, int LAYOUT>
+template <typename T, bool WITH_X0, int LAYOUT, bool CB>
 static cudaError_t cheb_full_attrs() {
   static bool done[MAX_DEVICES] = {};
   int dev = 0;
@@ -524,7 +649,7 @@ static cudaError_t cheb_full_attrs() {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  auto kern = mg_cheb_full_kernel<T, WITH_X0, LAYOUT>;
+  auto kern = mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            MAX_SMEM);
   if (e != cudaSuccess) return e;
@@ -558,15 +683,15 @@ static cudaLaunchConfig_t cluster_config(const B5Plan& p, size_t smem,
   return cfg;
 }
 
-template <typename T, bool WITH_X0, int LAYOUT>
+template <typename T, bool WITH_X0, int LAYOUT, bool CB>
 static int cheb_full(const ChebFullArgs& a, const ChebCoefs& cf, int degree,
                      const B5Plan& p, const Stencil& s, size_t smem,
                      cudaStream_t stream) {
-  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT>();
+  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT, CB>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(p, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, mg_cheb_full_kernel<T, WITH_X0, LAYOUT>,
+  e = cudaLaunchKernelEx(&cfg, mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>,
                          (const T*)a.b, (const T*)a.x0, (const T*)a.fd,
                          (const float*)a.sc, (const T*)a.r2, (T*)a.out,
                          (float*)a.dg, (const int*)a.items, cf, degree, p,
@@ -575,14 +700,32 @@ static int cheb_full(const ChebFullArgs& a, const ChebCoefs& cf, int degree,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool WITH_X0>
-static int cheb_full_layout(int layout, const ChebFullArgs& a,
-                            const ChebCoefs& cf, int degree, const B5Plan& p,
-                            const Stencil& s, size_t smem,
-                            cudaStream_t stream) {
-  if (layout == B5_BCAST)
-    return cheb_full<T, WITH_X0, B5_BCAST>(a, cf, degree, p, s, smem, stream);
-  return cheb_full<T, WITH_X0, B5_GLOBAL>(a, cf, degree, p, s, smem, stream);
+// the instance of B5 for (with_x0, layout, compute), storage T
+template <typename T>
+static int cheb_full_instance(int with_x0, int layout, int compute,
+                              const ChebFullArgs& a, const ChebCoefs& cf,
+                              int degree, const B5Plan& p, const Stencil& s,
+                              size_t smem, cudaStream_t st) {
+  const int k = (with_x0 ? 4 : 0) + (layout == B5_GLOBAL ? 2 : 0)
+              + (compute ? 1 : 0);
+  switch (k) {
+    case 0: return cheb_full<T, false, B5_BCAST, false>(a, cf, degree, p, s,
+                                                        smem, st);
+    case 1: return cheb_full<T, false, B5_BCAST, true>(a, cf, degree, p, s,
+                                                       smem, st);
+    case 2: return cheb_full<T, false, B5_GLOBAL, false>(a, cf, degree, p, s,
+                                                         smem, st);
+    case 3: return cheb_full<T, false, B5_GLOBAL, true>(a, cf, degree, p, s,
+                                                        smem, st);
+    case 4: return cheb_full<T, true, B5_BCAST, false>(a, cf, degree, p, s,
+                                                       smem, st);
+    case 5: return cheb_full<T, true, B5_BCAST, true>(a, cf, degree, p, s,
+                                                      smem, st);
+    case 6: return cheb_full<T, true, B5_GLOBAL, false>(a, cf, degree, p, s,
+                                                        smem, st);
+    default: return cheb_full<T, true, B5_GLOBAL, true>(a, cf, degree, p, s,
+                                                        smem, st);
+  }
 }
 
 static B5Plan make_plan(int cluster, int threads, int ipt, int per_block,
@@ -611,18 +754,19 @@ static bool plan_ok(int layout, const B5Plan& p, int smem) {
 // c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg: float scratch
 // of nc * 6 * Fp (layout B5_GLOBAL only, else null); items: the interior
 // list
-extern "C" int mg_cheb_full(int dtype, int with_x0, int layout, const void* b,
-                            const void* x0, const void* fd, const void* sc,
-                            const void* r2, void* out, void* dg,
-                            const void* items, const float* c1,
+extern "C" int mg_cheb_full(int dtype, int compute, int with_x0, int layout,
+                            const void* b, const void* x0, const void* fd,
+                            const void* sc, const void* r2, void* out,
+                            void* dg, const void* items, const float* c1,
                             const float* c2, int degree,
                             int cluster, int threads, int ipt, int per_block,
                             int n_items, int n_sides, int n_e, int r2_smem,
                             int smem, const void* sides,
-                            const void* class_start, int nc, int X, int Y,
-                            int Z, float E, float kG, float G2,
-                            void* stream) {
-  if (degree < 0 || degree > MAX_DEGREE) return (int)cudaErrorInvalidValue;
+                            const void* class_start, const void* dense,
+                            int nc, int X, int Y, int Z, float E, float kG,
+                            float G2, void* stream) {
+  if (degree < 0 || degree > MAX_DEGREE || !flags_ok(dtype, compute, dense))
+    return (int)cudaErrorInvalidValue;
   const B5Plan p = make_plan(cluster, threads, ipt, per_block, n_items,
                              n_sides, n_e, r2_smem);
   const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
@@ -634,51 +778,56 @@ extern "C" int mg_cheb_full(int dtype, int with_x0, int layout, const void* b,
     cf.c1[i] = c1[i];
     cf.c2[i] = c2[i];
   }
-  const Stencil s = make_stencil(sides, class_start, nc, X, Y, Z, E, kG, G2);
+  const Stencil s = make_stencil(sides, class_start, dense, nc, X, Y, Z, E,
+                                 kG, G2);
   const ChebFullArgs a = {b, x0, fd, sc, r2, out, dg, items};
   cudaStream_t st_ = (cudaStream_t)stream;
   if (dtype == 0)
-    return with_x0
-        ? cheb_full_layout<float, true>(layout, a, cf, degree, p, s, smem, st_)
-        : cheb_full_layout<float, false>(layout, a, cf, degree, p, s, smem,
-                                         st_);
-  typedef __nv_bfloat16 bf;
-  return with_x0
-      ? cheb_full_layout<bf, true>(layout, a, cf, degree, p, s, smem, st_)
-      : cheb_full_layout<bf, false>(layout, a, cf, degree, p, s, smem, st_);
+    return cheb_full_instance<float>(with_x0, layout, compute, a, cf, degree,
+                                     p, s, smem, st_);
+  return cheb_full_instance<bf>(with_x0, layout, compute, a, cf, degree, p,
+                                s, smem, st_);
 }
 
-template <typename T, bool WITH_X0, int LAYOUT>
+template <typename T, bool WITH_X0, int LAYOUT, bool CB>
 static int max_clusters(const B5Plan& p, size_t smem) {
-  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT>();
+  cudaError_t e = cheb_full_attrs<T, WITH_X0, LAYOUT, CB>();
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(p, smem, 0, &attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(
-      &n, (void*)mg_cheb_full_kernel<T, WITH_X0, LAYOUT>, &cfg);
+      &n, (void*)mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>, &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-template <typename T, bool WITH_X0>
-static int max_clusters_layout(int layout, const B5Plan& p, size_t smem) {
-  if (layout == B5_BCAST) return max_clusters<T, WITH_X0, B5_BCAST>(p, smem);
-  return max_clusters<T, WITH_X0, B5_GLOBAL>(p, smem);
+template <typename T>
+static int max_clusters_instance(int with_x0, int layout, int compute,
+                                 const B5Plan& p, size_t smem) {
+  const int k = (with_x0 ? 4 : 0) + (layout == B5_GLOBAL ? 2 : 0)
+              + (compute ? 1 : 0);
+  switch (k) {
+    case 0: return max_clusters<T, false, B5_BCAST, false>(p, smem);
+    case 1: return max_clusters<T, false, B5_BCAST, true>(p, smem);
+    case 2: return max_clusters<T, false, B5_GLOBAL, false>(p, smem);
+    case 3: return max_clusters<T, false, B5_GLOBAL, true>(p, smem);
+    case 4: return max_clusters<T, true, B5_BCAST, false>(p, smem);
+    case 5: return max_clusters<T, true, B5_BCAST, true>(p, smem);
+    case 6: return max_clusters<T, true, B5_GLOBAL, false>(p, smem);
+    default: return max_clusters<T, true, B5_GLOBAL, true>(p, smem);
+  }
 }
 
 // how many clusters of `cluster` blocks of `threads` threads and
 // `smem` bytes of dynamic shared memory the card can hold at once (0: it
 // cannot run one); a negative value is -cudaError
-extern "C" int mg_cheb_full_max_clusters(int dtype, int with_x0, int layout,
-                                         int cluster, int threads,
-                                         int smem) {
+extern "C" int mg_cheb_full_max_clusters(int dtype, int compute, int with_x0,
+                                         int layout, int cluster,
+                                         int threads, int smem) {
   const B5Plan p = make_plan(cluster, threads, 1, threads, threads, 0, 0, 0);
-  if (!plan_ok(layout, p, smem)) return -(int)cudaErrorInvalidValue;
+  if (!plan_ok(layout, p, smem) || !flags_ok(dtype, compute, (const void*)1))
+    return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return with_x0 ? max_clusters_layout<float, true>(layout, p, smem)
-                   : max_clusters_layout<float, false>(layout, p, smem);
-  typedef __nv_bfloat16 bf;
-  return with_x0 ? max_clusters_layout<bf, true>(layout, p, smem)
-                 : max_clusters_layout<bf, false>(layout, p, smem);
+    return max_clusters_instance<float>(with_x0, layout, compute, p, smem);
+  return max_clusters_instance<bf>(with_x0, layout, compute, p, smem);
 }
-

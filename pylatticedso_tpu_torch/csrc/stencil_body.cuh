@@ -21,7 +21,9 @@
 // r^2-cotangent kernel keeps its own copy of the strain and row math
 // (sharing one helper with side_acc moved B1's bits on an H100, PERF.md).
 // Every kernel reads the one side table, with the launch grid's offsets
-// written in (below, "slabs").  Sides are summed in table order
+// written in (below, "slabs").  The bf16-compute instances of B3-B5 run
+// dense_acc (below, "dense form"): the TPU kernels' other formulation,
+// bf16 arithmetic in their order of operations.  Sides are summed in table order
 // (class_start[c] .. class_start[c + 1]) in registers: no atomics,
 // bitwise-equal repeats.
 
@@ -167,6 +169,172 @@ __device__ __forceinline__ void slab_acc(
     for (int k = 0; k < 6; ++k) uo[k] = ld(ub + k * Fp);
     const C r2 = ld(r2q + sd.dr);
     side_acc<C, SideT>(sd, us, uo, r2, E, kG, G2, acc);
+  }
+}
+
+// ------------------------------------------------------------- dense form
+// The bf16-compute instances of B3-B5 (mg_fused.cu, PLDSO_MG_FUSED_COMPUTE
+// =bf16) follow the TPU kernels' dense form, not the gather form above:
+// make_stencil_acc with ct = bfloat16 (stencil_pallas.py:307, its dense
+// branch :338-377), which works from a packed table of constant columns
+// (_pack_dense_coefs :97).  Per side, from bf16 values of uA, uB and r^2:
+//   K  = r2 c0 + (r2 r2) c1             (six stiffness rows)
+//   d  = uB - uA,  p3 = uA[3:] + uB[3:]
+//   E  = sum over the side's E terms, in order, of src_s col_s
+//        (src: d0..d5, then p0..p2)
+//   Sd = K E
+//   acc[self] = acc[self] + sum over its row terms, in order, of Sd_s col_s
+// with every product and sum rounded to bf16 on its own, and acc itself
+// held in bf16 (widened to float only by the caller).  In bf16 every
+// rounding point shows, so dense_acc repeats these operations in this
+// order: the _rn intrinsics keep nvcc from contracting a multiply and an
+// add into one fused multiply-add (which rounds once).  The six rows are
+// three __nv_bfloat162 pairs, (0,1), (2,3), (4,5); a term is one scalar
+// broadcast to a pair times a column.  The host packs each side's columns
+// in bf16, rounded from the f32 table as the TPU kernel rounds them
+// (kernels/fused.py DenseForm), one slot per source: a slot whose column
+// the TPU table skips (all zero) holds zeros here and is summed all the
+// same, branch-free.  That never changes acc's bits: a zero term (finite
+// values times zeros) added to a partial sum leaves it as it is but for
+// the sign of a zero, a zero's sign never reaches a nonzero product or
+// sum, and acc, which starts at +0, is never -0, so acc + (-0) is acc.
+// The first term of each sum (slot 0, the frame's x components) is never
+// a zero column for an orthonormal frame; the host checks it.
+#define DENSE_A 9     // E's term slots: d0..d5, p0..p2
+#define DENSE_B 6     // the row's term slots: Sd0..Sd5
+#define DENSE_COLS (2 + DENSE_A + DENSE_B)
+#define DENSE_WORDS 52  // the columns' 51 bf16 pairs, padded to 16 bytes
+
+struct __align__(16) DenseSide {
+  // K's two columns, E's nine slots, the row's six; rows in pairs
+  __nv_bfloat162 col[DENSE_COLS][3];
+};                    // 208 bytes: 13 16-byte words
+
+static_assert(sizeof(DenseSide) == 16 * (DENSE_WORDS / 4),
+              "DenseSide must match the host table layout");
+
+// a value of the storage type rounded to bf16 (exact for bf16 storage),
+// as the TPU kernel casts its windows to the compute type
+__device__ __forceinline__ __nv_bfloat16 ldh(const float* p) {
+  return __float2bfloat16_rn(*p);
+}
+__device__ __forceinline__ __nv_bfloat16 ldh(const __nv_bfloat16* p) {
+  return *p;
+}
+
+// rows 2i and 2i + 1 of a field with row stride Fp, as one pair
+template <typename T>
+__device__ __forceinline__ __nv_bfloat162 ldh2(const T* p, int Fp) {
+  return __halves2bfloat162(ldh(p), ldh(p + Fp));
+}
+
+// a side's columns into registers: 13 16-byte loads, the same address in
+// every thread of a warp, through the read-only path
+__device__ __forceinline__ void dense_cols(const DenseSide* ds,
+                                           __nv_bfloat162 c[DENSE_WORDS]) {
+  const uint4* p = reinterpret_cast<const uint4*>(ds);
+#pragma unroll
+  for (int i = 0; i < DENSE_WORDS / 4; ++i) {
+    const uint4 w = __ldg(p + i);
+    c[4 * i] = *reinterpret_cast<const __nv_bfloat162*>(&w.x);
+    c[4 * i + 1] = *reinterpret_cast<const __nv_bfloat162*>(&w.y);
+    c[4 * i + 2] = *reinterpret_cast<const __nv_bfloat162*>(&w.z);
+    c[4 * i + 3] = *reinterpret_cast<const __nv_bfloat162*>(&w.w);
+  }
+}
+
+// One side's dense-form contribution added to acc, from its columns c
+// (dense_cols), the self values us, the other endpoint's uo (pairs of
+// rows) and the side's r^2.
+__device__ __forceinline__ void dense_acc(const __nv_bfloat162 c[DENSE_WORDS],
+                                          int side,
+                                          const __nv_bfloat162 us[3],
+                                          const __nv_bfloat162 uo[3],
+                                          __nv_bfloat16 r2,
+                                          __nv_bfloat162 acc[3]) {
+  // side A: uA = self, uB = other; side B the other way round
+  __nv_bfloat162 a[3], b[3], d[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    a[i] = side ? uo[i] : us[i];
+    b[i] = side ? us[i] : uo[i];
+    d[i] = __hsub2_rn(b[i], a[i]);
+  }
+  // p3 = uA[3:] + uB[3:]: p0 is the high lane of pair (2,3)
+  const __nv_bfloat162 q23 = __hadd2_rn(a[1], b[1]);
+  const __nv_bfloat162 p12 = __hadd2_rn(a[2], b[2]);
+  const __nv_bfloat162 rr = __bfloat162bfloat162(r2);
+  const __nv_bfloat162 r4 = __bfloat162bfloat162(__hmul_rn(r2, r2));
+  __nv_bfloat162 K[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    K[i] = __hadd2_rn(__hmul2_rn(rr, c[i]), __hmul2_rn(r4, c[3 + i]));
+  const __nv_bfloat162 src[DENSE_A] = {
+      __low2bfloat162(d[0]), __high2bfloat162(d[0]),
+      __low2bfloat162(d[1]), __high2bfloat162(d[1]),
+      __low2bfloat162(d[2]), __high2bfloat162(d[2]),
+      __high2bfloat162(q23), __low2bfloat162(p12), __high2bfloat162(p12)};
+  // the first term stands alone, every later one is added (col_accum)
+  __nv_bfloat162 E[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) E[i] = __hmul2_rn(src[0], c[6 + i]);
+#pragma unroll
+  for (int s = 1; s < DENSE_A; ++s)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      E[i] = __hadd2_rn(E[i], __hmul2_rn(src[s], c[3 * (2 + s) + i]));
+  __nv_bfloat162 Sd[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) Sd[i] = __hmul2_rn(K[i], E[i]);
+  const __nv_bfloat162 sv[DENSE_B] = {
+      __low2bfloat162(Sd[0]), __high2bfloat162(Sd[0]),
+      __low2bfloat162(Sd[1]), __high2bfloat162(Sd[1]),
+      __low2bfloat162(Sd[2]), __high2bfloat162(Sd[2])};
+  const int r0 = 3 * (2 + DENSE_A);
+  __nv_bfloat162 row[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) row[i] = __hmul2_rn(sv[0], c[r0 + i]);
+#pragma unroll
+  for (int s = 1; s < DENSE_B; ++s)
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      row[i] = __hadd2_rn(row[i], __hmul2_rn(sv[s], c[r0 + 3 * s + i]));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) acc[i] = __hadd2_rn(acc[i], row[i]);
+}
+
+// The dense form of K.u at the padded point q of class c (slab_acc's
+// layout and side order), acc widened to float only at the end: bf16
+// loads of u (storage T) and r^2 (storage TR), bf16 arithmetic.  Unrolled
+// by two so that a side's loads overlap the previous side's arithmetic;
+// the sides still add into acc one by one in table order.
+template <typename T, typename TR>
+__device__ __forceinline__ void slab_dense(
+    const T* __restrict__ u, int Fp, int q, const TR* __restrict__ r2q,
+    int c, const Side* __restrict__ sides,
+    const DenseSide* __restrict__ dense, int s_begin, int s_end,
+    float acc[6]) {
+  __nv_bfloat162 us[3], a[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    us[i] = ldh2(u + (c * 6 + 2 * i) * Fp + q, Fp);
+    a[i] = __float2bfloat162_rn(0.f);
+  }
+#pragma unroll 2
+  for (int s = s_begin; s < s_end; ++s) {
+    const Side& sd = sides[s];
+    __nv_bfloat162 cols[DENSE_WORDS];
+    dense_cols(dense + s, cols);
+    const T* ub = u + q + sd.du;
+    __nv_bfloat162 uo[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) uo[i] = ldh2(ub + 2 * i * Fp, Fp);
+    dense_acc(cols, sd.side, us, uo, ldh(r2q + sd.dr), a);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    acc[2 * i] = __low2float(a[i]);
+    acc[2 * i + 1] = __high2float(a[i]);
   }
 }
 

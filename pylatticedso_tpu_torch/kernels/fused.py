@@ -31,11 +31,23 @@ the cluster size or layout.
 point)), over every padded plane, ghosts included.  Every kernel reads the
 level's one side table, with the grid's offsets (``StencilMatvec.tables``).
 
+**bf16 compute.**  ``PLDSO_MG_FUSED_COMPUTE=bf16`` selects each kernel's
+bf16-compute instance, B3c, B4c and B5c (the JAX kernels built with
+``make_stencil_acc(T, ct=jnp.bfloat16)``, ``stencil_pallas.py:724-729,
+:761-766, :812-817``), read at every call as JAX reads it when it builds a
+kernel.  As in JAX, only a level whose matvec takes the dense form has
+them (``dense_form``: the compute-once choice of the tile search); there
+the variable means f32 compute.  Their K x is the dense form
+(``DenseForm``: JAX's packed coefficient columns, ``_pack_dense_coefs``,
+rounded to bf16, summed in bf16 term by term in JAX's order), widened to
+float32 for the same pointwise update.
+
 On a CPU tensor every wrapper runs its plain torch version (the gather
-form of ``parallel/structured.py`` for K, then the same pointwise update
-with the same rounding points); on a CUDA tensor it launches its kernel
-(through ``kernels/launch.py``) or raises.  ``launches`` counts each
-kernel's launches, ``b5_launches`` B5's by cluster size.
+form of ``parallel/structured.py`` for K, or ``DenseForm.plain`` under bf16
+compute, then the same pointwise update with the same rounding points); on
+a CUDA tensor it launches its kernel (through ``kernels/launch.py``) or
+raises.  ``launches`` counts each kernel's launches (the bf16-compute
+instances under their own keys), ``b5_launches`` B5's by cluster size.
 """
 
 from __future__ import annotations
@@ -51,13 +63,15 @@ import torch.nn.functional as F
 from . import launch
 from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 
-__all__ = ["FusedSmoother", "route", "has_kernel_matvec", "cheb_static",
-           "storage_dtype", "check_compute", "KERNELS", "b5_plan",
-           "b5_items", "b5_partition", "B5_CLUSTERS"]
+__all__ = ["FusedSmoother", "route", "has_kernel_matvec", "dense_form",
+           "cheb_static", "storage_dtype", "KERNELS", "b5_plan", "b5_items",
+           "b5_partition", "B5_CLUSTERS", "DenseForm", "pack_dense_coefs",
+           "DENSE_DTYPE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 SOURCE = "pylatticedso_tpu_torch/csrc/mg_fused.cu"
 # (kernel name, what it replaces), by the wrapper method that launches it
+# and, for the bf16-compute instances, that method's name + "_bf16c"
 KERNELS = {
     "residual": ("mg_residual",
                  "pylatticedso_tpu/parallel/stencil_pallas.py:723"),
@@ -65,7 +79,14 @@ KERNELS = {
                  "pylatticedso_tpu/parallel/stencil_pallas.py:757"),
     "cheb_full": ("mg_cheb_full",
                   "pylatticedso_tpu/parallel/stencil_pallas.py:809"),
+    "residual_bf16c": ("mg_residual_bf16c",
+                       "pylatticedso_tpu/parallel/stencil_pallas.py:724"),
+    "cheb_run_bf16c": ("mg_cheb_run_bf16c",
+                       "pylatticedso_tpu/parallel/stencil_pallas.py:761"),
+    "cheb_full_bf16c": ("mg_cheb_full_bf16c",
+                        "pylatticedso_tpu/parallel/stencil_pallas.py:812"),
 }
+COMPUTE = ("f32", "bf16")
 
 
 def storage_dtype() -> torch.dtype:
@@ -74,16 +95,6 @@ def storage_dtype() -> torch.dtype:
     package's reading of the same variable)."""
     bf16 = os.environ.get("PLDSO_MG_FUSED_DTYPE", "bf16") == "bf16"
     return torch.bfloat16 if bf16 else torch.float32
-
-
-def check_compute() -> None:
-    """``PLDSO_MG_FUSED_COMPUTE=bf16`` (bf16 stencil arithmetic inside the
-    fused kernels) is not ported: refuse it rather than run float32."""
-    if os.environ.get("PLDSO_MG_FUSED_COMPUTE") == "bf16":
-        raise NotImplementedError(
-            "PLDSO_MG_FUSED_COMPUTE=bf16 (bf16 arithmetic in the fused "
-            "smoother kernels) is not ported: ROADMAP.md queue A, deferred "
-            "feature 'fused bf16 compute'")
 
 
 # ------------------------------------------------------------------ routing
@@ -154,6 +165,17 @@ def has_kernel_matvec(slat, tile: int = 3072) -> bool:
     return _tile_search(slat, tile) is not None
 
 
+def dense_form(slat, tile: int = 3072) -> bool:
+    """JAX's ``dense`` flag of a level (``stencil_pallas.py:287``): its
+    matvec takes the compute-once form, which implies the dense form, at
+    the tile the search picks.  Only a dense level has the bf16-compute
+    instances; elsewhere JAX's ``make_stencil_acc`` computes in f32
+    (:318-319)."""
+    if not has_kernel_matvec(slat, tile):
+        return False
+    return _tile_search(slat, tile)[1]
+
+
 def route(slat, tile: int = 3072) -> Tuple[bool, bool]:
     """(ok, single_ok) of one level, by the JAX package's rule
     (``stencil_pallas.make_pallas_matvec`` at its default tile and default
@@ -198,6 +220,245 @@ def cheb_static(frac: float, degree: int) -> List[Tuple[float, float]]:
 
 def _unpad(v: torch.Tensor) -> torch.Tensor:
     return v[..., 1:-1, 1:-1, 1:-1]
+
+
+# --------------------------------------------------------- the dense form
+def pack_dense_coefs(recs, E_mod, G_mod, kappa):
+    """Constant (8, NCOLS) coefficient table for the dense kernel form.
+
+    A copy of ``stencil_pallas._pack_dense_coefs`` (framework-free): every
+    (6,) matrix column of the per-record E = A2 @ [d; p3] and rows =
+    B_side @ S contractions is packed column-wise into one table (column j
+    = table[:6, j]); all-zero columns are skipped at pack time.  Columns
+    0/1 hold the stiffness monomial coefficients K = r2*colA + r2^2*colB.
+    Annotates each record with its ``dense_a`` / ``dense_b`` column index
+    lists.
+    """
+    cols = []
+
+    def add(col):
+        if all(c == 0.0 for c in col):
+            return None
+        cols.append([float(c) for c in col] + [0.0, 0.0])
+        return len(cols) - 1
+
+    add([np.pi * E_mod, np.pi * kappa * G_mod, np.pi * kappa * G_mod,
+         0.0, 0.0, 0.0])                                    # idx 0
+    add([0.0, 0.0, 0.0, np.pi / 2.0 * G_mod,
+         np.pi / 4.0 * E_mod, np.pi / 4.0 * E_mod])          # idx 1
+    for r in recs:
+        t, a1, a2, L = r["t"], r["a1"], r["a2"], r["L"]
+        invL = 1.0 / L
+        a_cols = []
+        for k in range(3):
+            j = add([t[k] * invL, a1[k] * invL, a2[k] * invL,
+                     0.0, 0.0, 0.0])
+            if j is not None:
+                a_cols.append(("d", k, j))
+        for k in range(3):
+            j = add([0.0, 0.0, 0.0, t[k] * invL, a1[k] * invL,
+                     a2[k] * invL])
+            if j is not None:
+                a_cols.append(("d", 3 + k, j))
+        for k in range(3):
+            j = add([0.0, -0.5 * a2[k], 0.5 * a1[k], 0.0, 0.0, 0.0])
+            if j is not None:
+                a_cols.append(("p", k, j))
+        sgn = -1.0 if r["side"] == 0 else 1.0
+        half_L = 0.5 * L
+        b_defs = [
+            (0, [sgn * t[0], sgn * t[1], sgn * t[2], 0.0, 0.0, 0.0]),
+            (1, [sgn * a1[0], sgn * a1[1], sgn * a1[2],
+                 -half_L * a2[0], -half_L * a2[1], -half_L * a2[2]]),
+            (2, [sgn * a2[0], sgn * a2[1], sgn * a2[2],
+                 half_L * a1[0], half_L * a1[1], half_L * a1[2]]),
+            (3, [0.0, 0.0, 0.0, sgn * t[0], sgn * t[1], sgn * t[2]]),
+            (4, [0.0, 0.0, 0.0, sgn * a1[0], sgn * a1[1], sgn * a1[2]]),
+            (5, [0.0, 0.0, 0.0, sgn * a2[0], sgn * a2[1], sgn * a2[2]]),
+        ]
+        b_cols = []
+        for srow, col in b_defs:
+            j = add(col)
+            if j is not None:
+                b_cols.append((srow, j))
+        r["dense_a"], r["dense_b"] = a_cols, b_cols
+    table = np.zeros((8, max(len(cols), 1)), dtype=np.float32)
+    for j, col in enumerate(cols):
+        table[:, j] = col
+    return table
+
+
+# E's term slots (d0..d5, then p0..p2) and the row's (Sd0..Sd5): csrc's
+# DENSE_A, DENSE_B; a record's columns are K's two, then E's, then the
+# row's, each six bf16 rows (csrc/stencil_body.cuh ``DenseSide``)
+DENSE_A, DENSE_B = 9, 6
+DENSE_COLS = 2 + DENSE_A + DENSE_B
+DENSE_DTYPE = np.dtype([("col", "<u2", (DENSE_COLS, 6)),
+                        ("tail", "<u2", (2,))])
+assert DENSE_DTYPE.itemsize == 208
+
+
+def _slot(src: str, k: int) -> int:
+    return k if src == "d" else 6 + k
+
+
+class DenseForm:
+    """The dense form of one template's K.u in bf16 arithmetic: JAX's
+    ``make_stencil_acc`` dense branch with ``ct=jnp.bfloat16``
+    (``stencil_pallas.py:338-377``), the K.x of B3c, B4c and B5c.
+
+    ``pack_dense_coefs`` gives the float32 table and each side's ordered
+    term lists; the columns are rounded to bf16 from that float32 table, as
+    JAX's ``coef_col`` casts it.  ``table`` holds one ``DENSE_DTYPE``
+    record per side in the kernels' side order (``side_table``'s: stably by
+    self class): the bf16 bits of K's two columns and of every term's
+    column in its slot, zeros in a slot without a term (the kernels sum it
+    as a zero column, which leaves acc's bits as they are after the first
+    term, slot 0, which every side has: ``csrc/stencil_body.cuh``).
+    ``plain`` is the plain version: it skips a slot without a term, as
+    JAX does."""
+
+    def __init__(self, slat):
+        X, Y, Z = slat.grid
+        self.grid = (X, Y, Z)
+        self.nc = slat.nc
+        recs = edge_sides(slat, Y + 2, Z + 2)
+        G_mod = slat.E_mod / (2.0 * (1.0 + slat.nu))
+        coefs = pack_dense_coefs(recs, slat.E_mod, G_mod, slat.kappa)
+        cols = torch.from_numpy(np.ascontiguousarray(coefs[:6].T)).to(
+            torch.bfloat16)                           # [ncols, 6]
+        bits = cols.view(torch.int16).numpy().view(np.uint16)
+        S = len(recs)
+        self.recs = recs
+        self.n_terms = [(len(r["dense_a"]), len(r["dense_b"])) for r in recs]
+        # per side (record order): each slot's column, and which slots
+        # have a term and which is the first
+        slot_cols = torch.zeros((S, DENSE_COLS, 6), dtype=torch.bfloat16)
+        present = torch.zeros((S, DENSE_COLS), dtype=torch.bool)
+        first = torch.zeros((S, DENSE_COLS), dtype=torch.bool)
+        records = np.zeros(S, DENSE_DTYPE)
+        for i, r in enumerate(recs):
+            terms = ([(2 + _slot(src, k), j) for src, k, j in r["dense_a"]],
+                     [(2 + DENSE_A + srow, j) for srow, j in r["dense_b"]])
+            for group, q0 in zip(terms, (2, 2 + DENSE_A)):
+                slots = [q for q, _ in group]
+                # the kernels sum every slot, absent ones as zero columns,
+                # which leaves the bits as they are only after the first
+                # term: slot 0 (the frame's x components) must have one
+                if not group or slots[0] != q0 or slots != sorted(set(slots)):
+                    raise ValueError(
+                        "dense form: a side's terms must be in slot order "
+                        "and start at slot 0 (an orthonormal frame's x "
+                        "components)")
+                first[i, slots[0]] = True
+                for q, j in group:
+                    slot_cols[i, q] = cols[j]
+                    present[i, q] = True
+                    records["col"][i, q] = bits[j]
+            for q in (0, 1):
+                slot_cols[i, q] = cols[q]
+                records["col"][i, q] = bits[q]
+        order = sorted(range(S), key=lambda i: recs[i]["cs"])
+        self.table = records[order]
+        # the plain version's gathers: per side, the flat index in the
+        # padded fields of its self values, its other endpoint's and its
+        # r^2 at every interior point
+        Yp, Zp = Y + 2, Z + 2
+        Fp = (X + 2) * Yp * Zp
+        q = ((np.arange(1, X + 1)[:, None, None] * Yp
+              + np.arange(1, Y + 1)[None, :, None]) * Zp
+             + np.arange(1, Z + 1)[None, None, :])
+        rows = np.arange(6)[None, :, None, None, None] * Fp
+        col = lambda a: np.asarray(a)[:, None, None, None, None]
+        cs = col([r["cs"] for r in recs])
+        self.first, self.present = first.numpy(), present.numpy()
+        self._cpu = {
+            "cols": slot_cols, "present": present, "first": first,
+            "side_b": torch.tensor([r["side"] == 1 for r in recs]),
+            "uS": torch.from_numpy(cs * 6 * Fp + rows + q),
+            "uO": torch.from_numpy(col([r["co"] * 6 * Fp + r["du"]
+                                        for r in recs]) + rows + q),
+            "r2": torch.from_numpy(col([r["ei"] * Fp + r["dr"]
+                                        for r in recs])[:, 0] + q)}
+        # per class, its sides in record order (the order JAX adds them),
+        # padded with the index of a zero row
+        per = [[i for i, r in enumerate(recs) if r["cs"] == c]
+               for c in range(self.nc)]
+        width = max(len(p) for p in per)
+        self._cpu["order"] = torch.tensor(
+            [p + [S] * (width - len(p)) for p in per])
+        self._on: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def ops_per_point(self) -> int:
+        """bf16 operations of one application per interior point, in the
+        compute-once form (each template edge's d, p3, K, E and Sd once,
+        its two sides' rows and acc adds each): 28 + 12 a + 12 (bA + bB)
+        an edge for a terms of E and b of a row."""
+        out = 0
+        for e in range(len(self.n_terms) // 2):
+            (na, nb_a), (_, nb_b) = self.n_terms[2 * e],                 self.n_terms[2 * e + 1]
+            out += 28 + 12 * na + 12 * (nb_a + nb_b)
+        return out
+
+    def _dev(self, device) -> Dict[str, torch.Tensor]:
+        got = self._on.get(device)
+        if got is None:
+            got = self._on[device] = {k: v.to(device)
+                                      for k, v in self._cpu.items()}
+        return got
+
+    def plain(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
+        """K u in the dense form on bf16 ghost-padded u [nc, 6, Xp, Yp,
+        Zp] and r^2 [n_e, Xp, Yp, Zp]: bf16 [nc, 6, X, Y, Z], every product
+        and sum rounded to bf16 on its own, in JAX's order.  Batched over
+        the sides: each side's elements see one torch op for each JAX op;
+        a slot without a term is passed over by ``torch.where``, and the
+        per-class sum adds the sides in record order (a class with fewer
+        sides adds exact zeros, which leave a bf16 sum as it is)."""
+        if up.dtype != torch.bfloat16 or r2p.dtype != torch.bfloat16:
+            raise ValueError("the dense form takes bf16 u and r^2")
+        X, Y, Z = self.grid
+        t = self._dev(up.device)
+        S = len(self.recs)
+        flat, flat_r2 = up.reshape(-1), r2p.reshape(-1)
+        uS, uO, r2 = flat[t["uS"]], flat[t["uO"]], flat_r2[t["r2"]]
+        side_b = t["side_b"].view(S, 1, 1, 1, 1)
+        uA = torch.where(side_b, uO, uS)
+        uB = torch.where(side_b, uS, uO)
+        col = lambda q: t["cols"][:, q].view(S, 6, 1, 1, 1)
+        K = r2[:, None] * col(0) + (r2 * r2)[:, None] * col(1)
+        d = uB - uA
+        p3 = uA[:, 3:] + uB[:, 3:]
+        src = torch.cat([d, p3], dim=1)                 # slots d0..d5, p0..p2
+
+        def col_accum(vals, q0, n):
+            out = torch.zeros_like(K)
+            for s in range(n):
+                q = q0 + s
+                first, present = self.first[:, q], self.present[:, q]
+                if not present.any():
+                    continue
+                term = vals[:, s:s + 1] * col(q)
+                if first.all():                 # every side starts here
+                    out = term
+                    continue
+                put = out + term
+                if first.any():
+                    put = torch.where(t["first"][:, q].view(S, 1, 1, 1, 1),
+                                      term, put)
+                out = put if present.all() else torch.where(
+                    t["present"][:, q].view(S, 1, 1, 1, 1), put, out)
+            return out
+
+        E = col_accum(src, 2, DENSE_A)
+        Sd = K * E
+        rows = col_accum(Sd, 2 + DENSE_A, DENSE_B)
+        rows = torch.cat([rows, torch.zeros_like(rows[:1])])[t["order"]]
+        acc = torch.zeros((self.nc, 6, X, Y, Z), dtype=torch.bfloat16,
+                          device=up.device)
+        for k in range(rows.shape[1]):
+            acc = acc + rows[:, k]
+        return acc
 
 
 # ------------------------------------------------------------ B5's plan
@@ -316,16 +577,21 @@ def b5_partition(plan: Dict) -> List[np.ndarray]:
 
 
 class FusedSmoother:
-    """B3, B4 and B5 for one lattice (one multigrid level).
+    """B3, B4 and B5 for one lattice (one multigrid level), and their
+    bf16-compute instances B3c, B4c and B5c where the level is ``dense``.
 
     ``stencil`` is the level's B1 wrapper: its edge-side table, material
-    constants and plain gather form serve these kernels too.
+    constants and plain gather form serve these kernels too.  Every
+    wrapper and plain version takes ``compute`` ("f32" or "bf16"; None:
+    ``PLDSO_MG_FUSED_COMPUTE`` as the call is made, ``compute_type``).
     """
 
     source = SOURCE
 
     def __init__(self, slat, stencil: StencilMatvec):
         self.ok, self.single_ok = route(slat)
+        self.dense = dense_form(slat)
+        self.dense_form = DenseForm(slat)
         self.mv = stencil
         self.grid = tuple(slat.grid)
         self.nc = slat.nc
@@ -345,6 +611,27 @@ class FusedSmoother:
     def padded(self) -> Tuple[int, int, int]:
         return tuple(g + 2 for g in self.grid)
 
+    def compute_type(self, compute: Optional[str] = None) -> str:
+        """The arithmetic of a launch: ``compute``, or by default "bf16"
+        where ``PLDSO_MG_FUSED_COMPUTE=bf16`` and the level is dense (the
+        JAX rule, :318-319), else "f32".  An explicit "bf16" on a level
+        that is not dense raises."""
+        if compute is None:
+            return "bf16" if self.dense and os.environ.get(
+                "PLDSO_MG_FUSED_COMPUTE") == "bf16" else "f32"
+        if compute not in COMPUTE:
+            raise ValueError(f"compute {compute!r}: one of {COMPUTE}")
+        if compute == "bf16" and not self.dense:
+            raise ValueError(f"grid {self.grid}: bf16 compute needs the "
+                             f"dense form, which this level's JAX matvec "
+                             f"does not take")
+        return compute
+
+    @staticmethod
+    def counter(method: str, compute: str) -> str:
+        """The ``launches`` key of a wrapper method under ``compute``."""
+        return method if compute == "f32" else f"{method}_bf16c"
+
     def sc(self, lmax: torch.Tensor, frac: float) -> torch.Tensor:
         """[inv_theta, inv_delta] of the spectrum [frac lmax, lmax], as a
         float32 device tensor (the kernels read it; no host sync)."""
@@ -354,27 +641,36 @@ class FusedSmoother:
         return torch.stack([inv_theta, inv_delta])
 
     def work(self, kernel: str, itemsize: int, final: bool = False,
-             degree: int = 0, with_x0: bool = False) -> Tuple[int, int]:
+             degree: int = 0, with_x0: bool = False,
+             compute: str = "f32") -> Tuple[int, int]:
         """(bytes, operations) of one launch: each input read once and each
         output written once (padded fields, ``itemsize`` bytes), and 110
         operations per edge side per interior point for each stencil
-        application plus the pointwise update's operations per DOF."""
+        application plus the pointwise update's operations per DOF.  Under
+        bf16 compute the operations are bf16 ones, to be taken at the bf16
+        rate: the dense form's (``DenseForm.ops_per_point``) and the float
+        update's counted twice (a float operation takes the time of two
+        bf16 ones at the non-tensor rates)."""
         X, Y, Z = self.grid
         Fp = (X + 2) * (Y + 2) * (Z + 2)
         N = X * Y * Z
         R = self.nc * 6
-        stencil = FLOPS_PER_SIDE * self.mv.n_sides * N
+        if compute == "bf16":
+            stencil, upd = self.dense_form.ops_per_point() * N, 2
+        else:
+            stencil, upd = FLOPS_PER_SIDE * self.mv.n_sides * N, 1
         if kernel == "residual":       # x, b, fm, r^2 -> out
             return (itemsize * (4 * R * Fp + self.n_e * Fp),
-                    stencil + 2 * R * N)
+                    stencil + upd * 2 * R * N)
         if kernel == "cheb_run":       # x, r, d, fd, r^2 -> 1 or 3 outputs
             n_out = 1 if final else 3
             return (itemsize * ((4 + n_out) * R * Fp + self.n_e * Fp),
-                    stencil + (6 + int(final)) * R * N)
+                    stencil + upd * (6 + int(final)) * R * N)
         # cheb_full: b, [x0], fd, r^2 -> out; degree (+1) stencils
         n_in = 3 if with_x0 else 2
         return (itemsize * ((n_in + 1) * R * Fp + self.n_e * Fp),
-                (degree + int(with_x0)) * stencil + (6 * degree + 3) * R * N)
+                (degree + int(with_x0)) * stencil
+                + upd * (6 * degree + 3) * R * N)
 
     def _check(self, what: str, vecs, sc: Optional[torch.Tensor],
                r2: torch.Tensor) -> torch.dtype:
@@ -406,47 +702,63 @@ class FusedSmoother:
 
     def _static(self, index: int) -> tuple:
         """B5's launch arguments that never change on device ``index``:
-        the side table, class_start, grid and material constants."""
+        the side table, class_start, the sides' dense records, grid and
+        material constants."""
         key = ("stencil", index)
         args = self._dev.get(key)
         if args is None:
-            sides, class_start = self.mv.tables(torch.device("cuda", index))
-            args = (sides.data_ptr(), class_start.data_ptr(), self.nc,
-                    *self.grid, *self.mv.consts)
+            dev = torch.device("cuda", index)
+            sides, class_start = self.mv.tables(dev)
+            dense = torch.from_numpy(
+                self.dense_form.table.view(np.uint8).copy()).to(dev)
+            self._dev[("dense", index)] = dense
+            args = (sides.data_ptr(), class_start.data_ptr(),
+                    dense.data_ptr(), self.nc, *self.grid, *self.mv.consts)
             self._dev[key] = args
         return args
 
-    def _static_slab(self, index: int, io: torch.dtype,
+    def _static_slab(self, index: int, io: torch.dtype, compute: str,
                      final: Optional[bool] = None) -> tuple:
         """The launch arguments of B3 (``final`` None) or B4 that never
         change on device ``index``: B5's, with the slab plan's run after
-        class_start."""
-        key = ("B3" if final is None else "B4", index, io, final)
+        the dense records."""
+        key = ("B3" if final is None else "B4", index, io, compute, final)
         args = self._dev.get(key)
         if args is None:
-            plan = self.b3_plan(io, index) if final is None \
-                else self.b4_plan(io, final, index)
-            sides, class_start, *rest = self._static(index)
-            args = self._dev[key] = (sides, class_start, plan["run"], *rest)
+            plan = self.b3_plan(io, index, compute) if final is None \
+                else self.b4_plan(io, final, index, compute)
+            sides, class_start, dense, *rest = self._static(index)
+            args = self._dev[key] = (sides, class_start, dense, plan["run"],
+                                     *rest)
         return args
 
     # ------------------------------------------------------- plain versions
     # K is the gather form (self.mv.plain) on interior fields, in its own
-    # dtype; outputs are padded back with zero ghosts, as the kernels write
+    # dtype, or under bf16 compute the dense form on them rounded to bf16,
+    # widened back; outputs are padded back with zero ghosts, as the
+    # kernels write
     def _w(self, v: torch.Tensor) -> torch.Tensor:
         return _unpad(v).to(self.mv.dtype)
 
-    def plain_residual(self, b, x, fm, r2):
+    def _K(self, v: torch.Tensor, r2: torch.Tensor, compute: str):
+        if compute == "bf16":
+            bf = torch.bfloat16
+            return self.dense_form.plain(F.pad(v, PAD).to(bf),
+                                         r2.to(bf)).to(v.dtype)
+        return self.mv.plain(v, r2.to(self.mv.dtype))
+
+    def plain_residual(self, b, x, fm, r2, compute: Optional[str] = None):
         io = b.dtype
-        r2w = r2.to(self.mv.dtype)
-        out = self._w(fm) * (self._w(b) - self.mv.plain(self._w(x), r2w))
+        ct = self.compute_type(compute)
+        out = self._w(fm) * (self._w(b) - self._K(self._w(x), r2, ct))
         return F.pad(out, PAD).to(io)
 
-    def plain_cheb_run(self, x, r, d, fd, sc, r2, c1, c2, final):
+    def plain_cheb_run(self, x, r, d, fd, sc, r2, c1, c2, final,
+                       compute: Optional[str] = None):
         io = x.dtype
         wd = self.mv.dtype
         dc = self._w(d)
-        kd = self.mv.plain(dc, r2.to(wd))
+        kd = self._K(dc, r2, self.compute_type(compute))
         x1 = self._w(x) + dc
         r1 = self._w(r) - kd
         d1 = c1 * dc + ((c2 * sc[1].to(wd)) * r1) * self._w(fd)
@@ -454,21 +766,22 @@ class FusedSmoother:
             return F.pad(x1 + d1, PAD).to(io)
         return tuple(F.pad(v, PAD).to(io) for v in (x1, r1, d1))
 
-    def plain_cheb_full(self, b, x0, fd, sc, r2, frac, degree):
+    def plain_cheb_full(self, b, x0, fd, sc, r2, frac, degree,
+                        compute: Optional[str] = None):
         io = b.dtype
         wd = self.mv.dtype
-        r2w = r2.to(wd)
+        ct = self.compute_type(compute)
         bw, fdw = self._w(b), self._w(fd)
         inv_theta, inv_delta = sc[0].to(wd), sc[1].to(wd)
         if x0 is not None:
             x = self._w(x0)
-            r = bw - self.mv.plain(x, r2w)
+            r = bw - self._K(x, r2, ct)
         else:
             x = torch.zeros_like(bw)
             r = bw
         d = (r * fdw) * inv_theta
         for c1, c2 in cheb_static(frac, degree):
-            kd = self.mv.plain(d, r2w)
+            kd = self._K(d, r2, ct)
             x = x + d
             r = r - kd
             d = c1 * d + ((c2 * inv_delta) * r) * fdw
@@ -483,50 +796,56 @@ class FusedSmoother:
             raise ValueError(f"the fused kernels run on CPU (plain) or CUDA "
                              f"tensors, got {t.device}")
 
-    def residual(self, b, x, fm, r2):
-        """B3: fm (b - K x), rounded to the storage dtype."""
+    def residual(self, b, x, fm, r2, compute: Optional[str] = None):
+        """B3 (B3c under bf16 compute): fm (b - K x), rounded to the
+        storage dtype."""
+        ct = self.compute_type(compute)
         if not b.is_cuda:
             self._cpu_only(b)
-            return self.plain_residual(b, x, fm, r2)
+            return self.plain_residual(b, x, fm, r2, ct)
         io = self._check("B3", (b, x, fm), None, r2)
         out = torch.empty_like(b)
         dev = b.get_device()
         rc = launch.functions("mg_fused")["mg_residual"](
-            int(io == torch.bfloat16), x.data_ptr(), b.data_ptr(),
-            fm.data_ptr(), r2.data_ptr(), out.data_ptr(),
-            *self._static_slab(dev, io), launch.stream(dev))
+            int(io == torch.bfloat16), int(ct == "bf16"), x.data_ptr(),
+            b.data_ptr(), fm.data_ptr(), r2.data_ptr(), out.data_ptr(),
+            *self._static_slab(dev, io, ct), launch.stream(dev))
         launch.check("mg_residual", rc)
-        self.launches["residual"] += 1
+        self.launches[self.counter("residual", ct)] += 1
         return out
 
-    def b3_plan(self, io: torch.dtype, device: Optional[int] = None) -> Dict:
-        """B3's slab plan on this level (``StencilMatvec.slab_plan`` over
-        the padded planes); on a card its blocks per SM come from B3's own
-        query."""
-        dtype = int(io == torch.bfloat16)
+    def b3_plan(self, io: torch.dtype, device: Optional[int] = None,
+                compute: str = "f32") -> Dict:
+        """B3's (B3c's) slab plan on this level (``StencilMatvec.
+        slab_plan`` over the padded planes); on a card its blocks per SM
+        come from the instance's own query."""
+        dtype, cb = int(io == torch.bfloat16), int(compute == "bf16")
         occ = lambda p: launch.functions("mg_fused")["mg_residual_occupancy"](
-            dtype, p["threads"])
-        return self.mv.slab_plan(io, device, kernel="B3", occupancy=occ)
-
-    def b4_plan(self, io: torch.dtype, final: bool,
-                device: Optional[int] = None) -> Dict:
-        """B4's slab plan on this level (``StencilMatvec.slab_plan`` over
-        the padded planes); on a card its blocks per SM come from B4's own
-        query (each variant's registers differ)."""
-        dtype = int(io == torch.bfloat16)
-        occ = lambda p: launch.functions("mg_fused")["mg_cheb_run_occupancy"](
-            dtype, int(final), p["threads"])
-        return self.mv.slab_plan(io, device,
-                                 kernel=f"B4{' final' if final else ''}",
+            dtype, cb, p["threads"])
+        return self.mv.slab_plan(io, device, kernel="B3c" if cb else "B3",
                                  occupancy=occ)
 
+    def b4_plan(self, io: torch.dtype, final: bool,
+                device: Optional[int] = None, compute: str = "f32") -> Dict:
+        """B4's (B4c's) slab plan on this level (``StencilMatvec.slab_plan``
+        over the padded planes); on a card its blocks per SM come from the
+        instance's own query (each variant's registers differ)."""
+        dtype, cb = int(io == torch.bfloat16), int(compute == "bf16")
+        occ = lambda p: launch.functions("mg_fused")["mg_cheb_run_occupancy"](
+            dtype, cb, int(final), p["threads"])
+        return self.mv.slab_plan(
+            io, device, kernel=f"B4{'c' if cb else ''}"
+            f"{' final' if final else ''}", occupancy=occ)
+
     def cheb_run(self, x, r, d, fd, sc, r2, c1: float, c2: float,
-                 final: bool):
-        """B4: one Chebyshev step; (x1, r1, d1), or x1 + d1 when
-        ``final``."""
+                 final: bool, compute: Optional[str] = None):
+        """B4 (B4c under bf16 compute): one Chebyshev step; (x1, r1, d1),
+        or x1 + d1 when ``final``."""
+        ct = self.compute_type(compute)
         if not x.is_cuda:
             self._cpu_only(x)
-            return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final)
+            return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final,
+                                       ct)
         io = self._check("B4", (x, r, d, fd), sc, r2)
         x1 = torch.empty_like(x)
         r1 = d1 = None
@@ -534,24 +853,27 @@ class FusedSmoother:
             r1, d1 = torch.empty_like(x), torch.empty_like(x)
         dev = x.get_device()
         rc = launch.functions("mg_fused")["mg_cheb_run"](
-            int(io == torch.bfloat16), int(final), x.data_ptr(),
-            r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
-            r2.data_ptr(), x1.data_ptr(), None if final else r1.data_ptr(),
+            int(io == torch.bfloat16), int(ct == "bf16"), int(final),
+            x.data_ptr(), r.data_ptr(), d.data_ptr(), fd.data_ptr(),
+            sc.data_ptr(), r2.data_ptr(), x1.data_ptr(),
+            None if final else r1.data_ptr(),
             None if final else d1.data_ptr(), c1, c2,
-            *self._static_slab(dev, io, final),
+            *self._static_slab(dev, io, ct, final),
             launch.stream(dev))
         launch.check("mg_cheb_run", rc)
-        self.launches["cheb_run"] += 1
+        self.launches[self.counter("cheb_run", ct)] += 1
         return x1 if final else (x1, r1, d1)
 
     def b5_plan(self, io: torch.dtype, with_x0: bool = False,
                 cluster: Optional[int] = None, layout: Optional[str] = None,
-                device: Optional[int] = None) -> Dict:
-        """B5's plan on this level (``b5_plan``) for storage ``io``.  On a
-        card (``device``) the plan is asked of the card once, before its
-        first launch there (plans are cached), and raises if the card
-        cannot hold one such cluster."""
-        key = (io, with_x0, cluster, layout, device)
+                device: Optional[int] = None,
+                compute: str = "f32") -> Dict:
+        """B5's (B5c's) plan on this level (``b5_plan``) for storage
+        ``io``.  On a card (``device``) the plan is asked of the card once,
+        for the instance that will run, before its first launch there
+        (plans are cached), and raises if the card cannot hold one such
+        cluster."""
+        key = (io, with_x0, cluster, layout, device, compute)
         plan = self.b5_plans.get(key)
         if plan is not None:
             return plan
@@ -560,7 +882,8 @@ class FusedSmoother:
                        itemsize, cluster, layout)
         if device is not None:
             fits = launch.functions("mg_fused")["mg_cheb_full_max_clusters"](
-                int(io == torch.bfloat16), int(with_x0),
+                int(io == torch.bfloat16), int(compute == "bf16"),
+                int(with_x0),
                 B5_LAYOUTS[plan["layout"]], plan["cluster"], plan["threads"],
                 plan["smem_bytes"])
             if fits < 0:
@@ -597,25 +920,27 @@ class FusedSmoother:
 
     def cheb_full(self, b, x0, fd, sc, r2, frac: float, degree: int,
                   cluster: Optional[int] = None,
-                  layout: Optional[str] = None):
-        """B5: the whole smoother (x0 residual when ``x0`` is given,
-        ``degree`` steps, x + d) in one launch, on a single-program level
-        only.  ``cluster`` and ``layout`` override the plan's (the card
-        tests and ``chip_smoke.py`` run every one; the result is the same
-        bits whatever they are)."""
+                  layout: Optional[str] = None,
+                  compute: Optional[str] = None):
+        """B5 (B5c under bf16 compute): the whole smoother (x0 residual
+        when ``x0`` is given, ``degree`` steps, x + d) in one launch, on a
+        single-program level only.  ``cluster`` and ``layout`` override
+        the plan's (the card tests and ``chip_smoke.py`` run every one;
+        the result is the same bits whatever they are)."""
         if not self.single_ok:
             raise ValueError(
                 f"B5 runs only on levels the routing marks single (grid "
                 f"{self.grid} is not): use B3 + B4")
+        ct = self.compute_type(compute)
         if not b.is_cuda:
             self._cpu_only(b)
-            return self.plain_cheb_full(b, x0, fd, sc, r2, frac, degree)
+            return self.plain_cheb_full(b, x0, fd, sc, r2, frac, degree, ct)
         vecs = (b, fd) if x0 is None else (b, fd, x0)
         io = self._check("B5", vecs, sc, r2)
         if not 0 <= degree <= B5_MAX_DEGREE:
             raise ValueError(f"B5 degree {degree} out of range")
         dev = b.get_device()
-        plan = self.b5_plan(io, x0 is not None, cluster, layout, dev)
+        plan = self.b5_plan(io, x0 is not None, cluster, layout, dev, ct)
         items = self._b5_items(dev)
         c1, c2 = self._b5_coefs(frac, degree)
         dg = None
@@ -623,7 +948,7 @@ class FusedSmoother:
             dg = torch.empty(b.numel(), dtype=torch.float32, device=b.device)
         out = torch.empty_like(b)
         rc = launch.functions("mg_fused")["mg_cheb_full"](
-            int(io == torch.bfloat16), int(x0 is not None),
+            int(io == torch.bfloat16), int(ct == "bf16"), int(x0 is not None),
             B5_LAYOUTS[plan["layout"]], b.data_ptr(),
             None if x0 is None else x0.data_ptr(), fd.data_ptr(),
             sc.data_ptr(), r2.data_ptr(), out.data_ptr(),
@@ -633,7 +958,7 @@ class FusedSmoother:
             int(plan["r2_smem"]), plan["smem_bytes"], *self._static(dev),
             launch.stream(dev))
         launch.check("mg_cheb_full", rc)
-        self.launches["cheb_full"] += 1
+        self.launches[self.counter("cheb_full", ct)] += 1
         self.b5_launches[plan["cluster"]] = \
             self.b5_launches.get(plan["cluster"], 0) + 1
         return out

@@ -35,12 +35,12 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "stencil_vjp_r2_occupancy": "i",
     },
     "mg_fused": {
-        "mg_residual": "ipppppppiiiiifffp",
-        "mg_residual_occupancy": "ii",
-        "mg_cheb_run": "iipppppppppffppiiiiifffp",
-        "mg_cheb_run_occupancy": "iii",
-        "mg_cheb_full": "iii" + "p" * 10 + "i" * 10 + "ppiiiifffp",
-        "mg_cheb_full_max_clusters": "iiiiii",
+        "mg_residual": "ii" + "p" * 8 + "iiiiifffp",
+        "mg_residual_occupancy": "iii",
+        "mg_cheb_run": "iii" + "p" * 9 + "ff" + "ppp" + "iiiiifffp",
+        "mg_cheb_run_occupancy": "iiii",
+        "mg_cheb_full": "iiii" + "p" * 10 + "i" * 10 + "pppiiiifffp",
+        "mg_cheb_full_max_clusters": "iiiiiii",
     },
     "probes": {
         "probe_chain": "ppiiiip",

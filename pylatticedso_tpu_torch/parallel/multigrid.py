@@ -18,7 +18,10 @@ same names and defaults:
 * ``fused`` (``mg_opts["fused"]`` or ``PLDSO_MG_FUSED=1``/``force``): the
   fused V-cycle of kernels B3 (residual), B4 (one Chebyshev step) and B5
   (a whole smoother in one launch), with smoother vectors stored in
-  ``PLDSO_MG_FUSED_DTYPE`` (bf16 by default, or f32) between launches.
+  ``PLDSO_MG_FUSED_DTYPE`` (bf16 by default, or f32) between launches;
+  under ``PLDSO_MG_FUSED_COMPUTE=bf16`` their bf16-compute instances B3c,
+  B4c and B5c on every level whose matvec takes the dense form (the JAX
+  rule; each wrapper reads the variable as it is called).
 
 Where the JAX package warns and falls back to the unfused V-cycle, the port
 raises: a fused request it cannot meet never runs another path.
@@ -34,8 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.fused import (check_compute, cheb_static, has_kernel_matvec,
-                             storage_dtype)
+from ..kernels.fused import cheb_static, has_kernel_matvec, storage_dtype
 
 __all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
            "mg_preconditioner", "make_transfers", "make_radius_restrictor"]
@@ -465,7 +467,6 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     levels: List[MGLevel] = h["levels"]
     nL = len(levels)
     if fused:
-        check_compute()
         fused_ops = state.get("fused") or [None] * nL
         missing = [i for i, f in enumerate(fused_ops) if f is None]
         if missing:

@@ -13,7 +13,9 @@ compliance gradient for every cell radius.  Its routes (``ROUTES``):
   the routing leaves multi-program, B5 on the single ones;
 * ``lo``: the bench's ``BENCH_MG_FUSED=0`` route (``PLDSO_MG_BF16=1``):
   the unfused V-cycle with every smoother matvec in B2;
-* ``f32``: the library default, the unfused f32 V-cycle (B1 everywhere).
+* ``f32``: the library default, the unfused f32 V-cycle (B1 everywhere);
+* ``fused-bf16c``: ``fused`` under ``PLDSO_MG_FUSED_COMPUTE=bf16``, the
+  bf16-compute instances B3c, B4c and B5c in place of B3, B4 and B5.
 
 Beside them, the design-gradient step (the implicit adjoint through B1's
 VJP) runs its three paths (``design_phase``): (a) float64 implicit against
@@ -68,7 +70,17 @@ MG_OPTS = {"nu": (1, 2), "coarse_degree": 24, "smooth_frac": 0.35,
 # environment cannot change the route
 ROUTES = {"fused": {"fused": True, "lo_smoother": False},
           "lo": {"fused": False, "lo_smoother": True},
-          "f32": {"fused": False, "lo_smoother": False}}
+          "f32": {"fused": False, "lo_smoother": False},
+          "fused-bf16c": {"fused": True, "lo_smoother": False}}
+# and the fused kernels' arithmetic of each route (None: the variable
+# unset), which the wrappers read as they are called
+ROUTE_ENV = {route: {"PLDSO_MG_FUSED_COMPUTE":
+                     "bf16" if route == "fused-bf16c" else None}
+             for route in ROUTES}
+# the fused wrappers' launch counters, by the kernel tag they count
+FUSED_TAGS = {"B3": "residual", "B4": "cheb_run", "B5": "cheb_full",
+              "B3c": "residual_bf16c", "B4c": "cheb_run_bf16c",
+              "B5c": "cheb_full_bf16c"}
 FUSED_STORAGE = "bf16"       # bench.py's default PLDSO_MG_FUSED_DTYPE
 E_MOD, NU = 1013.0, 0.3
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32
@@ -76,6 +88,7 @@ E_MOD, NU = 1013.0, 0.3
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12       # float64 outside the tensor cores
+PEAK_BF16_PER_S = 2 * PEAK_F32_PER_S   # bf16 pairs outside the tensor cores
 KERNEL_REL_TOL = 1e-5        # summation order differs from the plain form
 KERNEL_F64_TOL = 1e-12       # B1<double> against the float64 gather form
 # B1's VJP against autograd of the plain gather form, per cotangent
@@ -95,9 +108,13 @@ IMPOSED_X = 1e-3             # prescribed X displacement of the clamped face
 # storage as tests/test_stencil_pallas.py (residual 1e-5, Chebyshev 2e-5),
 # bf16 storage 1e-2 as the CPU parity tests (both sides take the same bf16
 # inputs; a rounding point out of place moves a value by 2^-8 = 3.9e-3 of
-# itself, and repeated ones add up past the limit)
-STORAGE_TOL = {"f32": {"B3": 1e-5, "B4": 2e-5, "B5": 2e-5},
-               "bf16": {"B2": 1e-2, "B3": 1e-2, "B4": 1e-2, "B5": 1e-2}}
+# itself, and repeated ones add up past the limit); the bf16-compute
+# instances B3c-B5c 1e-2 in either storage (bf16 arithmetic on both
+# sides, in the same order)
+STORAGE_TOL = {"f32": {"B3": 1e-5, "B4": 2e-5, "B5": 2e-5, "B3c": 1e-2,
+                       "B4c": 1e-2, "B5c": 1e-2},
+               "bf16": {"B2": 1e-2, "B3": 1e-2, "B4": 1e-2, "B5": 1e-2,
+                        "B3c": 1e-2, "B4c": 1e-2, "B5c": 1e-2}}
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 RESIDUAL_TOL = 1e-5
 ITERATION_RISE = 1.1         # a route's warm CG iterations vs the f32 route
@@ -136,9 +153,14 @@ class Budget:
 
 @contextlib.contextmanager
 def _env(**values):
-    """Set environment variables for the block, restoring them after."""
+    """Set environment variables for the block (a None value unsets one),
+    restoring them after."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -378,12 +400,28 @@ def _err(got, want):
     return a, r
 
 
+def _bits_differ(got, want) -> int:
+    """Elements whose bits differ between two tensors (or tuples of them)
+    of one dtype."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    out = 0
+    for g, w in zip(got, want):
+        view = torch.int16 if g.dtype == torch.bfloat16 else torch.int32
+        out += int((g.contiguous().view(view)
+                    != w.contiguous().view(view)).sum())
+    return out
+
+
 def fused_kernel_phase(device: torch.device, n: int,
                        seed: int = 1) -> List[Dict]:
     """B2-B5 against their plain versions at every grid of ``_grids``, in
     f32 and bf16 storage: B2 (bf16 only), B3, B4 (a first and a final
     step), and B5 on the levels the routing marks single (with and without
-    x0 at the main path's degree; degree 24 on the coarsest Octet level)."""
+    x0 at the main path's degree; degree 24 on the coarsest Octet level);
+    then, on the same inputs, their bf16-compute instances B3c, B4c and
+    B5c on every level that has them (the dense ones).  Each record counts
+    the elements whose bits differ from the plain version's."""
     cuda = device.type == "cuda"
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=device) \
         if cuda else None
@@ -394,7 +432,7 @@ def fused_kernel_phase(device: torch.device, n: int,
     out = []
 
     def check(kernel, label, storage, variant, run, plain, work,
-              timed=None):
+              timed=None, peak=PEAK_F32_PER_S):
         """``run`` (the wrapper) against ``plain``; on the card ``timed``
         (default ``run``) is what the times are taken of."""
         got, want = run(), plain()
@@ -407,11 +445,13 @@ def fused_kernel_phase(device: torch.device, n: int,
                 f"({storage}, {variant}): rel err {rel_err:.3e} > {tol}")
         rec = {"kernel": kernel, "case": label, "storage": storage,
                "variant": variant, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "tol": tol, **_bound_of(work)}
+               "max_rel_err": rel_err, "tol": tol,
+               "bits_differ": _bits_differ(got, want),
+               **_bound_of(work, peak)}
         if cuda:
             timed = timed or run
             rec["ms"] = _median_ms(timed, device, reps=7, batch=20)
-            if kernel in ("B2", "B3", "B4"):
+            if kernel in ("B2", "B3", "B4", "B3c", "B4c"):
                 rec["device_ms"] = _graph_ms(timed, device)
             rec["ms_cold"] = _median_ms(timed, device, reps=11, flush=flush)
             rec["plain_ms"] = _median_ms(plain, device, reps=3, batch=3)
@@ -473,23 +513,45 @@ def fused_kernel_phase(device: torch.device, n: int,
                       fz.work("cheb_run", nbytes, final=final))
                 out[-1]["plan"] = _plan_rec(fz.b4_plan(
                     io, final, device=_index(device)))
+            if fz.dense:
+                check("B3c", label, storage, "residual",
+                      lambda: fz.residual(bp, x, fmp, r2s, "bf16"),
+                      lambda: fz.plain_residual(bp, x, fmp, r2s, "bf16"),
+                      fz.work("residual", nbytes, compute="bf16"),
+                      peak=PEAK_BF16_PER_S)
+                out[-1]["plan"] = _plan_rec(fz.b3_plan(
+                    io, device=_index(device), compute="bf16"))
+                for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
+                    check("B4c", label, storage, "final" if final else "step",
+                          lambda: fz.cheb_run(x, rr, d, fdp, sc, r2s, c1, c2,
+                                              final, "bf16"),
+                          lambda: fz.plain_cheb_run(x, rr, d, fdp, sc, r2s,
+                                                    c1, c2, final, "bf16"),
+                          fz.work("cheb_run", nbytes, final=final,
+                                  compute="bf16"), peak=PEAK_BF16_PER_S)
+                    out[-1]["plan"] = _plan_rec(fz.b4_plan(
+                        io, final, device=_index(device), compute="bf16"))
             if not fz.single_ok:
                 continue
             variants = [(deg, frac, None), (deg, frac, x)]
             if lvl == len(octet_levels) - 1:          # the coarsest sweep
                 variants.append((MG_OPTS["coarse_degree"], 1.0 / 64.0, None))
-            for dg, fr, x0 in variants:
+            computes = ("f32", "bf16") if fz.dense else ("f32",)
+            for (dg, fr, x0), ct in [(v, ct) for ct in computes
+                                     for v in variants]:
                 scv = fz.sc(lmax, fr)
                 variant = f"degree {dg}{', x0' if x0 is not None else ''}"
-                run = lambda **kw: fz.cheb_full(bp, x0, fdp, scv, r2s, fr,
-                                                dg, **kw)
-                check("B5", label, storage, variant, run,
+                tag = "B5" if ct == "f32" else "B5c"
+                run = lambda ct=ct, **kw: fz.cheb_full(
+                    bp, x0, fdp, scv, r2s, fr, dg, compute=ct, **kw)
+                check(tag, label, storage, variant, run,
                       lambda: fz.plain_cheb_full(bp, x0, fdp, scv, r2s, fr,
-                                                 dg),
+                                                 dg, ct),
                       fz.work("cheb_full", nbytes, degree=dg,
-                              with_x0=x0 is not None))
+                              with_x0=x0 is not None, compute=ct),
+                      peak=PEAK_F32_PER_S if ct == "f32" else PEAK_BF16_PER_S)
                 out[-1].update(_b5_sweep(fz, run, io, x0 is not None, device,
-                                         label, storage, variant))
+                                         label, storage, variant, ct))
     return out
 
 
@@ -598,23 +660,24 @@ def _was(kernel: str, case: str, storage: str, variant: str) -> str:
 
 
 def _b5_sweep(fz, run, io, with_x0, device, label, storage,
-              variant) -> Dict:
-    """B5 under every cluster size and layout of d the card can run on
-    this level: each gives the plan's bits (and so does a repeat), and
-    each is timed on the card."""
+              variant, compute: str = "f32") -> Dict:
+    """B5 (B5c under bf16 ``compute``) under every cluster size and layout
+    of d the card can run on this level: each gives the plan's bits (and
+    so does a repeat), and each is timed on the card."""
     cuda = device.type == "cuda"
     index = (device.index or 0) if cuda else None
-    plan = fz.b5_plan(io, with_x0, device=index)
+    tag = "B5" if compute == "f32" else "B5c"
+    plan = fz.b5_plan(io, with_x0, device=index, compute=compute)
     want = run()
     same = lambda got: torch.equal(got, want)
     if not same(run()):
-        raise AssertionError(f"B5 on {label} ({storage}, {variant}): two "
+        raise AssertionError(f"{tag} on {label} ({storage}, {variant}): two "
                              f"identical launches differ bitwise")
     sweep = []
     for layout in B5_LAYOUTS:
         for cluster in B5_CLUSTERS:
             try:
-                fz.b5_plan(io, with_x0, cluster, layout, index)
+                fz.b5_plan(io, with_x0, cluster, layout, index, compute)
             except ValueError:
                 continue          # too few items, too many, or no room
             kw = {"cluster": cluster, "layout": layout}
@@ -622,7 +685,7 @@ def _b5_sweep(fz, run, io, with_x0, device, label, storage,
             _sync(device)
             if not same(got):
                 raise AssertionError(
-                    f"B5 on {label} ({storage}, {variant}): cluster "
+                    f"{tag} on {label} ({storage}, {variant}): cluster "
                     f"{cluster}, layout {layout} differs bitwise from the "
                     f"plan's (cluster {plan['cluster']}, {plan['layout']})")
             ms = _median_ms(lambda: run(**kw), device, reps=5, batch=20) \
@@ -630,7 +693,8 @@ def _b5_sweep(fz, run, io, with_x0, device, label, storage,
             sweep.append({"cluster": cluster, "layout": layout, "ms": ms,
                           "device_ms": _graph_ms(lambda: run(**kw), device)})
     if not any(c["layout"] == "global" for c in sweep):
-        raise AssertionError(f"B5 on {label}: the global-d layout never ran")
+        raise AssertionError(f"{tag} on {label}: the global-d layout never "
+                             f"ran")
     return {"plan": {k: plan[k] for k in ("cluster", "layout", "threads",
                                           "ipt", "r2_smem", "smem_bytes")},
             "sweep": sweep, "device_ms": _graph_ms(run, device)}
@@ -690,8 +754,7 @@ def _zero(ctr) -> None:
 def _read(ctr) -> Dict[str, List[int]]:
     out = {tag: [sum(getattr(w, attr) for w in ws) for ws in ctr["mvs"]]
            for tag, attr in _STENCIL_COUNTERS.items()}
-    for tag, key in (("B3", "residual"), ("B4", "cheb_run"),
-                     ("B5", "cheb_full")):
+    for tag, key in FUSED_TAGS.items():
         out[tag] = [sum(w.fused.launches[key] for w in ws)
                     for ws in ctr["mvs"]]
     return out
@@ -722,11 +785,13 @@ def _check_launches(route: str, counts: Dict[str, List[int]],
     is its float64 instance."""
     nL = len(single)
     want = {"B1f64" if f64 else "B1": [True] * nL}
-    if route == "fused":
-        # the mid-cycle residual runs on every level but the coarsest
-        want["B3"] = [lvl < nL - 1 for lvl in range(nL)]
-        want["B4"] = [not s for s in single]
-        want["B5"] = list(single)
+    if route in ("fused", "fused-bf16c"):
+        # the mid-cycle residual runs on every level but the coarsest;
+        # the bf16-compute route runs B3c-B5c there instead, and no B3-B5
+        c = "c" if route == "fused-bf16c" else ""
+        want["B3" + c] = [lvl < nL - 1 for lvl in range(nL)]
+        want["B4" + c] = [not s for s in single]
+        want["B5" + c] = list(single)
     elif route == "lo":
         want["B2"] = [True] * nL
     if implicit:
@@ -748,7 +813,7 @@ def main_path_phase(device: torch.device, n: int, route: str = "f32",
     read just after it.  ``profile_inputs`` holds the built step, the
     radii, the cold solution and the frozen state, for ``profile_phase``
     once every phase has run (``run`` pops it)."""
-    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
+    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE, **ROUTE_ENV[route]):
         return _main_path(device, n, route, steps, windows, refresh, tol,
                           maxiter)
 
@@ -1287,7 +1352,7 @@ def design_phase(device: torch.device, n: int, steps: int = 8,
                             implicit=True, f64=True)
 
     # (c) float32, the bench's fused bf16 route, the same problem as (b)
-    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE):
+    with _env(PLDSO_MG_FUSED_DTYPE=FUSED_STORAGE, **ROUTE_ENV["fused"]):
         out["c"] = _design_fused(device, n, steps, windows, maxiter, g_b)
     return out
 
@@ -1616,13 +1681,13 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
                  mains: Dict[str, Dict], cases64: List[Dict],
                  vjp_cases: List[Dict], probe: Dict,
                  design: Dict, opt: Dict) -> List[Dict]:
-    """The ``kernels`` entries of B1 (float32, float64, VJP), B2-B5, P1
-    and P2.  ``launches`` sums each kernel's launches over the main paths
-    (the three routes' compliance steps, the three design-gradient paths
+    """The ``kernels`` entries of B1 (float32, float64, VJP), B2-B5,
+    B3c-B5c, P1 and P2.  ``launches`` sums each kernel's launches over the main paths
+    (the four routes' compliance steps, the three design-gradient paths
     and the optimizer's full-width drive (o1), each read just after its
     drive; the probes' entry for P1 and P2); the timed shape is the
     largest the main path gives the kernel, in the bench's bf16 storage
-    for B2-B5."""
+    for B2-B5 and B3c-B5c."""
     runs = [mains[r]["kernel_launches"] for r in mains] \
         + [design[p]["kernel_launches"] for p in ("a", "b", "c")] \
         + [opt["o1"]["kernel_launches"]]
@@ -1653,10 +1718,10 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
                   sum(launches("B2")), of("B2"), head("B2"),
                   launches("B2"))]
     nu = MG_OPTS["nu"][-1]
-    for tag, key, variant in (("B3", "residual", None),
-                              ("B4", "cheb_run", "step"),
-                              ("B5", "cheb_full", f"degree {nu}, x0")):
-        name, replaces = FUSED_KERNELS[key]
+    for tag, variant in (("B3", None), ("B4", "step"),
+                         ("B5", f"degree {nu}, x0"), ("B3c", None),
+                         ("B4c", "step"), ("B5c", f"degree {nu}, x0")):
+        name, replaces = FUSED_KERNELS[FUSED_TAGS[tag]]
         out.append(_entry(name, FusedSmoother.source, replaces,
                           sum(launches(tag)), of(tag), head(tag, variant),
                           launches(tag)))
@@ -1711,25 +1776,39 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{_was('B1', c['case'], 'f32', 'matvec')} [{card}]")
     budget.check("kernels B1")
 
-    fused_cases = fused_kernel_phase(dev, n)
+    with _env(PLDSO_MG_FUSED_COMPUTE=None):
+        fused_cases = fused_kernel_phase(dev, n)
+    by_key = {(c["kernel"], c["case"], c["storage"], c["variant"]): c
+              for c in fused_cases}
     for c in fused_cases:
         log(f"{c['kernel']} {c['case']} {c['storage']} {c['variant']}: rel "
-            f"err {c['max_rel_err']:.2e} (tol {c['tol']:.0e}) | kernel "
+            f"err {c['max_rel_err']:.2e} (tol {c['tol']:.0e}), bits differ "
+            f"{c['bits_differ']} | kernel "
             f"{_ms(c['ms'])} (after L2 flush {_ms(c['ms_cold'])}), plain "
             f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms "
             f"({c['bound_by']}) [{card}]")
+        if c["kernel"] in ("B3c", "B4c", "B5c"):
+            f = by_key[(c["kernel"][:2], c["case"], c["storage"],
+                        c["variant"])]
+            log(f"{c['kernel']} vs {f['kernel']} {c['case']} {c['storage']} "
+                f"{c['variant']}: {_ms(c['ms'])} (graph replay "
+                f"{_ms(c.get('device_ms'))}) vs {_ms(f['ms'])} (graph replay "
+                f"{_ms(f.get('device_ms'))}); bound {c['bound_ms']:.5f} vs "
+                f"{f['bound_ms']:.5f} ms [{card}]")
         if c["kernel"] in ("B2", "B3", "B4"):
             key = (c["kernel"], c["case"], c["storage"], c["variant"])
             log(f"{' '.join(key)}: {_plan_text(c['plan'])} | "
                 f"{_ms(c['ms'])} (device, graph replay "
                 f"{_ms(c['device_ms'])}) vs before the redesign "
                 f"{_was(*key)} [{card}]")
-        if c["kernel"] == "B5":
+        if c["kernel"] in ("B5", "B5c"):
             p = c["plan"]
-            was = B5_BEFORE_MS.get((c["case"], c["storage"], c["variant"]))
+            was = B5_BEFORE_MS.get((c["case"], c["storage"], c["variant"])) \
+                if c["kernel"] == "B5" else None
             was = "not recorded" if was is None \
                 else f"{was:.4f} ms (recorded from commit 9cba2c9)"
-            log(f"B5 {c['case']} {c['storage']} {c['variant']}: plan cluster "
+            log(f"{c['kernel']} {c['case']} {c['storage']} {c['variant']}: "
+                f"plan cluster "
                 f"{p['cluster']} x {p['threads']} threads x {p['ipt']} "
                 f"items, d {p['layout']}, r^2 in shared memory "
                 f"{p['r2_smem']} ({p['smem_bytes']} bytes) | "
@@ -1740,7 +1819,7 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
                 + ", ".join(f"{x['cluster']}/{x['layout']} {_ms(x['ms'])} "
                             f"({_ms(x['device_ms'])})"
                             for x in c["sweep"]) + f" [{card}]")
-    budget.check("kernels B2-B5")
+    budget.check("kernels B2-B5, B3c-B5c")
 
     cases64 = kernel64_phase(dev, n)
     for c in cases64:
@@ -1818,13 +1897,16 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     # smoother storage (the fused and lo routes alike) it rises with the
     # grid, as the reference's bf16 V-cycle does
     # (tests/test_torch_bf16_iterations.py)
-    base = mains["f32"]
+    base, fused = mains["f32"], mains["fused"]
     warm0 = sum(base["warm_iterations"])
     for route, m in mains.items():
         warm = sum(m["warm_iterations"])
         log(f"CG iterations [{route}]: cold {m['cold_iterations']} vs "
-            f"[f32] {base['cold_iterations']}; warm (all timed steps) "
-            f"{warm} vs [f32] {warm0}")
+            f"[f32] {base['cold_iterations']}, [fused] "
+            f"{fused['cold_iterations']}; warm (all timed steps) {warm} vs "
+            f"[f32] {warm0}, [fused] {sum(fused['warm_iterations'])}; "
+            f"{m['s_per_step']:.4f} s/step vs [fused] "
+            f"{fused['s_per_step']:.4f} [{card}]")
         if warm > ITERATION_RISE * warm0 + 1:
             raise AssertionError(
                 f"route {route} needs {warm} CG iterations over the timed "
@@ -1896,8 +1978,9 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     # run after the profiles read 30-50% more s/step)
     reps = dict(mains, design=c)
     for route, rep in reps.items():
-        rep["profile"] = prof = profile_phase(*rep.pop("profile_inputs"),
-                                              dev, route)
+        with _env(**ROUTE_ENV.get(route, ROUTE_ENV["fused"])):
+            rep["profile"] = prof = profile_phase(
+                *rep.pop("profile_inputs"), dev, route)
         log(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device busy "
             f"{prof['device_busy_ms']:.1f} ms (idle share "
             f"{prof['idle_share']:.3f}), iterations {prof['iterations']}, "

@@ -9,8 +9,11 @@ bf16 smoother storage (the lo and fused routes) makes the preconditioner
 a slightly perturbed operator, and the reference's own CG then needs more
 iterations than with the f32 V-cycle; the port must reproduce that count
 (within one iteration: dot products sum in another order), and its fused
-V-cycle with f32 storage must converge like the unfused one.  Run with
-``-s`` to print the counts."""
+V-cycle with f32 storage must converge like the unfused one.  The
+``fused-bf16c`` route is the fused one in bf16 arithmetic
+(``PLDSO_MG_FUSED_COMPUTE=bf16``: B5c on both levels, B3c mid-cycle),
+held to the reference's count the same way.  Run with ``-s`` to print
+the counts."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +36,12 @@ N = 4
 OPTS = dict(nu=(1, 1), coarse_degree=6, smooth_frac=0.25)
 ROUTES = {"f32": dict(fused=False, lo_smoother=False),
           "lo": dict(fused=False, lo_smoother=True),
-          "fused": dict(fused=True)}
+          "fused": dict(fused=True),
+          "fused-bf16c": dict(fused=True)}
+# the fused kernels' arithmetic of a route (PLDSO_MG_FUSED_COMPUTE, read
+# as each kernel is built or called; unset for every other route): the
+# bf16-compute instances B3c-B5c
+COMPUTE = {"fused-bf16c": "bf16"}
 
 
 def cold_counts(geom, n, tol=1e-8, routes=tuple(ROUTES)):
@@ -76,6 +84,10 @@ def cold_counts(geom, n, tol=1e-8, routes=tuple(ROUTES)):
         b = free * f
         out = {}
         for route in routes:
+            if route in COMPUTE:
+                mp.setenv("PLDSO_MG_FUSED_COMPUTE", COMPUTE[route])
+            else:
+                mp.delenv("PLDSO_MG_FUSED_COMPUTE", raising=False)
             M_j = jmg.mg_apply(hj, sj, **OPTS, **ROUTES[route])
             res = jax.jit(lambda b_: jpcg(A_j, b_, M=M_j, tol=tol,
                                           maxiter=200))(jnp.asarray(b))
@@ -84,6 +96,7 @@ def cold_counts(geom, n, tol=1e-8, routes=tuple(ROUTES)):
                 A_t, torch.tensor(b), M=M_t, tol=tol,
                 maxiter=200).iterations)
         # the port's fused V-cycle in f32 storage, from the same state
+        mp.delenv("PLDSO_MG_FUSED_COMPUTE", raising=False)
         st32 = dict(st, fused=[{k: v.float() for k, v in fo.items()}
                                for fo in st["fused"]])
         out["fused f32 storage (port)"] = (None, tpcg(

@@ -1,6 +1,6 @@
 """Card-only tests of the port: the kernels B1 (float32, float64 and its
-VJP), B2-B5, P1 and P2 against their plain versions, and the main path's
-routes and the design-gradient paths at a small size.  They import no JAX,
+VJP), B2-B5, B3c-B5c, P1 and P2 against their plain versions, and the
+main path's routes and the design-gradient paths at a small size.  They import no JAX,
 so they run on a machine without it:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
@@ -212,7 +212,7 @@ def test_lo_and_fused_kernels_match_plain_on_card(name, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["fused", "lo"])
+@pytest.mark.parametrize("route", ["fused", "lo", "fused-bf16c"])
 def test_routes_small_on_card(route):
     _need_card()
     rep = smoke.main_path_phase(torch.device("cuda"), 8, route=route,
@@ -596,3 +596,112 @@ def test_kriging_fit_raises_without_sklearn(monkeypatch):
     vc, gc = model.mean_and_grad(np.array([0.05]), device="cpu")
     assert v.is_cuda and abs(float(v) - float(vc)) <= 1e-14
     assert abs(float(g) - float(gc)) <= 1e-12 * abs(float(gc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,cells", SLAB_CASES)
+def test_bf16_compute_kernels_match_plain_on_card(name, cells, monkeypatch):
+    """B3c and B4c (a step and the final emit) on their slab plans, and
+    B5c where the routing marks the grid single, against their plain
+    versions (the dense form in bf16, every operation rounded on its own):
+    within 1e-2, in f32 and bf16 storage; bitwise on repeat; ghosts
+    written zero over NaN-filled outputs; the bits that differ from the
+    plain version's are printed (run with -s)."""
+    _need_card()
+    from pylatticedso_tpu_torch.kernels.fused import cheb_static
+    ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,
+                                            17 + sum(cells))
+    fz = tm.apply.fused
+    assert fz.dense
+    g = torch.Generator(device="cuda").manual_seed(3)
+    D = diag(r)
+    D = torch.where(D == 0, torch.ones_like(D), D)
+    sc = fz.sc(torch.tensor(8.0, device="cuda") * D.max(), 0.35)
+    steps = cheb_static(0.35, 2)
+    nan_empty = lambda t, **kw: torch.full_like(t, float("nan"), **kw)
+    differ = {}
+    for io in (torch.float32, torch.bfloat16):
+        P = lambda a: torch.nn.functional.pad(a, (1,) * 6).to(io)
+        x, d, fd = P(u), P(u / D), P(1.0 / D)
+        rr = P(torch.randn(u.shape, generator=g, device="cuda"))
+        r2 = aux.to(io)
+        runs = {"B3c": (lambda: fz.residual(rr, x, fd, r2, "bf16"),
+                        lambda: fz.plain_residual(rr, x, fd, r2, "bf16"))}
+        for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
+            runs[f"B4c {'final' if final else 'step'}"] = (
+                lambda c1=c1, c2=c2, final=final: fz.cheb_run(
+                    x, rr, d, fd, sc, r2, c1, c2, final, "bf16"),
+                lambda c1=c1, c2=c2, final=final: fz.plain_cheb_run(
+                    x, rr, d, fd, sc, r2, c1, c2, final, "bf16"))
+        if fz.single_ok:
+            for x0, deg in ((None, 2), (x, 2)):
+                runs[f"B5c x0={x0 is not None}"] = (
+                    lambda x0=x0, deg=deg: fz.cheb_full(
+                        rr, x0, fd, sc, r2, 0.35, deg, compute="bf16"),
+                    lambda x0=x0, deg=deg: fz.plain_cheb_full(
+                        rr, x0, fd, sc, r2, 0.35, deg, "bf16"))
+        for key, (run, plain) in runs.items():
+            with monkeypatch.context() as m:
+                m.setattr(torch, "empty_like", nan_empty)
+                got = _repeat(run)
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain()
+            want = want if isinstance(want, tuple) else (want,)
+            n = 0
+            for a, w in zip(got, want):
+                assert not torch.isnan(a).any()
+                inner = torch.zeros_like(a, dtype=torch.bool)
+                inner[..., 1:-1, 1:-1, 1:-1] = True
+                assert torch.all(a[~inner] == 0)
+                err = float((a.float() - w.float()).abs().max()
+                            / w.float().abs().max())
+                assert err <= 1e-2, (io, key, err)
+                n += smoke._bits_differ(a, w)
+            differ[(str(io), key)] = n
+    print(f"\n{name} {cells}: elements whose bits differ from the plain "
+          f"version's {differ}")
+    assert fz.launches["residual_bf16c"] == 4
+    assert fz.launches["cheb_run_bf16c"] == 8
+    assert fz.launches["residual"] == fz.launches["cheb_run"] == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("cells", [7, 4, 2])
+def test_b5c_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
+    """B5c on the 50^3 hierarchy's single levels, as B5 is held: within
+    1e-2 of its plain version, bitwise on repeat and the same bits under
+    every cluster size and layout of d the card can run."""
+    _need_card()
+    from pylatticedso_tpu_torch.kernels.fused import B5_CLUSTERS, B5_LAYOUTS
+    fz, io, lmax, b, x, fd, r2 = _b5_level(cells, storage)
+    assert fz.single_ok and fz.dense
+    cases = [(None, 2, 0.35), (x, 2, 0.35)]
+    if cells == 2:
+        cases.append((None, 24, 1.0 / 64.0))
+    for x0, deg, frac in cases:
+        sc = fz.sc(lmax, frac)
+        run = lambda **kw: fz.cheb_full(b, x0, fd, sc, r2, frac, deg,
+                                        compute="bf16", **kw)
+        want = run()
+        plain = fz.plain_cheb_full(b, x0, fd, sc, r2, frac, deg, "bf16")
+        err = float((want.float() - plain.float()).abs().max()
+                    / plain.float().abs().max())
+        assert err <= smoke.STORAGE_TOL[storage]["B5c"], err
+        assert torch.equal(want, run())
+        ran = set()
+        for layout in B5_LAYOUTS:
+            for cluster in B5_CLUSTERS:
+                try:
+                    fz.b5_plan(io, x0 is not None, cluster, layout, 0,
+                               "bf16")
+                except ValueError:
+                    continue
+                assert torch.equal(run(cluster=cluster, layout=layout),
+                                   want), (cluster, layout)
+                ran.add((cluster, layout))
+        assert any(lay == "global" for _, lay in ran)
+    assert fz.launches["cheb_full_bf16c"] > 0 and \
+        fz.launches["cheb_full"] == 0
+    torch.cuda.synchronize()

@@ -140,12 +140,13 @@ def test_vcycle_is_symmetric_positive(bcc4, nu):
 
 
 def test_unported_smoothers_raise(bcc4, monkeypatch):
-    """The fused V-cycle's bf16 arithmetic is not ported and raises; a
-    fused request that the state cannot meet (float64: no level has a
-    fused smoother) raises instead of running the unfused V-cycle.  A
-    bf16-I/O request smooths each level without bf16 operands with B1, as
-    JAX smooths it with its gather form: at float64 no level has them, so
-    it is the full-precision V-cycle."""
+    """A fused request that the state cannot meet (float64: no level has a
+    fused smoother) raises instead of running the unfused V-cycle, with
+    the fused V-cycle's bf16 arithmetic asked for too (it is ported, and
+    the request still has no fused level to run it on).  A bf16-I/O
+    request smooths each level without bf16 operands with B1, as JAX
+    smooths it with its gather form: at float64 no level has them, so it
+    is the full-precision V-cycle."""
     _js, ts, _free, _hj, ht, r, _sj = bcc4
     st = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1)
     with pytest.raises(RuntimeError, match="fall back"):
@@ -157,6 +158,7 @@ def test_unported_smoothers_raise(bcc4, monkeypatch):
                        tmg.mg_apply(ht, st, lo_smoother=False)(v))
     st_f = tmg.mg_precond_state(ht, torch.tensor(r), power_iters=1,
                                 fused=True)
+    assert st_f["fused"] == [None] * len(st_f["Ds"])
     monkeypatch.setenv("PLDSO_MG_FUSED_COMPUTE", "bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="fall back"):
         tmg.mg_apply(ht, st_f, fused=True)

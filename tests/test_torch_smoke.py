@@ -3,6 +3,7 @@ only (every wrapper runs its plain version, nothing is timed as a device
 number), and the script's refusals without a card or without the port."""
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -85,9 +86,26 @@ def test_phases_rehearse_on_cpu():
                    "a warp per edge, 4 edges = 128 threads a block" in line
                    and "before the redesign not recorded" in line
                    for line in lines), tag
-    # B2-B5: every grid (the hybrid's coarse level too), both storages
+    # B2-B5 and B3c-B5c: every grid (the hybrid's coarse level too), both
+    # storages; every case counts the elements whose bits differ from the
+    # plain version's (none here: the plain version on both sides)
     fc = rep["fused_cases"]
-    assert {c["kernel"] for c in fc} == {"B2", "B3", "B4", "B5"}
+    assert {c["kernel"] for c in fc} == {"B2", "B3", "B4", "B5", "B3c",
+                                         "B4c", "B5c"}
+    for tag in ("B3", "B4", "B5"):
+        f32c = {(c["case"], c["storage"], c["variant"]) for c in fc
+                if c["kernel"] == tag}
+        assert {(c["case"], c["storage"], c["variant"]) for c in fc
+                if c["kernel"] == tag + "c"} == f32c
+        assert any(line.startswith(f"{tag}c vs {tag} Octet 4^3 (MG level 0) "
+                                   f"bf16") for line in lines)
+    assert all(c["bits_differ"] == 0 for c in fc)
+    for c in fc:
+        if c["kernel"] in ("B3c", "B4c", "B5c"):
+            assert c["tol"] == 1e-2
+            assert c["bound_ms"] == pytest.approx(
+                1e3 * max(c["bytes"] / smoke.PEAK_BYTES_PER_S,
+                          c["ops"] / smoke.PEAK_BF16_PER_S))
     assert {c["storage"] for c in fc if c["kernel"] != "B2"} == \
         {"f32", "bf16"}
     assert {c["case"] for c in fc if c["kernel"] == "B5"} == \
@@ -101,7 +119,7 @@ def test_phases_rehearse_on_cpu():
     # the redesign, a record and not a measurement, only in the log (the
     # 50^3 levels only)
     for c in fc:
-        if c["kernel"] != "B5":
+        if c["kernel"] not in ("B5", "B5c"):
             continue
         assert set(c["plan"]) == {"cluster", "layout", "threads", "ipt",
                                   "r2_smem", "smem_bytes"}
@@ -116,7 +134,7 @@ def test_phases_rehearse_on_cpu():
     assert any(line.startswith("B5 Octet 4^3")
                and "before the redesign not recorded |" in line
                for line in lines)
-    assert set(rep["mains"]) == {"fused", "lo", "f32"}
+    assert set(rep["mains"]) == {"fused", "lo", "f32", "fused-bf16c"}
     for route, main in rep["mains"].items():
         assert main["route"] == route
         assert main["levels"] == [[4, 4, 4], [2, 2, 2]]
@@ -126,7 +144,7 @@ def test_phases_rehearse_on_cpu():
         # no kernel on the CPU
         assert main["kernel_launches"] == {
             k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4",
-                                "B5")}
+                                "B5", "B3c", "B4c", "B5c")}
         assert main["b5_clusters"] == [{}, {}]
     # B1's float64 instance at every MG level, its VJP in both precisions
     assert [c["case"] for c in rep["cases64"]] == \
@@ -164,7 +182,8 @@ def test_phases_rehearse_on_cpu():
     assert set(o1["setup_s"]) == {"problem", "node_map", "fields", "step"}
     assert o1["plain_gather_calls"] == 0
     assert o1["kernel_launches"] == {
-        k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4", "B5")}
+        k: [0, 0] for k in ("B1", "B1f64", "VJP", "B2", "B3", "B4", "B5",
+                            "B3c", "B4c", "B5c")}
     assert o2["cells"] == 4
     assert o2["routed"] == "StructuredOptimizationProblem"
     assert o2["density"] <= smoke.OPT_DENSITY + smoke.OPT_DENSITY_SLACK
@@ -194,7 +213,8 @@ def test_phases_rehearse_on_cpu():
     assert names == ["stencil_matvec_f32", "stencil_matvec_f64",
                      "stencil_vjp_r2", "stencil_matvec_bf16",
                      "mg_residual", "mg_cheb_run", "mg_cheb_full",
-                     "probe_chain", "probe_scale"]
+                     "mg_residual_bf16c", "mg_cheb_run_bf16c",
+                     "mg_cheb_full_bf16c", "probe_chain", "probe_scale"]
     for k in rep["kernels"]:
         for key in ("name", "route", "source", "replaces", "launches",
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -217,9 +237,11 @@ def test_phases_rehearse_on_cpu():
     assert any(line.startswith("profile [design]") for line in lines)
     assert lines.index(next(x for x in lines if x.startswith("profile ["))) \
         > lines.index(next(x for x in lines if x.startswith("design (c)")))
-    for route in ("fused", "lo", "f32"):
+    for route in ("fused", "lo", "f32", "fused-bf16c"):
         assert any(line.startswith(f"main path [{route}] 4^3 Octet")
                    for line in lines)
+        assert any(line.startswith(f"CG iterations [{route}]: cold ") and
+                   ", [fused] " in line for line in lines)
     for path in ("a", "b", "c"):
         assert any(line.startswith(f"design ({path})") for line in lines)
     assert all("[CPU rehearsal, host clock]" in line for line in lines
@@ -265,6 +287,36 @@ def test_launch_gates_name_the_missing_kernel():
     with pytest.raises(AssertionError, match="B2 launched"):
         smoke._check_launches("f32", dict(ok, B3=[0, 0], B4=[0, 0],
                                           B5=[0, 0], B2=[1, 0]), single)
+
+
+def test_launch_gates_of_the_bf16_compute_route():
+    """The fused-bf16c route runs B3c-B5c on the fused route's levels and
+    none of B3-B5; the fused route none of B3c-B5c; the route's switch is
+    the variable alone, set for it and unset for every other route."""
+    single = [False, True]
+    ok = {"B1": [3, 1], "B2": [0, 0], "B3": [0, 0], "B4": [0, 0],
+          "B5": [0, 0], "B3c": [2, 0], "B4c": [4, 0], "B5c": [0, 3]}
+    smoke._check_launches("fused-bf16c", ok, single)
+    with pytest.raises(AssertionError, match="B4 launched 1 times"):
+        smoke._check_launches("fused-bf16c", dict(ok, B4=[1, 0]), single)
+    with pytest.raises(AssertionError, match="B5c launched 0 times"):
+        smoke._check_launches("fused-bf16c", dict(ok, B5c=[0, 0]), single)
+    with pytest.raises(AssertionError, match="B3c launched 2 times"):
+        smoke._check_launches("fused", dict(ok, B3=[2, 0], B4=[4, 0],
+                                            B5=[0, 3]), single)
+    assert smoke.ROUTES["fused-bf16c"] == smoke.ROUTES["fused"]
+    assert smoke.ROUTE_ENV["fused-bf16c"] == {"PLDSO_MG_FUSED_COMPUTE":
+                                              "bf16"}
+    assert all(smoke.ROUTE_ENV[r] == {"PLDSO_MG_FUSED_COMPUTE": None}
+               for r in ("fused", "lo", "f32"))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PLDSO_MG_FUSED_COMPUTE", "bf16")
+    try:
+        with smoke._env(**smoke.ROUTE_ENV["fused"]):
+            assert "PLDSO_MG_FUSED_COMPUTE" not in os.environ
+        assert os.environ["PLDSO_MG_FUSED_COMPUTE"] == "bf16"
+    finally:
+        mp.undo()
 
 
 def test_launch_gates_of_the_design_paths():
