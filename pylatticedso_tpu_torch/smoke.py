@@ -288,10 +288,18 @@ def _index(device: torch.device) -> Optional[int]:
 
 
 def _plan_rec(plan: Dict) -> Dict:
-    """A slab or beam plan as the report keeps it: run, threads per block
-    (one per class and point, or a warp per edge), edges a block (beam
-    plans), blocks one SM holds (asked of the card; None off it), halo and
-    dynamic shared memory (none: the kernels read through L1)."""
+    """A slab, beam or tile plan as the report keeps it: run, threads per
+    block (one per class and point, or a warp per edge), edges a block
+    (beam plans), blocks one SM holds (asked of the card; None off it),
+    halo and dynamic shared memory (none: the slab kernels read through
+    L1); a tile plan (B3c, B4c) its tile, threads, blocks, blocks per SM,
+    shared memory and anchors computed per edge and tile point."""
+    if "tile" in plan:
+        return {"tile": list(plan["tile"]), "threads": plan["threads"],
+                "blocks": plan["blocks"],
+                "blocks_per_sm": plan.get("blocks_per_sm"),
+                "smem_bytes": plan["smem_bytes"],
+                "anchors_per_point": plan["anchors_per_point"]}
     rec = {"run": plan["run"], "threads": plan["threads"],
            "blocks_per_sm": plan.get("blocks_per_sm"),
            "halo": list(plan["halo"]), "smem_bytes": 0}
@@ -302,6 +310,13 @@ def _plan_rec(plan: Dict) -> Dict:
 
 def _plan_text(plan: Dict) -> str:
     bps = plan["blocks_per_sm"]
+    bps = "not asked" if bps is None else bps
+    if "tile" in plan:
+        return (f"tile plan: {'x'.join(map(str, plan['tile']))} padded "
+                f"points a block, {plan['threads']} threads, "
+                f"{plan['blocks']} blocks, {bps} blocks per SM, "
+                f"{plan['smem_bytes']} bytes of shared memory, "
+                f"{plan['anchors_per_point']:.3f} anchors an edge and point")
     if "edges" in plan:
         head = (f"beam plan: runs of {plan['run']} points, a warp per "
                 f"edge, {plan['edges']} edges = {plan['threads']} threads "
@@ -309,9 +324,8 @@ def _plan_text(plan: Dict) -> str:
     else:
         head = (f"slab plan: runs of {plan['run']} points, one thread per "
                 f"class and point = {plan['threads']} threads a block")
-    return (f"{head}, {'not asked' if bps is None else bps} blocks per SM, "
-            f"halo {plan['halo']}, {plan['smem_bytes']} bytes of shared "
-            f"memory")
+    return (f"{head}, {bps} blocks per SM, halo {plan['halo']}, "
+            f"{plan['smem_bytes']} bytes of shared memory")
 
 
 def level_cells(n: int, min_cells: int = 3) -> List[int]:

@@ -3,7 +3,7 @@ the same bits where the arithmetic is meant to be the same, and times of
 the redesigned kernels in turns.
 
     python3 scripts/kernel_bits.py CHECKOUT_A CHECKOUT_B [--out FILE]
-        [--same B1,B1f64,B2,B3,B4,B5] [--timed B3,r2]
+        [--same B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c] [--timed B3,r2]
 
 Needs one CUDA card.  Runs, in a fresh process per checkout and in the
 order A B B A, each checkout's own ``pylatticedso_tpu_torch`` (its kernels
@@ -11,8 +11,9 @@ built in that checkout) on the same inputs, made on the card from fixed
 seeds: at every grid of ``smoke._grids(50)`` (each MG level of the 50^3
 Octet hierarchy and the hybrid check case) B1 float32 and float64, B2, B3,
 B4 (a step and the final emit) and B5 (every variant the smoke runs) in
-float32 and bfloat16 storage, and the r^2-cotangent kernel in float32 and
-float64.  Each run reports a hash of every output and, for the kernels of
+float32 and bfloat16 storage, their bf16-compute instances B3c, B4c and
+B5c on the levels that have them (the dense ones), and the r^2-cotangent
+kernel in float32 and float64.  Each run reports a hash of every output and, for the kernels of
 ``--timed``, CUDA-event and CUDA-graph times.  Prints, per kernel, whether
 A's and B's outputs are the same bits on every grid (required for the
 kernels of ``--same``; each checkout's two runs must agree too), the
@@ -108,17 +109,28 @@ for seed, (geom, cells, h, label, lvl) in enumerate(smoke._grids(50)):
         for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
             put(f"B4 {{storage}} {{'final' if final else 'step'}}", label,
                 lambda: fz.cheb_run(x, rr, d, fdp, sc, r2s, c1, c2, final))
+        computes = ("f32", "bf16") if fz.dense else ("f32",)
+        if fz.dense:
+            put(f"B3c {{storage}}", label,
+                lambda: fz.residual(bp, x, fmp, r2s, "bf16"))
+            for final, (c1, c2) in ((False, steps[0]), (True, steps[1])):
+                put(f"B4c {{storage}} {{'final' if final else 'step'}}", label,
+                    lambda: fz.cheb_run(x, rr, d, fdp, sc, r2s, c1, c2, final,
+                                        "bf16"))
         if not fz.single_ok:
             continue
         variants = [(deg, frac, None), (deg, frac, x)]
         if lvl == len(smoke.level_cells(50)) - 1:
             variants.append((smoke.MG_OPTS["coarse_degree"], 1.0 / 64.0,
                              None))
-        for dg, fr, x0 in variants:
+        for (dg, fr, x0), ct in [(v, ct) for ct in computes
+                                 for v in variants]:
             scv = fz.sc(lmax, fr)
-            name = f"B5 {{storage}} degree {{dg}}{{', x0' if x0 is not None else ''}}"
+            tag = "B5" if ct == "f32" else "B5c"
+            name = f"{{tag}} {{storage}} degree {{dg}}{{', x0' if x0 is not None else ''}}"
             put(name, label,
-                lambda: fz.cheb_full(bp, x0, fdp, scv, r2s, fr, dg))
+                lambda: fz.cheb_full(bp, x0, fdp, scv, r2s, fr, dg,
+                                     compute=ct))
     if lvl is None:
         continue
     sl = StructuredLattice(geom, (cells,) * 3, (h, h, h), smoke.E_MOD,
@@ -140,7 +152,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("a")
     ap.add_argument("b")
-    ap.add_argument("--same", default="B1,B1f64,B2,B3,B4,B5",
+    ap.add_argument("--same", default="B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c",
                     help="kernels whose outputs must be the same bits")
     ap.add_argument("--timed", default="B3,r2")
     ap.add_argument("--out", help="also write the runs here (JSON)")
