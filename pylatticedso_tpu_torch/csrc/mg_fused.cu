@@ -96,8 +96,9 @@ __device__ __forceinline__ float cheb_d_rn(float c1, float d, float c2i,
 // point t % run for class t / run.  Interior points run the stencil on x
 // and write fm (b - K x), rounded once to the storage type; ghost points
 // write zeros, so out can come from torch.empty.  `sides` holds the
-// grid's offsets.
-template <typename T>
+// grid's offsets.  CB: K x in the dense form's bf16 arithmetic
+// (slab_dense), widened to float for the same update.
+template <typename T, bool CB>
 __global__ void __launch_bounds__(SLAB_THREADS)
 mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
                    const T* __restrict__ fm, const T* __restrict__ r2,
@@ -114,8 +115,12 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
     return;
   }
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  slab_acc<float, Side>(x, Fp, q, r2 + q, c, s.sides, s.class_start[c],
-                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  if (CB)
+    slab_dense<T, T>(x, Fp, q, r2 + q, c, s.sides, s.dense,
+                     s.class_start[c], s.class_start[c + 1], acc);
+  else
+    slab_acc<float, Side>(x, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     const int o = (c * 6 + k) * Fp + q;
@@ -130,8 +135,9 @@ mg_residual_kernel(const T* __restrict__ x, const T* __restrict__ b,
 // d and update their own values (x, r, fd and the centre d read once);
 // ghost points write zeros, so outputs can come from torch.empty and
 // every neighbour read of the next launch sees zero ghosts.  `sides`
-// holds the grid's offsets.
-template <typename T, bool FINAL>
+// holds the grid's offsets.  CB: K d in the dense form's bf16 arithmetic
+// (slab_dense on d rounded to bf16), the update in float on the stored d.
+template <typename T, bool FINAL, bool CB>
 __global__ void __launch_bounds__(SLAB_THREADS)
 mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
                    const T* __restrict__ d, const T* __restrict__ fd,
@@ -159,15 +165,20 @@ mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
   }
   const float c2i = c2 * sc[1];
   float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
-                        s.class_start[c + 1], s.E, s.kG, s.G2, acc);
+  if (CB)
+    slab_dense<T, T>(d, Fp, q, r2 + q, c, s.sides, s.dense,
+                     s.class_start[c], s.class_start[c + 1], acc);
+  else
+    slab_acc<float, Side>(d, Fp, q, r2 + q, c, s.sides, s.class_start[c],
+                          s.class_start[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     const int o = (c * 6 + k) * Fp + q;
     const float dc = ld(d + o);
     const float x1 = ld(x + o) + dc;
     const float r1 = ld(r + o) - acc[k];
-    const float d1 = c1 * dc + (c2i * r1) * ld(fd + o);
+    const float d1 = CB ? cheb_d_rn(c1, dc, c2i, r1, ld(fd + o))
+                        : c1 * dc + (c2i * r1) * ld(fd + o);
     if (FINAL) {
       st(x1o + o, x1 + d1);
     } else {
@@ -176,515 +187,6 @@ mg_cheb_run_kernel(const T* __restrict__ x, const T* __restrict__ r,
       st(d1o + o, d1);
     }
   }
-}
-
-// ------------------------------------------------------------- B3c, B4c
-// The bf16-compute instances of B3 and B4 compute each template edge's
-// strains and forces once per instance, as the TPU kernel's compute-once
-// form does (stencil_pallas.py edge_once, :379-400): one block per 3-D
-// tile of padded points (tx x ty x tz, powers of two, planned on the host:
-// kernels/fused.py once_plan), in two phases.
-//   Phase 1, the edges.  For each template edge the block computes, at
-//   every anchor (instance position, the edge's r^2 point) that a point of
-//   its tile reads from either side, the dense form's d = uB - uA, p3 =
-//   uA[3:] + uB[3:], K from r^2, E and Sd = K E (once_sd: dense_acc's
-//   operations in its order), and keeps Sd, three __nv_bfloat162, in
-//   shared memory.  An edge's anchors are a box, the tile shifted by -oa
-//   and by -ob (their bounding box); the host cuts the boxes into chunks
-//   of anchors, and a warp takes one chunk at a time, so the edge's
-//   columns load once a chunk, at one address per warp.  Anchors that no
-//   interior point reads are skipped, which keeps every read inside the
-//   padded grid.
-//   Phase 2, the rows.  After a barrier each thread takes ONCE_P points of
-//   one class and sums that class's sides in table order: each side's Sd
-//   at its anchor (the point minus the side's own offset) times the side's
-//   row columns (once_row), added into acc; then the float epilogue of B3
-//   or B4 as in the float-compute kernels, and zeros at ghost points.
-// Both sides of an edge see the same d, p3 and r^2, so E and Sd are the
-// bits the two-sided form computed per side, and the rows add in the same
-// order: the result is the bits of the plain version (DenseForm.plain).
-// Work per interior point (Octet, 24 edges, 48 sides): the dense form's
-// d, p3, K, E and Sd at ~1.2-1.3 anchors an edge (the tile's halo) instead
-// of 2, each side's row once; bound as the float kernels' bytes, and
-// operations by DenseForm.ops_per_point (the compute-once count).
-#define ONCE_THREADS 256
-#define ONCE_P 2        // points of one class a phase-2 thread takes
-// Variants measured by scripts/once_tiles.py (built with -D): ONCE_STAGE
-// 1 stages u in shared memory (default), 0 reads each anchor's endpoints
-// from device memory, ONCE_U2 1 two anchors a lane at once there,
-// ONCE_PF 1 asks L1 for the tile's lines first; ONCE_SU unrolls phase 2's
-// side loop; ONCE_DIAG 1 leaves out the Sd arithmetic, 2 phase 1, 3 phase
-// 2's rows (wrong results: phase times only).
-#ifndef ONCE_STAGE
-#define ONCE_STAGE 1
-#endif
-#ifndef ONCE_U2
-#define ONCE_U2 1
-#endif
-#ifndef ONCE_PF
-#define ONCE_PF 0
-#endif
-#ifndef ONCE_SU
-#define ONCE_SU 2
-#endif
-#ifndef ONCE_DIAG
-#define ONCE_DIAG 0
-#endif
-constexpr int kOnceSideUnroll = ONCE_SU;
-#define ONCE_E_COLS (2 + DENSE_A)
-
-struct __align__(16) OnceEdge {
-  __nv_bfloat162 col[ONCE_E_COLS][3];   // K's two, E's nine (side A's)
-  int ua, ub;      // (ONCE_STAGE 0) endpoint A's, B's first u row from the
-                   // anchor's point: class * 6 * Fp + flat offset oa, ob
-  int cpad;
-  int sa, sb;      // endpoint A's, B's staged pair 0 for the box's
-                   // anchor (0, 0, 0) (class * 3 * R + region index)
-  int r2;          // ei * Fp: the edge's r^2 row
-  int sd;          // the box's first Sd word in shared memory
-  int na;          // anchors in the box: the stride of a pair's plane
-  int bx, by, bz;  // the box's extent
-  int ox, oy, oz;  // the box's origin from the tile's: -max(oa, ob)
-  int pad;
-};                 // 192 bytes: 12 16-byte words
-
-struct __align__(16) OnceSide {
-  int sd;          // Sd word of the side's anchor for the tile origin
-  int sx, sy;      // the edge box's x and y strides (by * bz, bz)
-  int na;          // the box's plane stride
-  __nv_bfloat162 row[DENSE_B][3];       // the side's row columns
-  int pad[2];
-};                 // 96 bytes: 6 16-byte words
-
-static_assert(sizeof(OnceEdge) == 192, "OnceEdge: host layout");
-static_assert(sizeof(OnceSide) == 96, "OnceSide: host layout");
-
-struct OncePlan {
-  const OnceEdge* edges;
-  const OnceSide* sides;         // the side table's order
-  const int* class_start;
-  const int4* chunks;            // (edge, first anchor, end anchor, 0)
-  int n_chunks, sd_words;        // chunks; Sd words (su follows them)
-  int tx, ty, tz, lty, ltz, lg;  // tile; log2 ty, tz, points / ONCE_P
-  int nty, ntz;                  // tiles along y and z
-  int nc, X, Y, Z;
-};
-
-// Sd = K E of one instance from its endpoints' values (pairs of rows) and
-// r^2: dense_acc's operations, in its order, with side A's columns
-__device__ __forceinline__ void once_sd(const __nv_bfloat162 c[3 * ONCE_E_COLS],
-                                        const __nv_bfloat162 a[3],
-                                        const __nv_bfloat162 b[3],
-                                        __nv_bfloat16 r2,
-                                        __nv_bfloat162 Sd[3]) {
-  __nv_bfloat162 d[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) d[i] = __hsub2_rn(b[i], a[i]);
-  const __nv_bfloat162 q23 = __hadd2_rn(a[1], b[1]);
-  const __nv_bfloat162 p12 = __hadd2_rn(a[2], b[2]);
-  const __nv_bfloat162 rr = __bfloat162bfloat162(r2);
-  const __nv_bfloat162 r4 = __bfloat162bfloat162(__hmul_rn(r2, r2));
-  __nv_bfloat162 K[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-    K[i] = __hadd2_rn(__hmul2_rn(rr, c[i]), __hmul2_rn(r4, c[3 + i]));
-  const __nv_bfloat162 src[DENSE_A] = {
-      __low2bfloat162(d[0]), __high2bfloat162(d[0]),
-      __low2bfloat162(d[1]), __high2bfloat162(d[1]),
-      __low2bfloat162(d[2]), __high2bfloat162(d[2]),
-      __high2bfloat162(q23), __low2bfloat162(p12), __high2bfloat162(p12)};
-  __nv_bfloat162 E[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) E[i] = __hmul2_rn(src[0], c[6 + i]);
-#pragma unroll
-  for (int s = 1; s < DENSE_A; ++s)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      E[i] = __hadd2_rn(E[i], __hmul2_rn(src[s], c[3 * (2 + s) + i]));
-#pragma unroll
-  for (int i = 0; i < 3; ++i) Sd[i] = __hmul2_rn(K[i], E[i]);
-}
-
-// acc += the side's row from its Sd: dense_acc's row, in its order
-__device__ __forceinline__ void once_row(const __nv_bfloat162 c[3 * DENSE_B],
-                                         const __nv_bfloat162 Sd[3],
-                                         __nv_bfloat162 acc[3]) {
-  const __nv_bfloat162 sv[DENSE_B] = {
-      __low2bfloat162(Sd[0]), __high2bfloat162(Sd[0]),
-      __low2bfloat162(Sd[1]), __high2bfloat162(Sd[1]),
-      __low2bfloat162(Sd[2]), __high2bfloat162(Sd[2])};
-  __nv_bfloat162 row[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) row[i] = __hmul2_rn(sv[0], c[i]);
-#pragma unroll
-  for (int s = 1; s < DENSE_B; ++s)
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      row[i] = __hadd2_rn(row[i], __hmul2_rn(sv[s], c[3 * s + i]));
-#pragma unroll
-  for (int i = 0; i < 3; ++i) acc[i] = __hadd2_rn(acc[i], row[i]);
-}
-
-// `n` 16-byte words of a table record, the same address in every thread
-// of a warp, through the read-only path
-template <int N>
-__device__ __forceinline__ void once_words(const void* rec, __nv_bfloat162* w) {
-  const uint4* p = reinterpret_cast<const uint4*>(rec);
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint4 v = __ldg(p + i);
-    w[4 * i] = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-    w[4 * i + 1] = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-    w[4 * i + 2] = *reinterpret_cast<const __nv_bfloat162*>(&v.z);
-    w[4 * i + 3] = *reinterpret_cast<const __nv_bfloat162*>(&v.w);
-  }
-}
-
-// The tile's u over its halo region (padded x0 - 1 .. x0 + tx, and so on:
-// every endpoint any anchor of the tile reads) into shared memory, as
-// bf16 pairs of rows: pair i of class c at su[(c * 3 + i) * R + (x * RY
-// + y) * RZ + z], R = RX RY RZ; zeros beyond the padded grid.  Each value
-// is read from device memory once per block, by consecutive threads.
-template <typename T>
-__device__ __forceinline__ void once_stage(const T* __restrict__ u,
-                                           const OncePlan& p, int x0, int y0,
-                                           int z0, __nv_bfloat162* su) {
-  const int Yp = p.Y + 2, Zp = p.Z + 2, Fp = (p.X + 2) * Yp * Zp;
-  const int RY = p.ty + 2, RZ = p.tz + 2, RXY = (p.tx + 2) * RY;
-  const float rRZ = __frcp_rn((float)RZ), rRXY = __frcp_rn((float)RXY),
-              rRY = __frcp_rn((float)RY);
-  const int n = p.nc * 3 * RXY * RZ;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    // e = ((ci * RX + x) * RY + y) * RZ + z, by exact float quotients
-    const int row = __float2int_rz(((float)e + 0.5f) * rRZ);
-    const int z = e - row * RZ;
-    const int ci = __float2int_rz(((float)row + 0.5f) * rRXY);
-    const int xy = row - ci * RXY;
-    const int x = __float2int_rz(((float)xy + 0.5f) * rRY);
-    const int y = xy - x * RY;
-    const int px = x0 - 1 + x, py = y0 - 1 + y, pz = z0 - 1 + z;
-    __nv_bfloat162 v = __float2bfloat162_rn(0.f);
-    if (px >= 0 && px <= p.X + 1 && py >= 0 && py < Yp && pz >= 0
-        && pz < Zp)
-      v = ldh2(u + 2 * ci * Fp + (px * Yp + py) * Zp + pz, Fp);
-    su[e] = v;
-  }
-}
-
-// Phase 1: Sd of every anchor of every edge that the tile at padded
-// (x0, y0, z0) reads, into sd, from the staged u (su) and r^2 (storage
-// T) in device memory.  A chunk is a run of an edge box's (y, z)
-// positions: a lane takes one and marches along the box's x extent.  An
-// anchor that no interior point reads (beyond the grid) reads r^2 at one
-// that some point reads, clamped, so that every read stays inside the
-// padded grid; its word, which no interior point reads, is written all
-// the same.
-template <typename T>
-__device__ __forceinline__ void once_edges(const T* __restrict__ r2,
-                                           const OncePlan& p, int x0, int y0,
-                                           int z0,
-                                           const __nv_bfloat162* su,
-                                           __nv_bfloat162* sd) {
-  const int Yp = p.Y + 2, Zp = p.Z + 2;
-  const int RY = p.ty + 2, RZ = p.tz + 2, R = (p.tx + 2) * RY * RZ;
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  if (ONCE_DIAG == 2) return;
-  for (int k = threadIdx.x >> 5; k < p.n_chunks; k += nw) {
-    const int4 ch = __ldg(p.chunks + k);
-    const int a = ch.y + lane;
-    if (a >= ch.z) continue;
-    const OnceEdge* e = p.edges + ch.x;
-    __nv_bfloat162 c[36];
-    once_words<9>(e, c);
-    const int4 w0 = __ldg(reinterpret_cast<const int4*>(e) + 9);
-    const int4 w1 = __ldg(reinterpret_cast<const int4*>(e) + 10);
-    const int4 w2 = __ldg(reinterpret_cast<const int4*>(e) + 11);
-    const int sa = w0.x, sb = w0.y, er2 = w0.z, s0 = w0.w;
-    const int na = w1.x, bx = w1.y, bz = w1.w, byz = w1.z * w1.w;
-    const int ox = w2.x, oy = w2.y, oz = w2.z;
-    // a = iy * bz + iz, by an exact float quotient
-    const int iy = __float2int_rz(((float)a + 0.5f) * __frcp_rn((float)bz));
-    const int iz = a - iy * bz;
-    // r^2 at the anchor, clamped into the anchors some interior point
-    // reads: 1 - max(oa, ob) .. N - min(oa, ob) per axis
-    const int gy = min(max(y0 + oy + iy, 1 + oy), p.Y + oy + w1.z - p.ty);
-    const int gz = min(max(z0 + oz + iz, 1 + oz), p.Z + oz + bz - p.tz);
-    const int hx = p.X + ox + bx - p.tx;
-    const T* r2a = r2 + er2 + gy * Zp + gz;
-    const int l0 = iy * RZ + iz;
-#pragma unroll 2
-    for (int ix = 0; ix < bx; ++ix) {
-      const int gx = min(max(x0 + ox + ix, 1 + ox), hx);
-      const int l = l0 + ix * RY * RZ;
-      __nv_bfloat162 A[3], B[3], S[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        A[i] = su[sa + l + i * R];
-        B[i] = su[sb + l + i * R];
-      }
-      if (ONCE_DIAG == 1) {
-        S[0] = A[0]; S[1] = B[1];
-        S[2] = __bfloat162bfloat162(ldh(r2a + gx * Yp * Zp));
-      } else {
-        once_sd(c, A, B, ldh(r2a + gx * Yp * Zp), S);
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) sd[s0 + i * na + ix * byz + a] = S[i];
-    }
-  }
-}
-
-// ONCE_STAGE 0: phase 1 with each anchor's endpoints read from device
-// memory (two anchors a lane at once with ONCE_U2); a chunk's (y, z)
-// positions are its lanes' as above, each lane marching along x
-template <typename T>
-__device__ __forceinline__ void once_edges_global(const T* __restrict__ u,
-                                                  const T* __restrict__ r2,
-                                                  const OncePlan& p, int x0,
-                                                  int y0, int z0,
-                                                  __nv_bfloat162* sd) {
-  const int Yp = p.Y + 2, Zp = p.Z + 2, Fp = (p.X + 2) * Yp * Zp;
-  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  constexpr int NA = ONCE_U2 ? 2 : 1;
-  if (ONCE_DIAG == 2) return;
-  for (int k = threadIdx.x >> 5; k < p.n_chunks; k += nw) {
-    const int4 ch = __ldg(p.chunks + k);
-    const int a = ch.y + lane;
-    if (a >= ch.z) continue;
-    const OnceEdge* e = p.edges + ch.x;
-    __nv_bfloat162 c[36];
-    once_words<9>(e, c);
-    const int ua = __ldg(reinterpret_cast<const int*>(e) + 33);
-    const int ub = __ldg(reinterpret_cast<const int*>(e) + 34);
-    const int4 w0 = __ldg(reinterpret_cast<const int4*>(e) + 9);
-    const int4 w1 = __ldg(reinterpret_cast<const int4*>(e) + 10);
-    const int4 w2 = __ldg(reinterpret_cast<const int4*>(e) + 11);
-    const int er2 = w0.z, s0 = w0.w;
-    const int na = w1.x, bx = w1.y, bz = w1.w, byz = w1.z * w1.w;
-    const int ox = w2.x, oy = w2.y, oz = w2.z;
-    const int iy = __float2int_rz(((float)a + 0.5f) * __frcp_rn((float)bz));
-    const int iz = a - iy * bz;
-    const int gy = min(max(y0 + oy + iy, 1 + oy), p.Y + oy + w1.z - p.ty);
-    const int gz = min(max(z0 + oz + iz, 1 + oz), p.Z + oz + bz - p.tz);
-    const int hx = p.X + ox + bx - p.tx;
-    for (int ix = 0; ix < bx; ix += NA) {
-      int q[NA];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        const int gx = min(max(x0 + ox + min(ix + j, bx - 1), 1 + ox), hx);
-        q[j] = (gx * Yp + gy) * Zp + gz;
-      }
-      __nv_bfloat162 A[NA][3], B[NA][3], S[NA][3];
-      __nv_bfloat16 rr[NA];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          A[j][i] = ldh2(u + ua + q[j] + 2 * i * Fp, Fp);
-          B[j][i] = ldh2(u + ub + q[j] + 2 * i * Fp, Fp);
-        }
-        rr[j] = ldh(r2 + er2 + q[j]);
-      }
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        if (ONCE_DIAG == 1) {
-          S[j][0] = A[j][0]; S[j][1] = B[j][1];
-          S[j][2] = __bfloat162bfloat162(rr[j]);
-        } else {
-          once_sd(c, A[j], B[j], rr[j], S[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-        if (ix + j < bx)
-#pragma unroll
-          for (int i = 0; i < 3; ++i)
-            sd[s0 + i * na + (ix + j) * byz + a] = S[j][i];
-    }
-  }
-}
-
-// ONCE_PF: ask L1 for `rows` rows of a padded field over padded x in
-// [xa, xb], y in [ya, yb], z in [za, zb] (clipped to the grid), one
-// prefetch at each end of every z segment
-template <typename T>
-__device__ __forceinline__ void once_prefetch(const T* a, int rows,
-                                              const OncePlan& p, int xa,
-                                              int xb, int ya, int yb, int za,
-                                              int zb) {
-  const int Xp = p.X + 2, Yp = p.Y + 2, Zp = p.Z + 2;
-  xa = max(xa, 0); ya = max(ya, 0); za = max(za, 0);
-  xb = min(xb, Xp - 1); yb = min(yb, Yp - 1); zb = min(zb, Zp - 1);
-  const int nx = xb - xa + 1, ny = yb - ya + 1, nxy = nx * ny;
-  const float rnxy = __frcp_rn((float)nxy), rny = __frcp_rn((float)ny);
-  for (int i = threadIdx.x; i < rows * nxy; i += blockDim.x) {
-    const int row = __float2int_rz(((float)i + 0.5f) * rnxy);
-    const int xy = i - row * nxy;
-    const int x = __float2int_rz(((float)xy + 0.5f) * rny);
-    const int y = xy - x * ny;
-    const T* s = a + ((row * Xp + xa + x) * Yp + ya + y) * Zp + za;
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(s));
-    asm volatile("prefetch.global.L1 [%0];" ::"l"(s + (zb - za)));
-  }
-}
-
-// phase 1 of a variant: prefetch (ONCE_PF), stage (ONCE_STAGE) or not
-template <typename T>
-__device__ __forceinline__ void once_phase1(const T* u, const T* r2,
-                                            const OncePlan& p, int x0,
-                                            int y0, int z0,
-                                            __nv_bfloat162* sd) {
-  if (ONCE_PF) {
-    once_prefetch(u, p.nc * 6, p, x0 - 1, x0 + p.tx, y0 - 1, y0 + p.ty,
-                  z0 - 1, z0 + p.tz);
-  }
-  if (ONCE_STAGE) {
-    __nv_bfloat162* su = sd + p.sd_words;
-    once_stage<T>(u, p, x0, y0, z0, su);
-    __syncthreads();
-    once_edges<T>(r2, p, x0, y0, z0, su, sd);
-  } else {
-    once_edges_global<T>(u, r2, p, x0, y0, z0, sd);
-  }
-}
-
-// Phase 2's walk: thread t takes, for class c = t / G (G = points /
-// ONCE_P, a power of two), the tile points g + j G, j < ONCE_P (g = t mod
-// G), and sums K u at each in the dense form: the class's sides in table
-// order, each side's Sd at its anchor in the edge's box times its row
-// columns.  Then `emit(c, q, interior, acc)` for each point inside the
-// padded grid (q its flat index; acc is meaningless at a ghost point,
-// whose box words phase 1 skipped).
-template <typename Emit>
-__device__ __forceinline__ void once_rows(const OncePlan& p, int x0, int y0,
-                                          int z0, const __nv_bfloat162* sd,
-                                          Emit emit) {
-  const int Yp = p.Y + 2, Zp = p.Z + 2;
-  const int G = 1 << p.lg;
-  for (int t = threadIdx.x; t < p.nc << p.lg; t += blockDim.x) {
-    const int c = t >> p.lg, g = t & (G - 1);
-    int lx[ONCE_P], ly[ONCE_P], lz[ONCE_P];
-    __nv_bfloat162 acc[ONCE_P][3];
-#pragma unroll
-    for (int j = 0; j < ONCE_P; ++j) {
-      const int pt = g + j * G;
-      lz[j] = pt & (p.tz - 1);
-      ly[j] = (pt >> p.ltz) & (p.ty - 1);
-      lx[j] = pt >> (p.ltz + p.lty);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) acc[j][i] = __float2bfloat162_rn(0.f);
-    }
-    const int s1 = ONCE_DIAG == 3 ? 0 : p.class_start[c + 1];
-#pragma unroll kOnceSideUnroll
-    for (int s = p.class_start[c]; s < s1; ++s) {
-      const int4 h = __ldg(reinterpret_cast<const int4*>(p.sides + s));
-      __nv_bfloat162 w[20];
-      once_words<5>(reinterpret_cast<const int4*>(p.sides + s) + 1, w);
-#pragma unroll
-      for (int j = 0; j < ONCE_P; ++j) {
-        const int o = h.x + lx[j] * h.y + ly[j] * h.z + lz[j];
-        const __nv_bfloat162 S[3] = {sd[o], sd[o + h.w], sd[o + 2 * h.w]};
-        once_row(w, S, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < ONCE_P; ++j) {
-      const int px = x0 + lx[j], py = y0 + ly[j], pz = z0 + lz[j];
-      if (px >= p.X + 2 || py >= Yp || pz >= Zp) continue;
-      const bool inner = px >= 1 && px <= p.X && py >= 1 && py <= p.Y
-                         && pz >= 1 && pz <= p.Z;
-      emit(c, (px * Yp + py) * Zp + pz, inner, acc[j]);
-    }
-  }
-}
-
-// the tile of this block: blockIdx.x = (ix * nty + iy) * ntz + iz
-__device__ __forceinline__ void once_tile(const OncePlan& p, int& x0,
-                                          int& y0, int& z0) {
-  int b = blockIdx.x;
-  const int iz = b % p.ntz;
-  b /= p.ntz;
-  const int iy = b % p.nty;
-  x0 = (b / p.nty) * p.tx;
-  y0 = iy * p.ty;
-  z0 = iz * p.tz;
-}
-
-// component k of K u from phase 2's pairs, widened to float
-__device__ __forceinline__ float once_acc(const __nv_bfloat162 a[3], int k) {
-  return (k & 1) ? __high2float(a[k >> 1]) : __low2float(a[k >> 1]);
-}
-
-// B3c: out = fm (b - K x), K x in the dense form computed once per edge
-// instance, rounded once to the storage type; ghosts written zero
-template <typename T>
-__global__ void __launch_bounds__(ONCE_THREADS)
-mg_residual_once_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                        const T* __restrict__ fm, const T* __restrict__ r2,
-                        T* __restrict__ out, OncePlan p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat162* sd = reinterpret_cast<__nv_bfloat162*>(smem);
-  int x0, y0, z0;
-  once_tile(p, x0, y0, z0);
-  once_phase1<T>(x, r2, p, x0, y0, z0, sd);
-  __syncthreads();
-  const int Fp = (p.X + 2) * (p.Y + 2) * (p.Z + 2);
-  once_rows(p, x0, y0, z0, sd,
-            [&](int c, int q, bool inner, const __nv_bfloat162 a[3]) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const int o = (c * 6 + k) * Fp + q;
-      st(out + o, inner ? ld(fm + o) * (ld(b + o) - once_acc(a, k)) : 0.f);
-    }
-  });
-}
-
-// B4c: one Chebyshev step (or its final x1 + d1), K d in the dense form
-// computed once per edge instance (d rounded to bf16 as it is read), the
-// update in float on the stored d, each operation rounded on its own;
-// ghosts written zero
-template <typename T, bool FINAL>
-__global__ void __launch_bounds__(ONCE_THREADS)
-mg_cheb_run_once_kernel(const T* __restrict__ x, const T* __restrict__ r,
-                        const T* __restrict__ d, const T* __restrict__ fd,
-                        const float* __restrict__ sc,
-                        const T* __restrict__ r2, T* __restrict__ x1o,
-                        T* __restrict__ r1o, T* __restrict__ d1o, float c1,
-                        float c2, OncePlan p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat162* sd = reinterpret_cast<__nv_bfloat162*>(smem);
-  int x0, y0, z0;
-  once_tile(p, x0, y0, z0);
-  once_phase1<T>(d, r2, p, x0, y0, z0, sd);
-  __syncthreads();
-  const int Fp = (p.X + 2) * (p.Y + 2) * (p.Z + 2);
-  const float c2i = c2 * sc[1];
-  once_rows(p, x0, y0, z0, sd,
-            [&](int c, int q, bool inner, const __nv_bfloat162 a[3]) {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      const int o = (c * 6 + k) * Fp + q;
-      if (!inner) {
-        st(x1o + o, 0.f);
-        if (!FINAL) {
-          st(r1o + o, 0.f);
-          st(d1o + o, 0.f);
-        }
-        continue;
-      }
-      const float dc = ld(d + o);
-      const float x1 = ld(x + o) + dc;
-      const float r1 = ld(r + o) - once_acc(a, k);
-      const float d1 = cheb_d_rn(c1, dc, c2i, r1, ld(fd + o));
-      if (FINAL) {
-        st(x1o + o, x1 + d1);
-      } else {
-        st(x1o + o, x1);
-        st(r1o + o, r1);
-        st(d1o + o, d1);
-      }
-    }
-  });
 }
 
 // ------------------------------------------------------------------ B5
@@ -976,12 +478,9 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
 }
 
 // --------------------------------------------------------------- launchers
-// dtype: 0 float, 1 bfloat16 storage; compute (B5): 0 float (the gather
-// form), 1 bfloat16 (the dense form, `dense` the sides' dense records in
-// the side table's order); any other value is refused.  B3 and B4 take
-// float compute only: their bf16-compute instances B3c and B4c run the
-// compute-once kernels, launched by mg_residual_bf16c and
-// mg_cheb_run_bf16c (below).
+// dtype: 0 float, 1 bfloat16 storage; compute: 0 float (the gather form),
+// 1 bfloat16 (the dense form, `dense` the sides' dense records in the
+// side table's order); any other value is refused.
 static Stencil make_stencil(const void* sides, const void* class_start,
                             const void* dense, int nc, int X, int Y, int Z,
                             float E, float kG, float G2) {
@@ -1001,117 +500,139 @@ static bool flags_ok(int dtype, int compute, const void* dense) {
 
 typedef __nv_bfloat16 bf;
 
-template <typename T>
+template <typename T, bool CB>
 static void residual(const dim3& grid, const void* x, const void* b,
                      const void* fm, const void* r2, void* out,
                      const Stencil& s, int run, cudaStream_t stream) {
-  mg_residual_kernel<T><<<grid, s.nc * run, 0, stream>>>(
+  mg_residual_kernel<T, CB><<<grid, s.nc * run, 0, stream>>>(
       (const T*)x, (const T*)b, (const T*)fm, (const T*)r2, (T*)out, s, run);
 }
 
 // B3: vectors ghost-padded [nc, 6, Xp, Yp, Zp]; sides and class_start the
 // table with the grid's offsets; run as the host planned it
 // (kernels/stencil.py slab_plan)
-extern "C" int mg_residual(int dtype, const void* x, const void* b,
-                           const void* fm, const void* r2, void* out,
-                           const void* sides, const void* class_start,
-                           int run, int nc, int X, int Y, int Z, float E,
-                           float kG, float G2, void* stream) {
-  if (!flags_ok(dtype, 0, nullptr) || !slab_plan_ok(run, nc))
+extern "C" int mg_residual(int dtype, int compute, const void* x,
+                           const void* b, const void* fm, const void* r2,
+                           void* out, const void* sides,
+                           const void* class_start, const void* dense,
+                           int run, int nc, int X, int Y, int Z,
+                           float E, float kG, float G2, void* stream) {
+  if (!flags_ok(dtype, compute, dense) || !slab_plan_ok(run, nc))
     return (int)cudaErrorInvalidValue;
-  const Stencil s = make_stencil(sides, class_start, nullptr, nc, X, Y, Z,
-                                 E, kG, G2);
+  const Stencil s = make_stencil(sides, class_start, dense, nc, X, Y, Z, E,
+                                 kG, G2);
   const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X + 2);
   cudaStream_t st_ = (cudaStream_t)stream;
   if (dtype == 0)
-    residual<float>(grid, x, b, fm, r2, out, s, run, st_);
+    compute ? residual<float, true>(grid, x, b, fm, r2, out, s, run, st_)
+            : residual<float, false>(grid, x, b, fm, r2, out, s, run, st_);
   else
-    residual<bf>(grid, x, b, fm, r2, out, s, run, st_);
+    compute ? residual<bf, true>(grid, x, b, fm, r2, out, s, run, st_)
+            : residual<bf, false>(grid, x, b, fm, r2, out, s, run, st_);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool CB>
 static int residual_occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, mg_residual_kernel<T>, threads, 0);
+      &n, mg_residual_kernel<T, CB>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
 // blocks of B3 of `threads` threads that one SM holds at once on the
 // current device; a negative value is -cudaError
-extern "C" int mg_residual_occupancy(int dtype, int threads) {
-  if (!flags_ok(dtype, 0, nullptr)) return -(int)cudaErrorInvalidValue;
-  return dtype == 0 ? residual_occupancy<float>(threads)
-                    : residual_occupancy<bf>(threads);
+extern "C" int mg_residual_occupancy(int dtype, int compute, int threads) {
+  if (!flags_ok(dtype, compute, (const void*)1))
+    return -(int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return compute ? residual_occupancy<float, true>(threads)
+                   : residual_occupancy<float, false>(threads);
+  return compute ? residual_occupancy<bf, true>(threads)
+                 : residual_occupancy<bf, false>(threads);
 }
 
-template <typename T, bool FINAL>
+template <typename T, bool FINAL, bool CB>
 static void cheb_run(const void* x, const void* r, const void* d,
                      const void* fd, const void* sc, const void* r2,
                      void* x1, void* r1, void* d1, float c1, float c2,
                      const Stencil& s, int run, cudaStream_t stream) {
   const dim3 grid(((s.Y + 2) * (s.Z + 2) + run - 1) / run, s.X + 2);
-  mg_cheb_run_kernel<T, FINAL><<<grid, s.nc * run, 0, stream>>>(
+  mg_cheb_run_kernel<T, FINAL, CB><<<grid, s.nc * run, 0, stream>>>(
       (const T*)x, (const T*)r, (const T*)d, (const T*)fd, (const float*)sc,
       (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, s, run);
 }
 
-template <typename T>
+template <typename T, bool CB>
 static void cheb_run_final(int final_, const void* x, const void* r,
                            const void* d, const void* fd, const void* sc,
                            const void* r2, void* x1, void* r1, void* d1,
                            float c1, float c2, const Stencil& s, int run,
                            cudaStream_t stream) {
   if (final_)
-    cheb_run<T, true>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                      stream);
+    cheb_run<T, true, CB>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                          stream);
   else
-    cheb_run<T, false>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
-                       stream);
+    cheb_run<T, false, CB>(x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s, run,
+                           stream);
 }
 
 // B4: vectors ghost-padded [nc, 6, Xp, Yp, Zp]; sides and class_start the
 // table with the grid's offsets; run as the host planned it
 // (kernels/stencil.py slab_plan)
-extern "C" int mg_cheb_run(int dtype, int final_, const void* x,
-                           const void* r, const void* d, const void* fd,
-                           const void* sc, const void* r2, void* x1,
-                           void* r1, void* d1, float c1, float c2,
+extern "C" int mg_cheb_run(int dtype, int compute, int final_,
+                           const void* x, const void* r, const void* d,
+                           const void* fd, const void* sc, const void* r2,
+                           void* x1, void* r1, void* d1, float c1, float c2,
                            const void* sides, const void* class_start,
-                           int run, int nc, int X, int Y, int Z, float E,
-                           float kG, float G2, void* stream) {
-  if (!flags_ok(dtype, 0, nullptr) || !slab_plan_ok(run, nc))
+                           const void* dense, int run, int nc, int X, int Y,
+                           int Z, float E, float kG, float G2,
+                           void* stream) {
+  if (!flags_ok(dtype, compute, dense) || !slab_plan_ok(run, nc))
     return (int)cudaErrorInvalidValue;
-  const Stencil s = make_stencil(sides, class_start, nullptr, nc, X, Y, Z,
-                                 E, kG, G2);
+  const Stencil s = make_stencil(sides, class_start, dense, nc, X, Y, Z, E,
+                                 kG, G2);
   cudaStream_t st_ = (cudaStream_t)stream;
-  if (dtype == 0)
-    cheb_run_final<float>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s,
-                          run, st_);
+  if (dtype == 0 && compute)
+    cheb_run_final<float, true>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                                c2, s, run, st_);
+  else if (dtype == 0)
+    cheb_run_final<float, false>(final_, x, r, d, fd, sc, r2, x1, r1, d1,
+                                 c1, c2, s, run, st_);
+  else if (compute)
+    cheb_run_final<bf, true>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                             c2, s, run, st_);
   else
-    cheb_run_final<bf>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1, c2, s,
-                       run, st_);
+    cheb_run_final<bf, false>(final_, x, r, d, fd, sc, r2, x1, r1, d1, c1,
+                              c2, s, run, st_);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool FINAL>
+template <typename T, bool FINAL, bool CB>
 static int cheb_run_occupancy(int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, mg_cheb_run_kernel<T, FINAL>, threads, 0);
+      &n, mg_cheb_run_kernel<T, FINAL, CB>, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, bool CB>
+static int cheb_run_occupancy_final(int final_, int threads) {
+  return final_ ? cheb_run_occupancy<T, true, CB>(threads)
+                : cheb_run_occupancy<T, false, CB>(threads);
 }
 
 // blocks of B4 of `threads` threads that one SM holds at once on the
 // current device; a negative value is -cudaError
-extern "C" int mg_cheb_run_occupancy(int dtype, int final_, int threads) {
-  if (!flags_ok(dtype, 0, nullptr)) return -(int)cudaErrorInvalidValue;
+extern "C" int mg_cheb_run_occupancy(int dtype, int compute, int final_,
+                                     int threads) {
+  if (!flags_ok(dtype, compute, (const void*)1))
+    return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return final_ ? cheb_run_occupancy<float, true>(threads)
-                  : cheb_run_occupancy<float, false>(threads);
-  return final_ ? cheb_run_occupancy<bf, true>(threads)
-                : cheb_run_occupancy<bf, false>(threads);
+    return compute ? cheb_run_occupancy_final<float, true>(final_, threads)
+                   : cheb_run_occupancy_final<float, false>(final_, threads);
+  return compute ? cheb_run_occupancy_final<bf, true>(final_, threads)
+                 : cheb_run_occupancy_final<bf, false>(final_, threads);
 }
 
 // largest dynamic shared memory one block may use on sm_90 (232,448 bytes)
@@ -1309,184 +830,4 @@ extern "C" int mg_cheb_full_max_clusters(int dtype, int compute, int with_x0,
   if (dtype == 0)
     return max_clusters_instance<float>(with_x0, layout, compute, p, smem);
   return max_clusters_instance<bf>(with_x0, layout, compute, p, smem);
-}
-
-// ------------------------------------------------ B3c's and B4c's launch
-// The compute-once kernels' shared-memory attribute, set once per device
-// and instance (their plans may take more than the default 48 KB)
-template <typename K>
-static cudaError_t once_attrs(K kern, bool* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           MAX_SMEM);
-  if (e == cudaSuccess) done[dev] = true;
-  return e;
-}
-
-// kind: 0 B3c, 1 B4c step, 2 B4c final
-template <typename T>
-static cudaError_t once_ready(int kind, const void** fn) {
-  static bool done[3][MAX_DEVICES] = {};
-  if (kind == 0) {
-    *fn = (const void*)mg_residual_once_kernel<T>;
-    return once_attrs(mg_residual_once_kernel<T>, done[0]);
-  }
-  if (kind == 1) {
-    *fn = (const void*)mg_cheb_run_once_kernel<T, false>;
-    return once_attrs(mg_cheb_run_once_kernel<T, false>, done[1]);
-  }
-  *fn = (const void*)mg_cheb_run_once_kernel<T, true>;
-  return once_attrs(mg_cheb_run_once_kernel<T, true>, done[2]);
-}
-
-static bool pow2(int n) { return n >= 1 && (n & (n - 1)) == 0; }
-
-static int log2i(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-// the plan the host made (kernels/fused.py once_plan), checked: the tile's
-// sides powers of two, its points a whole number of warps of ONCE_P
-// points each, the threads whole warps, the shared memory within a block's
-static bool make_once(const void* edges, const void* sides,
-                      const void* class_start, const void* chunks,
-                      int n_chunks, int sd_words, int tx, int ty, int tz,
-                      int threads,
-                      int smem, int nc, int X, int Y, int Z, OncePlan* p,
-                      dim3* grid) {
-  if (!pow2(tx) || !pow2(ty) || !pow2(tz) || n_chunks < 1 || sd_words < 1
-      || nc < 1
-      || threads < 32 || threads > ONCE_THREADS || threads % 32 != 0
-      || smem < 1 || smem > MAX_SMEM || X < 1 || Y < 1 || Z < 1)
-    return false;
-  const long long pts = (long long)tx * ty * tz;
-  if (pts % (32 * ONCE_P) != 0 || pts > (1 << 16)) return false;
-  // the carve-up: Sd, then the staged u region (bf16 pairs)
-  const long long region = ONCE_STAGE ? (long long)(tx + 2) * (ty + 2)
-                                            * (tz + 2) : 0;
-  if (smem < 4LL * (sd_words + 3LL * nc * region)) return false;
-  p->edges = (const OnceEdge*)edges;
-  p->sides = (const OnceSide*)sides;
-  p->class_start = (const int*)class_start;
-  p->chunks = (const int4*)chunks;
-  p->n_chunks = n_chunks;
-  p->sd_words = sd_words;
-  p->tx = tx; p->ty = ty; p->tz = tz;
-  p->lty = log2i(ty); p->ltz = log2i(tz); p->lg = log2i((int)pts / ONCE_P);
-  p->nty = (Y + 2 + ty - 1) / ty;
-  p->ntz = (Z + 2 + tz - 1) / tz;
-  p->nc = nc; p->X = X; p->Y = Y; p->Z = Z;
-  const long long blocks = (long long)((X + 2 + tx - 1) / tx) * p->nty
-                         * p->ntz;
-  if (blocks >= (1LL << 31)) return false;
-  *grid = dim3((unsigned)blocks);
-  return true;
-}
-
-// B3c: vectors ghost-padded [nc, 6, Xp, Yp, Zp] of storage dtype (0 float,
-// 1 bfloat16); edges, sides, chunks the compute-once tables for this grid
-// and tile, class_start the side table's; smem the tile's Sd bytes
-extern "C" int mg_residual_bf16c(int dtype, const void* x, const void* b,
-                                 const void* fm, const void* r2, void* out,
-                                 const void* edges, const void* sides,
-                                 const void* class_start,
-                                 const void* chunks, int n_chunks,
-                                 int sd_words,
-                                 int tx,
-                                 int ty, int tz, int threads, int smem,
-                                 int nc, int X, int Y, int Z, void* stream) {
-  OncePlan p;
-  dim3 grid;
-  if ((dtype != 0 && dtype != 1)
-      || !make_once(edges, sides, class_start, chunks, n_chunks, sd_words, tx, ty,
-                    tz, threads, smem, nc, X, Y, Z, &p, &grid))
-    return (int)cudaErrorInvalidValue;
-  const void* fn;
-  const cudaError_t e = dtype == 0 ? once_ready<float>(0, &fn)
-                                   : once_ready<bf>(0, &fn);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (dtype == 0)
-    mg_residual_once_kernel<float><<<grid, threads, smem, st_>>>(
-        (const float*)x, (const float*)b, (const float*)fm,
-        (const float*)r2, (float*)out, p);
-  else
-    mg_residual_once_kernel<bf><<<grid, threads, smem, st_>>>(
-        (const bf*)x, (const bf*)b, (const bf*)fm, (const bf*)r2, (bf*)out,
-        p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool FINAL>
-static void cheb_run_once(const dim3& grid, int threads, int smem,
-                          cudaStream_t st, const void* x, const void* r,
-                          const void* d, const void* fd, const void* sc,
-                          const void* r2, void* x1, void* r1, void* d1,
-                          float c1, float c2, const OncePlan& p) {
-  mg_cheb_run_once_kernel<T, FINAL><<<grid, threads, smem, st>>>(
-      (const T*)x, (const T*)r, (const T*)d, (const T*)fd, (const float*)sc,
-      (const T*)r2, (T*)x1, (T*)r1, (T*)d1, c1, c2, p);
-}
-
-// B4c: as B4's arguments, with B3c's compute-once tables and tile
-extern "C" int mg_cheb_run_bf16c(int dtype, int final_, const void* x,
-                                 const void* r, const void* d,
-                                 const void* fd, const void* sc,
-                                 const void* r2, void* x1, void* r1,
-                                 void* d1, float c1, float c2,
-                                 const void* edges, const void* sides,
-                                 const void* class_start,
-                                 const void* chunks, int n_chunks,
-                                 int sd_words,
-                                 int tx,
-                                 int ty, int tz, int threads, int smem,
-                                 int nc, int X, int Y, int Z, void* stream) {
-  OncePlan p;
-  dim3 grid;
-  if ((dtype != 0 && dtype != 1)
-      || !make_once(edges, sides, class_start, chunks, n_chunks, sd_words, tx, ty,
-                    tz, threads, smem, nc, X, Y, Z, &p, &grid))
-    return (int)cudaErrorInvalidValue;
-  const int kind = final_ ? 2 : 1;
-  const void* fn;
-  const cudaError_t e = dtype == 0 ? once_ready<float>(kind, &fn)
-                                   : once_ready<bf>(kind, &fn);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t st_ = (cudaStream_t)stream;
-  if (dtype == 0 && final_)
-    cheb_run_once<float, true>(grid, threads, smem, st_, x, r, d, fd, sc, r2,
-                               x1, r1, d1, c1, c2, p);
-  else if (dtype == 0)
-    cheb_run_once<float, false>(grid, threads, smem, st_, x, r, d, fd, sc,
-                                r2, x1, r1, d1, c1, c2, p);
-  else if (final_)
-    cheb_run_once<bf, true>(grid, threads, smem, st_, x, r, d, fd, sc, r2,
-                            x1, r1, d1, c1, c2, p);
-  else
-    cheb_run_once<bf, false>(grid, threads, smem, st_, x, r, d, fd, sc, r2,
-                             x1, r1, d1, c1, c2, p);
-  return (int)cudaGetLastError();
-}
-
-// blocks of B3c (kind 0) or B4c (1 step, 2 final) of `threads` threads
-// and `smem` bytes of dynamic shared memory that one SM holds at once on
-// the current device; a negative value is -cudaError
-extern "C" int mg_once_occupancy(int kind, int dtype, int threads,
-                                 int smem) {
-  if (kind < 0 || kind > 2 || (dtype != 0 && dtype != 1) || threads < 1
-      || threads > ONCE_THREADS || smem < 0 || smem > MAX_SMEM)
-    return -(int)cudaErrorInvalidValue;
-  const void* fn;
-  cudaError_t e = dtype == 0 ? once_ready<float>(kind, &fn)
-                             : once_ready<bf>(kind, &fn);
-  if (e != cudaSuccess) return -(int)e;
-  int n = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, smem);
-  return e == cudaSuccess ? n : -(int)e;
 }

@@ -30,10 +30,6 @@ the cluster size or layout.
 ``b4_plan``: runs of a padded plane's flat points, one thread per (class,
 point)), over every padded plane, ghosts included.  Every kernel reads the
 level's one side table, with the grid's offsets (``StencilMatvec.tables``).
-Their bf16-compute instances B3c and B4c run the compute-once kernels on
-a tile plan (``once_plan``, ``once_tables``: one block per 3-D tile of
-padded points; each edge instance's strains and forces computed once, in
-shared memory, then every side's row added at its points).
 
 **bf16 compute.**  ``PLDSO_MG_FUSED_COMPUTE=bf16`` selects each kernel's
 bf16-compute instance, B3c, B4c and B5c (the JAX kernels built with
@@ -70,8 +66,7 @@ from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 __all__ = ["FusedSmoother", "route", "has_kernel_matvec", "dense_form",
            "cheb_static", "storage_dtype", "KERNELS", "b5_plan", "b5_items",
            "b5_partition", "B5_CLUSTERS", "DenseForm", "pack_dense_coefs",
-           "DENSE_DTYPE", "once_plan", "once_tables", "once_boxes",
-           "once_region", "ONCE_TILES"]
+           "DENSE_DTYPE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 SOURCE = "pylatticedso_tpu_torch/csrc/mg_fused.cu"
@@ -364,10 +359,6 @@ class DenseForm:
                 slot_cols[i, q] = cols[q]
                 records["col"][i, q] = bits[q]
         order = sorted(range(S), key=lambda i: recs[i]["cs"])
-        self.order = order
-        # the columns' bits per side in record order (the compute-once
-        # tables take an edge's K and E columns from its side A)
-        self.columns = records["col"]
         self.table = records[order]
         # the plain version's gathers: per side, the flat index in the
         # padded fields of its self values, its other endpoint's and its
@@ -468,187 +459,6 @@ class DenseForm:
         for k in range(rows.shape[1]):
             acc = acc + rows[:, k]
         return acc
-
-
-# ------------------------------------------------ B3c's and B4c's plan
-# B3c and B4c compute each edge's strains and forces once per instance
-# (csrc/mg_fused.cu, the compute-once kernels): one block per 3-D tile of
-# padded points.  The block stages u over the tile's halo region in
-# shared memory, then phase 1 computes Sd = K E at every anchor (an edge
-# instance's r^2 point) that the tile's points read, into shared memory:
-# per edge the bounding box of the tile shifted by -oa and by -ob, cut
-# into chunks of a warp's 32 (y, z) positions, each lane marching along
-# x.  Phase 2 adds every side's row at every (class, point).  The plan
-# (tile, threads, shared memory) and the tables are made here; the
-# kernels take them as they are.
-ONCE_THREADS = 256              # csrc's ONCE_THREADS: a block's most
-ONCE_P = 2                      # csrc's ONCE_P: points a phase-2 thread takes
-ONCE_SMEM_LIMIT = 227 * 1024    # csrc's MAX_SMEM: one block's dynamic, sm_90
-# the tiles the rule picks from, in its order of preference (x, y, z; each
-# a power of two, points a multiple of 32 ONCE_P)
-ONCE_TILES = ((4, 8, 8), (2, 8, 8), (1, 8, 8))
-# the rule takes the first tile of ONCE_TILES that fits a block's shared
-# memory and gives at least this many blocks (else the fitting tile that
-# gives the most)
-ONCE_MIN_BLOCKS = 2 * 132
-# must match csrc's OnceEdge (192 bytes) and OnceSide (96 bytes)
-ONCE_EDGE_DTYPE = np.dtype([
-    ("col", "<u2", (2 + DENSE_A, 6)), ("ua", "<i4"), ("ub", "<i4"),
-    ("cpad", "<i4"), ("sa", "<i4"), ("sb", "<i4"), ("r2", "<i4"), ("sd", "<i4"),
-    ("na", "<i4"), ("box", "<i4", (3,)), ("origin", "<i4", (3,)),
-    ("pad", "<i4")])
-assert ONCE_EDGE_DTYPE.itemsize == 192
-ONCE_SIDE_DTYPE = np.dtype([
-    ("sd", "<i4"), ("sx", "<i4"), ("sy", "<i4"), ("na", "<i4"),
-    ("row", "<u2", (DENSE_B, 6)), ("pad", "<i4", (2,))])
-assert ONCE_SIDE_DTYPE.itemsize == 96
-ONCE_KINDS = {"B3c": 0, "B4c": 1, "B4c final": 2}   # mg_once_occupancy's
-
-
-def once_boxes(recs, tile) -> List[Dict]:
-    """Per template edge (``edge_sides`` records 2e, 2e + 1), its anchor
-    box for a tile of ``tile`` padded points: the endpoint offsets oa, ob
-    (side A reads r^2 at its point minus oa, side B minus ob), the box's
-    extent (tile + |ob - oa|) and origin from the tile's (-max(oa, ob)),
-    its anchor count ``na`` and its first Sd word in shared memory
-    (``sd``: three planes of ``na`` bf16 pairs an edge)."""
-    out, sd = [], 0
-    for e in range(len(recs) // 2):
-        oa = tuple(-v for v in recs[2 * e]["dr3"])
-        ob = tuple(-v for v in recs[2 * e + 1]["dr3"])
-        box = tuple(t + abs(a - b) for t, a, b in zip(tile, oa, ob))
-        na = box[0] * box[1] * box[2]
-        out.append({"oa": oa, "ob": ob, "box": box,
-                    "origin": tuple(-max(a, b) for a, b in zip(oa, ob)),
-                    "na": na, "sd": sd})
-        sd += 3 * na
-    return out
-
-
-def once_region(tile) -> Tuple[int, int, int]:
-    """The staged u region of a tile: padded x0 - 1 .. x0 + tx (and so on),
-    every endpoint of every anchor of the tile."""
-    return tuple(t + 2 for t in tile)
-
-
-# whether the kernels were built to stage u in shared memory (csrc's
-# ONCE_STAGE; scripts/once_tiles.py measures both)
-ONCE_STAGED = True
-
-
-def once_smem_bytes(recs, tile, nc: int) -> int:
-    """Shared memory of one compute-once block: every edge's Sd, three
-    bf16 pairs (12 bytes) per anchor of its box, then the staged u region,
-    three bf16 pairs per class and region point (``ONCE_STAGED``)."""
-    rx, ry, rz = once_region(tile)
-    return 12 * sum(b["na"] for b in once_boxes(recs, tile)) \
-        + 12 * nc * rx * ry * rz * int(ONCE_STAGED)
-
-
-def _once_tile_ok(tile) -> bool:
-    """A tile the compute-once kernels take (csrc's make_once): three
-    sides, each a power of two, its points a multiple of 32 ONCE_P (whole
-    warps in phase 2) and at most 2^16."""
-    if len(tile) != 3 or not all(t >= 1 and t & (t - 1) == 0 for t in tile):
-        return False
-    pts = tile[0] * tile[1] * tile[2]
-    return pts % (32 * ONCE_P) == 0 and pts <= 1 << 16
-
-
-def once_plan(nc: int, grid, recs, tile=None) -> Dict:
-    """B3c's and B4c's plan for a level: the tile (by default the rule's:
-    the first of ``ONCE_TILES`` that fits a block's shared memory and gives
-    at least ``ONCE_MIN_BLOCKS`` blocks on this grid, else the fitting one
-    that gives the most), threads a block (a phase-2 thread per ONCE_P
-    points of a class, at most ONCE_THREADS), the shared memory, the
-    blocks, the chunks and the anchors computed per edge and tile point.
-    Raises ValueError for a tile the kernels do not take, or when no tile
-    fits (a template with too many edges)."""
-    X, Y, Z = grid
-    blocks = lambda t: (-(-(X + 2) // t[0]) * -(-(Y + 2) // t[1])
-                        * -(-(Z + 2) // t[2]))
-    smem = lambda t: once_smem_bytes(recs, t, nc)
-    if tile is None:
-        fits = [t for t in ONCE_TILES if smem(t) <= ONCE_SMEM_LIMIT]
-        if not fits:
-            raise ValueError(
-                f"compute-once plan: {len(recs) // 2} edges need "
-                f"{smem(ONCE_TILES[-1])} bytes of shared memory at the "
-                f"smallest tile {ONCE_TILES[-1]} (limit {ONCE_SMEM_LIMIT})")
-        enough = [t for t in fits if blocks(t) >= ONCE_MIN_BLOCKS]
-        tile = enough[0] if enough else max(fits, key=blocks)
-    tile = tuple(int(t) for t in tile)
-    if not _once_tile_ok(tile):
-        raise ValueError(f"compute-once plan: tile {tile} (each side a power "
-                         f"of two, points a multiple of {32 * ONCE_P})")
-    nbytes = smem(tile)
-    if nbytes > ONCE_SMEM_LIMIT:
-        raise ValueError(f"compute-once plan: tile {tile} needs {nbytes} "
-                         f"bytes of shared memory (limit {ONCE_SMEM_LIMIT})")
-    if max(nc * 6, len(recs) // 2) * (X + 2) * (Y + 2) * (Z + 2) >= 1 << 31:
-        raise ValueError(f"the compute-once kernels index in 32 bits: grid "
-                         f"{tuple(grid)} is too large")
-    pts = tile[0] * tile[1] * tile[2]
-    boxes = once_boxes(recs, tile)
-    return {"tile": tile, "threads": min(ONCE_THREADS, nc * pts // ONCE_P),
-            "smem_bytes": nbytes, "blocks": blocks(tile),
-            "sd_words": 3 * sum(b["na"] for b in boxes),
-            "chunks": sum(-(-(b["box"][1] * b["box"][2]) // 32)
-                          for b in boxes),
-            "anchors_per_point": sum(b["na"] for b in boxes)
-            / (len(boxes) * pts)}
-
-
-def once_tables(recs, columns, order, grid, tile):
-    """(edges ``ONCE_EDGE_DTYPE`` [n_e], sides ``ONCE_SIDE_DTYPE`` in the
-    side table's order, chunks int32 [n, 4]) of the compute-once kernels
-    for ``grid`` and ``tile``.  ``columns``: the dense form's bf16 column
-    bits per side in record order (``DenseForm.columns``), ``order`` the
-    side table's order of the records.  An edge's K and E columns are its
-    side A's (side B's are the same values); ``sa`` (``sb``) is the staged
-    index of endpoint A's (B's) pair 0 for the box's first anchor: class
-    ca * 3 regions on, then the point anchor + oa in the region (origin
-    x0 - 1, ...), to which the anchor (x, y, z) of the box adds (x RY + y)
-    RZ + z; ``r2`` the edge's r^2 row.  A side's Sd word is that of the
-    tile origin's anchor for it, from which point (x, y, z) of the tile
-    adds x sx + y sy + z.  A chunk is (edge, first, end, 0) of a run of at
-    most 32 of the box's (y, z) positions."""
-    X, Y, Z = grid
-    Yp, Zp = Y + 2, Z + 2
-    Fp = (X + 2) * Yp * Zp
-    flat = lambda v: (v[0] * Yp + v[1]) * Zp + v[2]
-    rx, ry, rz = once_region(tile)
-    R = rx * ry * rz
-    boxes = once_boxes(recs, tile)
-    edges = np.zeros(len(boxes), ONCE_EDGE_DTYPE)
-    for e, bx in enumerate(boxes):
-        ra = recs[2 * e]
-        edges["col"][e] = columns[2 * e][:2 + DENSE_A]
-        edges["ua"][e] = ra["cs"] * 6 * Fp + flat(bx["oa"])
-        edges["ub"][e] = ra["co"] * 6 * Fp + flat(bx["ob"])
-        for key, cls, o in (("sa", ra["cs"], bx["oa"]),
-                            ("sb", ra["co"], bx["ob"])):
-            at = [g + v + 1 for g, v in zip(bx["origin"], o)]
-            edges[key][e] = cls * 3 * R + (at[0] * ry + at[1]) * rz + at[2]
-        edges["r2"][e] = ra["ei"] * Fp
-        edges["sd"][e], edges["na"][e] = bx["sd"], bx["na"]
-        edges["box"][e], edges["origin"][e] = bx["box"], bx["origin"]
-    sides = np.zeros(len(recs), ONCE_SIDE_DTYPE)
-    for j, i in enumerate(order):
-        r = recs[i]
-        bx = boxes[r["ei"]]
-        own = bx["oa"] if r["side"] == 0 else bx["ob"]
-        by, bz = bx["box"][1], bx["box"][2]
-        lo = [-o - g for o, g in zip(own, bx["origin"])]
-        sides["sd"][j] = bx["sd"] + (lo[0] * by + lo[1]) * bz + lo[2]
-        sides["sx"][j], sides["sy"][j] = by * bz, bz
-        sides["na"][j] = bx["na"]
-        sides["row"][j] = columns[i][2 + DENSE_A:]
-    chunks = np.array([(e, a, min(a + 32, bx["box"][1] * bx["box"][2]), 0)
-                       for e, bx in enumerate(boxes)
-                       for a in range(0, bx["box"][1] * bx["box"][2], 32)],
-                      np.int32)
-    return edges, sides, chunks
 
 
 # ------------------------------------------------------------ B5's plan
@@ -789,8 +599,6 @@ class FusedSmoother:
         self.launches: Dict[str, int] = {k: 0 for k in KERNELS}
         # B5's plan and launches by cluster size, for the reports
         self.b5_plans: Dict[tuple, Dict] = {}
-        # B3c's and B4c's tile plans, by (kernel, storage, device, tile)
-        self.once_plans: Dict[tuple, Dict] = {}
         self.b5_launches: Dict[int, int] = {}
         self._dev: Dict[tuple, object] = {}     # per-device launch args
         self._coefs: Dict[tuple, tuple] = {}    # (frac, degree) -> c1, c2
@@ -909,46 +717,19 @@ class FusedSmoother:
             self._dev[key] = args
         return args
 
-    def _static_slab(self, index: int, io: torch.dtype,
+    def _static_slab(self, index: int, io: torch.dtype, compute: str,
                      final: Optional[bool] = None) -> tuple:
         """The launch arguments of B3 (``final`` None) or B4 that never
-        change on device ``index``: the side table, class_start, the slab
-        plan's run, grid and material constants."""
-        key = ("B3" if final is None else "B4", index, io, final)
+        change on device ``index``: B5's, with the slab plan's run after
+        the dense records."""
+        key = ("B3" if final is None else "B4", index, io, compute, final)
         args = self._dev.get(key)
         if args is None:
-            plan = self.b3_plan(io, index) if final is None \
-                else self.b4_plan(io, final, index)
-            sides, class_start = self.mv.tables(torch.device("cuda", index))
-            args = self._dev[key] = (
-                sides.data_ptr(), class_start.data_ptr(), plan["run"],
-                self.nc, *self.grid, *self.mv.consts)
-        return args
-
-    def _static_once(self, index: int, io: torch.dtype, kernel: str,
-                     tile=None) -> tuple:
-        """The launch arguments of B3c or B4c (``kernel`` a key of
-        ``ONCE_KINDS``) that never change on device ``index`` for a tile
-        (None: the plan's): the compute-once tables (uploaded once per
-        tile), class_start, the chunk count, the Sd words, tile, threads,
-        shared memory and grid."""
-        plan = self.once_plan(io, kernel, index, tile)
-        key = ("once", index, plan["tile"])
-        args = self._dev.get(key)
-        if args is None:
-            dev = torch.device("cuda", index)
-            edges, sides, chunks = once_tables(
-                self.dense_form.recs, self.dense_form.columns,
-                self.dense_form.order, self.grid, plan["tile"])
-            held = [torch.from_numpy(a.view(np.uint8).reshape(-1).copy()).to(
-                dev) for a in (edges, sides, chunks)]
-            _, class_start = self.mv.tables(dev)
-            self._dev[("once tables", index, plan["tile"])] = held
-            args = self._dev[key] = (
-                held[0].data_ptr(), held[1].data_ptr(),
-                class_start.data_ptr(), held[2].data_ptr(), len(chunks),
-                plan["sd_words"], *plan["tile"], plan["threads"], plan["smem_bytes"], self.nc,
-                *self.grid)
+            plan = self.b3_plan(io, index, compute) if final is None \
+                else self.b4_plan(io, final, index, compute)
+            sides, class_start, dense, *rest = self._static(index)
+            args = self._dev[key] = (sides, class_start, dense, plan["run"],
+                                     *rest)
         return args
 
     # ------------------------------------------------------- plain versions
@@ -1015,104 +796,52 @@ class FusedSmoother:
             raise ValueError(f"the fused kernels run on CPU (plain) or CUDA "
                              f"tensors, got {t.device}")
 
-    def residual(self, b, x, fm, r2, compute: Optional[str] = None,
-                 tile=None):
+    def residual(self, b, x, fm, r2, compute: Optional[str] = None):
         """B3 (B3c under bf16 compute): fm (b - K x), rounded to the
-        storage dtype.  ``tile`` overrides B3c's planned tile (the card
-        tests and ``chip_smoke.py`` run every one; the result is the same
-        bits whatever it is)."""
-        ct = self._tile_compute(compute, tile)
+        storage dtype."""
+        ct = self.compute_type(compute)
         if not b.is_cuda:
             self._cpu_only(b)
             return self.plain_residual(b, x, fm, r2, ct)
         io = self._check("B3", (b, x, fm), None, r2)
         out = torch.empty_like(b)
         dev = b.get_device()
-        dtype = int(io == torch.bfloat16)
-        ptrs = (x.data_ptr(), b.data_ptr(), fm.data_ptr(), r2.data_ptr(),
-                out.data_ptr())
-        fns = launch.functions("mg_fused")
-        if ct == "bf16":
-            name = "mg_residual_bf16c"
-            rc = fns[name](dtype, *ptrs,
-                           *self._static_once(dev, io, "B3c", tile),
-                           launch.stream(dev))
-        else:
-            name = "mg_residual"
-            rc = fns[name](dtype, *ptrs, *self._static_slab(dev, io),
-                           launch.stream(dev))
-        launch.check(name, rc)
+        rc = launch.functions("mg_fused")["mg_residual"](
+            int(io == torch.bfloat16), int(ct == "bf16"), x.data_ptr(),
+            b.data_ptr(), fm.data_ptr(), r2.data_ptr(), out.data_ptr(),
+            *self._static_slab(dev, io, ct), launch.stream(dev))
+        launch.check("mg_residual", rc)
         self.launches[self.counter("residual", ct)] += 1
         return out
 
-    def _tile_compute(self, compute: Optional[str], tile) -> str:
-        """The arithmetic of a launch (``compute_type``); a tile is taken
-        under bf16 compute only (the compute-once kernels')."""
-        ct = self.compute_type(compute)
-        if tile is not None and ct != "bf16":
-            raise ValueError("a tile is B3c's and B4c's (bf16 compute) only")
-        return ct
-
-    def once_plan(self, io: torch.dtype, kernel: str = "B3c",
-                  device: Optional[int] = None, tile=None) -> Dict:
-        """B3c's or B4c's plan on this level (``once_plan``; ``kernel`` a
-        key of ``ONCE_KINDS``).  On a card (``device``) its blocks per SM
-        come from the instance's own query, with the plan's shared memory,
-        and a plan the card cannot run raises.  Plans are cached."""
-        key = (kernel, io, device, None if tile is None else tuple(tile))
-        plan = self.once_plans.get(key)
-        if plan is not None:
-            return plan
-        plan = once_plan(self.nc, self.grid, self.dense_form.recs, tile)
-        if device is not None:
-            n = launch.functions("mg_fused")["mg_once_occupancy"](
-                ONCE_KINDS[kernel], int(io == torch.bfloat16),
-                plan["threads"], plan["smem_bytes"])
-            if n < 0:
-                raise RuntimeError(f"{kernel} occupancy query failed: "
-                                   f"cudaError {-n}")
-            if n == 0:
-                raise ValueError(f"{kernel}: the card cannot run a block of "
-                                 f"plan {plan}")
-            plan = dict(plan, blocks_per_sm=n)
-        self.once_plans[key] = plan
-        return plan
-
     def b3_plan(self, io: torch.dtype, device: Optional[int] = None,
                 compute: str = "f32") -> Dict:
-        """B3's slab plan on this level (``StencilMatvec.slab_plan`` over
-        the padded planes), or under bf16 compute B3c's tile plan
-        (``once_plan``); on a card its blocks per SM come from the
-        instance's own query."""
-        if compute == "bf16":
-            return self.once_plan(io, "B3c", device)
-        dtype = int(io == torch.bfloat16)
+        """B3's (B3c's) slab plan on this level (``StencilMatvec.
+        slab_plan`` over the padded planes); on a card its blocks per SM
+        come from the instance's own query."""
+        dtype, cb = int(io == torch.bfloat16), int(compute == "bf16")
         occ = lambda p: launch.functions("mg_fused")["mg_residual_occupancy"](
-            dtype, p["threads"])
-        return self.mv.slab_plan(io, device, kernel="B3", occupancy=occ)
+            dtype, cb, p["threads"])
+        return self.mv.slab_plan(io, device, kernel="B3c" if cb else "B3",
+                                 occupancy=occ)
 
     def b4_plan(self, io: torch.dtype, final: bool,
                 device: Optional[int] = None, compute: str = "f32") -> Dict:
-        """B4's slab plan on this level (``StencilMatvec.slab_plan`` over
-        the padded planes), or under bf16 compute B4c's tile plan
-        (``once_plan``); on a card its blocks per SM come from the
+        """B4's (B4c's) slab plan on this level (``StencilMatvec.slab_plan``
+        over the padded planes); on a card its blocks per SM come from the
         instance's own query (each variant's registers differ)."""
-        if compute == "bf16":
-            return self.once_plan(io, "B4c final" if final else "B4c",
-                                  device)
-        dtype = int(io == torch.bfloat16)
+        dtype, cb = int(io == torch.bfloat16), int(compute == "bf16")
         occ = lambda p: launch.functions("mg_fused")["mg_cheb_run_occupancy"](
-            dtype, int(final), p["threads"])
-        return self.mv.slab_plan(io, device,
-                                 kernel=f"B4{' final' if final else ''}",
-                                 occupancy=occ)
+            dtype, cb, int(final), p["threads"])
+        return self.mv.slab_plan(
+            io, device, kernel=f"B4{'c' if cb else ''}"
+            f"{' final' if final else ''}", occupancy=occ)
 
     def cheb_run(self, x, r, d, fd, sc, r2, c1: float, c2: float,
-                 final: bool, compute: Optional[str] = None, tile=None):
+                 final: bool, compute: Optional[str] = None):
         """B4 (B4c under bf16 compute): one Chebyshev step; (x1, r1, d1),
-        or x1 + d1 when ``final``.  ``tile`` overrides B4c's planned tile,
-        as ``residual``'s does B3c's."""
-        ct = self._tile_compute(compute, tile)
+        or x1 + d1 when ``final``."""
+        ct = self.compute_type(compute)
         if not x.is_cuda:
             self._cpu_only(x)
             return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final,
@@ -1123,22 +852,15 @@ class FusedSmoother:
         if not final:
             r1, d1 = torch.empty_like(x), torch.empty_like(x)
         dev = x.get_device()
-        args = (int(io == torch.bfloat16), int(final), x.data_ptr(),
-                r.data_ptr(), d.data_ptr(), fd.data_ptr(), sc.data_ptr(),
-                r2.data_ptr(), x1.data_ptr(),
-                None if final else r1.data_ptr(),
-                None if final else d1.data_ptr(), c1, c2)
-        fns = launch.functions("mg_fused")
-        if ct == "bf16":
-            name = "mg_cheb_run_bf16c"
-            kind = "B4c final" if final else "B4c"
-            rc = fns[name](*args, *self._static_once(dev, io, kind, tile),
-                           launch.stream(dev))
-        else:
-            name = "mg_cheb_run"
-            rc = fns[name](*args, *self._static_slab(dev, io, final),
-                           launch.stream(dev))
-        launch.check(name, rc)
+        rc = launch.functions("mg_fused")["mg_cheb_run"](
+            int(io == torch.bfloat16), int(ct == "bf16"), int(final),
+            x.data_ptr(), r.data_ptr(), d.data_ptr(), fd.data_ptr(),
+            sc.data_ptr(), r2.data_ptr(), x1.data_ptr(),
+            None if final else r1.data_ptr(),
+            None if final else d1.data_ptr(), c1, c2,
+            *self._static_slab(dev, io, ct, final),
+            launch.stream(dev))
+        launch.check("mg_cheb_run", rc)
         self.launches[self.counter("cheb_run", ct)] += 1
         return x1 if final else (x1, r1, d1)
 

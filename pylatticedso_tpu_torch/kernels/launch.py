@@ -35,13 +35,10 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "stencil_vjp_r2_occupancy": "i",
     },
     "mg_fused": {
-        "mg_residual": "i" + "p" * 7 + "iiiiifffp",
-        "mg_residual_occupancy": "ii",
-        "mg_cheb_run": "ii" + "p" * 9 + "ff" + "pp" + "iiiiifffp",
-        "mg_cheb_run_occupancy": "iii",
-        "mg_residual_bf16c": "i" + "p" * 9 + "i" * 11 + "p",
-        "mg_cheb_run_bf16c": "ii" + "p" * 9 + "ff" + "p" * 4 + "i" * 11 + "p",
-        "mg_once_occupancy": "iiii",
+        "mg_residual": "ii" + "p" * 8 + "iiiiifffp",
+        "mg_residual_occupancy": "iii",
+        "mg_cheb_run": "iii" + "p" * 9 + "ff" + "ppp" + "iiiiifffp",
+        "mg_cheb_run_occupancy": "iiii",
         "mg_cheb_full": "iiii" + "p" * 10 + "i" * 10 + "pppiiiifffp",
         "mg_cheb_full_max_clusters": "iiiiiii",
     },

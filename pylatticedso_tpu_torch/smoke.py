@@ -110,11 +110,13 @@ IMPOSED_X = 1e-3             # prescribed X displacement of the clamped face
 # inputs; a rounding point out of place moves a value by 2^-8 = 3.9e-3 of
 # itself, and repeated ones add up past the limit); the bf16-compute
 # instances B3c-B5c 1e-2 in either storage (bf16 arithmetic on both
-# sides, in the same order)
+# sides, in the same order), and B3c and B4c the same bits as their plain
+# versions (SAME_BITS: 0 elements differ)
 STORAGE_TOL = {"f32": {"B3": 1e-5, "B4": 2e-5, "B5": 2e-5, "B3c": 1e-2,
                        "B4c": 1e-2, "B5c": 1e-2},
                "bf16": {"B2": 1e-2, "B3": 1e-2, "B4": 1e-2, "B5": 1e-2,
                         "B3c": 1e-2, "B4c": 1e-2, "B5c": 1e-2}}
+SAME_BITS = ("B3c", "B4c")
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 RESIDUAL_TOL = 1e-5
 ITERATION_RISE = 1.1         # a route's warm CG iterations vs the f32 route
@@ -288,18 +290,10 @@ def _index(device: torch.device) -> Optional[int]:
 
 
 def _plan_rec(plan: Dict) -> Dict:
-    """A slab, beam or tile plan as the report keeps it: run, threads per
-    block (one per class and point, or a warp per edge), edges a block
-    (beam plans), blocks one SM holds (asked of the card; None off it),
-    halo and dynamic shared memory (none: the slab kernels read through
-    L1); a tile plan (B3c, B4c) its tile, threads, blocks, blocks per SM,
-    shared memory and anchors computed per edge and tile point."""
-    if "tile" in plan:
-        return {"tile": list(plan["tile"]), "threads": plan["threads"],
-                "blocks": plan["blocks"],
-                "blocks_per_sm": plan.get("blocks_per_sm"),
-                "smem_bytes": plan["smem_bytes"],
-                "anchors_per_point": plan["anchors_per_point"]}
+    """A slab or beam plan as the report keeps it: run, threads per block
+    (one per class and point, or a warp per edge), edges a block (beam
+    plans), blocks one SM holds (asked of the card; None off it), halo and
+    dynamic shared memory (none: the kernels read through L1)."""
     rec = {"run": plan["run"], "threads": plan["threads"],
            "blocks_per_sm": plan.get("blocks_per_sm"),
            "halo": list(plan["halo"]), "smem_bytes": 0}
@@ -310,13 +304,6 @@ def _plan_rec(plan: Dict) -> Dict:
 
 def _plan_text(plan: Dict) -> str:
     bps = plan["blocks_per_sm"]
-    bps = "not asked" if bps is None else bps
-    if "tile" in plan:
-        return (f"tile plan: {'x'.join(map(str, plan['tile']))} padded "
-                f"points a block, {plan['threads']} threads, "
-                f"{plan['blocks']} blocks, {bps} blocks per SM, "
-                f"{plan['smem_bytes']} bytes of shared memory, "
-                f"{plan['anchors_per_point']:.3f} anchors an edge and point")
     if "edges" in plan:
         head = (f"beam plan: runs of {plan['run']} points, a warp per "
                 f"edge, {plan['edges']} edges = {plan['threads']} threads "
@@ -324,8 +311,9 @@ def _plan_text(plan: Dict) -> str:
     else:
         head = (f"slab plan: runs of {plan['run']} points, one thread per "
                 f"class and point = {plan['threads']} threads a block")
-    return (f"{head}, {bps} blocks per SM, halo {plan['halo']}, "
-            f"{plan['smem_bytes']} bytes of shared memory")
+    return (f"{head}, {'not asked' if bps is None else bps} blocks per SM, "
+            f"halo {plan['halo']}, {plan['smem_bytes']} bytes of shared "
+            f"memory")
 
 
 def level_cells(n: int, min_cells: int = 3) -> List[int]:
@@ -457,10 +445,14 @@ def fused_kernel_phase(device: torch.device, n: int,
             raise AssertionError(
                 f"{kernel} disagrees with its plain version on {label} "
                 f"({storage}, {variant}): rel err {rel_err:.3e} > {tol}")
+        differ = _bits_differ(got, want)
+        if kernel in SAME_BITS and differ:
+            raise AssertionError(
+                f"{kernel} on {label} ({storage}, {variant}): {differ} "
+                f"elements differ bitwise from its plain version")
         rec = {"kernel": kernel, "case": label, "storage": storage,
                "variant": variant, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "tol": tol,
-               "bits_differ": _bits_differ(got, want),
+               "max_rel_err": rel_err, "tol": tol, "bits_differ": differ,
                **_bound_of(work, peak)}
         if cuda:
             timed = timed or run
@@ -1774,9 +1766,12 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             f"{ {k: round(v, 1) for k, v in built['per_source'].items()} } "
             f"[{card}]")
         for name, text in built["ptxas"].items():
+            func = None
             for line in text.splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"ptxas {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    func = line.split("'")[1] if "'" in line else None
+                elif "registers" in line or "spill" in line:
+                    log(f"ptxas {name} {func}: {line.strip()}")
     budget.check("build")
 
     cases = kernel_phase(dev, n)
@@ -1809,12 +1804,13 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
                 f"{_ms(c.get('device_ms'))}) vs {_ms(f['ms'])} (graph replay "
                 f"{_ms(f.get('device_ms'))}); bound {c['bound_ms']:.5f} vs "
                 f"{f['bound_ms']:.5f} ms [{card}]")
-        if c["kernel"] in ("B2", "B3", "B4"):
+        if c["kernel"] in ("B2", "B3", "B4", "B3c", "B4c"):
             key = (c["kernel"], c["case"], c["storage"], c["variant"])
+            was = f" vs before the redesign {_was(*key)}" \
+                if c["kernel"] in ("B2", "B3", "B4") else ""
             log(f"{' '.join(key)}: {_plan_text(c['plan'])} | "
                 f"{_ms(c['ms'])} (device, graph replay "
-                f"{_ms(c['device_ms'])}) vs before the redesign "
-                f"{_was(*key)} [{card}]")
+                f"{_ms(c['device_ms'])}){was} [{card}]")
         if c["kernel"] in ("B5", "B5c"):
             p = c["plan"]
             was = B5_BEFORE_MS.get((c["case"], c["storage"], c["variant"])) \

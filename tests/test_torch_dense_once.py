@@ -1,19 +1,14 @@
-"""B3c's and B4c's compute-once plan (``kernels/fused.py`` ``once_plan``,
-``once_tables``), held to the kernels' index mapping (``csrc/mg_fused.cu``,
-``once_edges`` and ``once_rows``), replayed in torch: phase 1 walks the
-chunk table and computes each edge instance's Sd = K E once into a
-per-block "shared memory", phase 2 adds every side's row at every (class,
-point) of the tile from that memory.  On inputs from a numpy seed the
-replay must give the bits of ``DenseForm.plain`` (which
-``tests/test_torch_fused_compute.py`` holds to JAX's ``ct=bf16``
-kernels), in float32 and bf16 storage; every Sd word an interior point
-reads must have been written by phase 1, once, and every read of phase 1
-must lie inside the padded grid.  Also: the plans of the 50^3 Octet
-hierarchy (host build only), the shared-memory limit, refusals, and the
-limits and record layouts against the source.  No kernel, no JAX."""
-
-import re
-from pathlib import Path
+"""The dense form's compute-once facts (``kernels/fused.py`` ``DenseForm``),
+on which a kernel that computes each template edge's strains and forces
+once per edge instance (the TPU kernel's ``edge_once``,
+``stencil_pallas.py:379-400``) rests: both sides of an edge carry the same
+K and E columns, so E and Sd = K E are the same bits whichever side
+computes them; a torch replay that computes Sd once per edge instance
+over the padded grid and then adds every side's row in table order gives
+the bits of ``DenseForm.plain`` (which ``tests/test_torch_fused_compute.py``
+holds to JAX's ``ct=bf16`` kernels) from the table's own bf16 columns, in
+float32 and bf16 storage; and ``ops_per_point`` counts that compute-once
+work, against the per-side form's.  No kernel, no JAX."""
 
 import numpy as np
 import pytest
@@ -21,20 +16,15 @@ import torch
 import torch.nn.functional as F
 
 from pylatticedso_tpu_torch import smoke
-from pylatticedso_tpu_torch.kernels import fused
-from pylatticedso_tpu_torch.kernels.fused import (
-    DENSE_A, DENSE_B, ONCE_EDGE_DTYPE, ONCE_P, ONCE_SIDE_DTYPE,
-    ONCE_SMEM_LIMIT, ONCE_THREADS, ONCE_TILES, DenseForm, once_plan,
-    once_region, once_tables)
+from pylatticedso_tpu_torch.kernels.fused import DENSE_A, DENSE_B, DenseForm
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
 
 # one torch thread per test worker: the suite runs several workers at once
 torch.set_num_threads(1)
 
-CSRC = Path(__file__).resolve().parents[1] / "pylatticedso_tpu_torch" / "csrc"
 GEOMS = {"octet": "Octet", "bcc": "BCC", "hybrid": smoke.HYBRID}
 BF = torch.bfloat16
-SMEM_MAX = 232448            # a block's dynamic shared memory on sm_90
+K_E = 2 + DENSE_A            # K's two columns, then E's nine slots
 
 
 def _lattice(name, cells):
@@ -43,155 +33,97 @@ def _lattice(name, cells):
                              device="cpu")
 
 
-def _bf(bits) -> torch.Tensor:
-    """uint16 bf16 bits -> a bf16 tensor of the same shape."""
-    return torch.from_numpy(np.ascontiguousarray(bits).astype(
-        np.int16)).view(BF)
+def _order(recs):
+    """The side table's order of the records (stably by self class), as
+    ``DenseForm.table`` holds them."""
+    return sorted(range(len(recs)), key=lambda i: recs[i]["cs"])
 
 
-def _quotient(a: np.ndarray, n: int) -> np.ndarray:
-    """The kernels' a / n: (a + 0.5) times the rounded reciprocal of n,
-    each in float32, truncated."""
-    rcp = np.float32(1.0) / np.float32(n)
-    return ((a.astype(np.float32) + np.float32(0.5)) * rcp).astype(np.int64)
+def _cols(form, row) -> torch.Tensor:
+    """The bf16 columns [17, 6] of ``form.table``'s row ``row``."""
+    bits = np.ascontiguousarray(form.table["col"][row]).astype(np.int16)
+    return torch.from_numpy(bits).view(BF)
 
 
-def _replay(form: DenseForm, grid, tile, up: torch.Tensor,
-            r2p: torch.Tensor) -> torch.Tensor:
-    """K u in the dense form as the compute-once kernels compute it, from
-    padded u [nc, 6, Xp, Yp, Zp] (float32 or bf16 storage, rounded to bf16
-    as it is read) and r^2 [n_e, Xp, Yp, Zp]: [nc, 6, X, Y, Z] bf16."""
+@pytest.mark.parametrize("name", sorted(GEOMS))
+def test_both_sides_carry_the_same_strain_columns(name):
+    """An edge's two side records hold the same K and E columns, bit for
+    bit, and the same E terms: E and Sd depend on the edge instance only
+    (d = uB - uA, p3 = uA[3:] + uB[3:] and r^2 at the anchor are the same
+    from either side)."""
+    form = DenseForm(_lattice(name, (3, 3, 3)))
+    row = {i: j for j, i in enumerate(_order(form.recs))}
+    for e in range(len(form.recs) // 2):
+        a, b = form.recs[2 * e], form.recs[2 * e + 1]
+        assert [k[:2] for k in a["dense_a"]] == [k[:2] for k in b["dense_a"]]
+        ca = form.table["col"][row[2 * e]][:K_E]
+        cb = form.table["col"][row[2 * e + 1]][:K_E]
+        assert np.array_equal(ca, cb)
+        assert a["ei"] == b["ei"] == e and (a["side"], b["side"]) == (0, 1)
+
+
+def _replay_once(form: DenseForm, grid, up: torch.Tensor,
+                 r2p: torch.Tensor) -> torch.Tensor:
+    """K u in the dense form, Sd computed once per edge instance: for each
+    template edge, at every anchor some interior point reads (padded
+    1 - max(oa, ob) .. N - min(oa, ob) per axis), d, p3, K, E (every slot,
+    a missing term as a zero column) and Sd = K E; then per class its
+    sides in table order, each adding its row from Sd at the point minus
+    its own offset.  u and r^2 are rounded to bf16 as they are read."""
     X, Y, Z = grid
-    Xp, Yp, Zp = X + 2, Y + 2, Z + 2
-    nc = form.nc
-    plan = once_plan(nc, grid, form.recs, tile)
-    edges, sides, chunks = once_tables(form.recs, form.columns, form.order,
-                                       grid, plan["tile"])
-    # the side table's class_start: its records stably sorted by class
-    class_start = np.concatenate([[0], np.cumsum(np.bincount(
-        [r["cs"] for r in form.recs], minlength=nc))])
-    tx, ty, tz = plan["tile"]
-    RX, RY, RZ = once_region(plan["tile"])
-    R = RX * RY * RZ
-    words = plan["sd_words"]
-    assert words == 3 * int(edges["na"].sum())
-    assert plan["smem_bytes"] == 4 * (words + 3 * nc * R)
-    # the blocks, as once_tile maps blockIdx.x
-    nt = [-(-(g + 2) // t) for g, t in zip(grid, plan["tile"])]
-    assert plan["blocks"] == nt[0] * nt[1] * nt[2]
-    blk = np.arange(plan["blocks"])
-    iz, rest = blk % nt[2], blk // nt[2]
-    iy, ix = rest % nt[1], rest // nt[1]
-    x0, y0, z0 = ix * tx, iy * ty, iz * tz
-    nb = len(blk)
-    u = up.to(BF)                              # ldh: rounded as read
-
-    # the staged region, as once_stage fills it: pair i of class c at
-    # (c * 3 + i) * R + (x * RY + y) * RZ + z, zeros beyond the grid
-    e = np.arange(nc * 3 * R)
-    row, z = _quotient(e, RZ), None
-    z = e - row * RZ
-    ci = _quotient(row, RX * RY)
-    xy = row - ci * RX * RY
-    x = _quotient(xy, RY)
-    y = xy - x * RY
-    assert np.array_equal(e, ((ci * RX + x) * RY + y) * RZ + z)
-    px, py, pz = (x0[:, None] - 1 + x, y0[:, None] - 1 + y,
-                  z0[:, None] - 1 + z)
-    inside = ((px >= 0) & (px < Xp) & (py >= 0) & (py < Yp) & (pz >= 0)
-              & (pz < Zp))
-    su = torch.zeros((nb, nc * 3 * R, 2), dtype=BF)
-    bsel, esel = np.nonzero(inside)
-    c, i = ci[esel] // 3, ci[esel] % 3
-    for k in (0, 1):
-        su[bsel, esel, k] = u[c, 2 * i + k, px[bsel, esel], py[bsel, esel],
-                              pz[bsel, esel]]
-
-    # phase 1: every chunk's (y, z) positions, marching along x
-    smem = torch.full((nb, words, 2), float("nan"), dtype=BF)
-    written = np.zeros((nb, words), np.int64)
-    exact = np.zeros((nb, words), bool)       # the anchor was not clamped
-    r2 = r2p.to(BF)
-    for ei, a0, a1, _ in chunks:
-        rec = edges[ei]
-        bx, by, bz = (int(v) for v in rec["box"])
-        ox, oy, oz = (int(v) for v in rec["origin"])
-        assert 0 <= a0 < a1 <= by * bz and a1 - a0 <= 32
-        a = np.arange(a0, a1)
-        qy = _quotient(a, bz)
-        qz = a - qy * bz
-        assert np.array_equal(qy, a // bz)
-        lo = (1 + ox, 1 + oy, 1 + oz)
-        hi = (X + ox + bx - tx, Y + oy + by - ty, Z + oz + bz - tz)
-        gy = y0[:, None] + oy + qy[None]
-        gz = z0[:, None] + oz + qz[None]
-        cy, cz = np.clip(gy, lo[1], hi[1]), np.clip(gz, lo[2], hi[2])
-        for qx in range(bx):
-            gx = np.broadcast_to(x0[:, None] + ox + qx, gy.shape)
-            cx = np.clip(gx, lo[0], hi[0])
-            for g, n in ((cx, Xp), (cy, Yp), (cz, Zp)):
-                assert g.min() >= 0 and g.max() < n     # r^2's read
-            l = (qx * RY + qy) * RZ + qz
-            A = [su[:, rec["sa"] + l + j * R] for j in range(3)]
-            B = [su[:, rec["sb"] + l + j * R] for j in range(3)]
-            for base in (rec["sa"], rec["sb"]):
-                assert base + l.min() >= 0
-                assert base + l.max() + 2 * R < nc * 3 * R
-            uA = torch.cat(A, -1).permute(2, 0, 1)       # [6, nb, n]
-            uB = torch.cat(B, -1).permute(2, 0, 1)
-            rr = r2[form.recs[2 * ei]["ei"], cx, cy, cz]
-            col = _bf(rec["col"])                     # [11, 6]
-            cc = lambda q: col[q][:, None, None]
-            K = rr * cc(0) + (rr * rr) * cc(1)
-            d = uB - uA
-            p3 = uA[3:] + uB[3:]
-            src = torch.cat([d, p3])                  # d0..d5, p0..p2
-            E = src[0] * cc(2)
-            for k in range(1, DENSE_A):
-                E = E + src[k] * cc(2 + k)
-            Sd = K * E                                # [6, nb, n]
-            ok = (gx == cx) & (gy == cy) & (gz == cz)
-            for j in range(3):
-                w = rec["sd"] + j * rec["na"] + qx * by * bz + a
-                smem[:, w] = Sd[2 * j:2 * j + 2].permute(1, 2, 0)
-                written[:, w] += 1
-                exact[:, w] = ok
-    assert written.min() == written.max() == 1   # every word, once
-
-    # phase 2: every (class, tile point), its class's sides in table order
-    pt = np.arange(tx * ty * tz)
-    lz, ly, lx = pt % tz, (pt // tz) % ty, pt // (tz * ty)
-    px, py, pz = x0[:, None] + lx, y0[:, None] + ly, z0[:, None] + lz
-    inner = ((px >= 1) & (px <= X) & (py >= 1) & (py <= Y) & (pz >= 1)
-             & (pz <= Z))
-    bsel, psel = np.nonzero(inner)
-    out = torch.zeros((nc, 6, X, Y, Z), dtype=BF)
-    for c in range(nc):
-        acc = torch.zeros((6, len(bsel)), dtype=BF)
-        for s in range(class_start[c], class_start[c + 1]):
-            rec = sides[s]
-            o = rec["sd"] + lx[psel] * rec["sx"] + ly[psel] * rec["sy"] \
-                + lz[psel]
-            box = edges[form.recs[form.order[s]]["ei"]]
-            assert o.min() >= box["sd"] and o.max() < box["sd"] + box["na"]
-            Sd = []
-            for j in range(3):
-                w = o + j * rec["na"]
-                assert np.all(exact[bsel, w])      # an unclamped anchor
-                Sd.append(smem[bsel, w].T)
-            Sd = torch.cat(Sd)                     # [6, n]
-            col = _bf(rec["row"])                  # [6 slots, 6 rows]
-            row = Sd[0] * col[0][:, None]
-            for k in range(1, DENSE_B):
-                row = row + Sd[k] * col[k][:, None]
-            acc = acc + row
-        out[c][:, px[bsel, psel] - 1, py[bsel, psel] - 1,
-               pz[bsel, psel] - 1] = acc
+    N = (X, Y, Z)
+    u, r2 = up.to(BF), r2p.to(BF)
+    recs = form.recs
+    order = _order(recs)
+    row_of = {i: j for j, i in enumerate(order)}
+    sd, lo_of = {}, {}
+    for e in range(len(recs) // 2):
+        ra = recs[2 * e]
+        oa = [-v for v in ra["dr3"]]
+        ob = [-v for v in recs[2 * e + 1]["dr3"]]
+        lo = [1 - max(a, b) for a, b in zip(oa, ob)]
+        hi = [n - min(a, b) for n, a, b in zip(N, oa, ob)]
+        box = lambda o: tuple(slice(l + v, h + v + 1)
+                              for l, h, v in zip(lo, hi, o))
+        uA = u[(ra["cs"], slice(None)) + box(oa)]
+        uB = u[(ra["co"], slice(None)) + box(ob)]
+        rr = r2[(ra["ei"],) + box((0, 0, 0))]
+        col = _cols(form, row_of[2 * e])
+        c = lambda q: col[q].view(6, 1, 1, 1)
+        K = rr * c(0) + (rr * rr) * c(1)
+        d = uB - uA
+        p3 = uA[3:] + uB[3:]
+        src = torch.cat([d, p3])                  # d0..d5, p0..p2
+        E = src[0] * c(2)
+        for s in range(1, DENSE_A):
+            E = E + src[s] * c(2 + s)
+        sd[e], lo_of[e] = K * E, lo
+    out = torch.zeros((form.nc, 6, X, Y, Z), dtype=BF)
+    for j, i in enumerate(order):
+        r = recs[i]
+        own = [-v for v in r["dr3"]]
+        # the interior points' anchors in the edge's anchor box
+        at = tuple(slice(1 - o - l, n + 1 - o - l)
+                   for o, l, n in zip(own, lo_of[r["ei"]], N))
+        S = sd[r["ei"]][(slice(None),) + at]
+        col = _cols(form, j)
+        rows = S[0] * col[K_E].view(6, 1, 1, 1)
+        for k in range(1, DENSE_B):
+            rows = rows + S[k] * col[K_E + k].view(6, 1, 1, 1)
+        out[r["cs"]] = out[r["cs"]] + rows
     return out
 
 
-def _inputs(sl, cells, seed, storage):
-    rng = np.random.default_rng(seed)
+@pytest.mark.parametrize("storage", ["f32", "bf16"])
+@pytest.mark.parametrize("name,cells", [
+    ("octet", (4, 4, 4)), ("octet", (3, 5, 6)), ("bcc", (5, 6, 7)),
+    ("hybrid", (4, 4, 4)), ("hybrid", (6, 6, 6))])
+def test_compute_once_gives_the_plain_bits(name, cells, storage):
+    """Sd once per edge instance, the rows per side in table order: the
+    bits of DenseForm.plain (0 elements differ), from inputs made with a
+    numpy seed, in float32 storage (rounded to bf16 as read) and bf16."""
+    sl = _lattice(name, cells)
+    rng = np.random.default_rng(sum(cells) + len(name))
     u = rng.standard_normal((sl.nc, 6) + sl.grid).astype(np.float32)
     r = (0.04 + 0.05 * rng.random((sl.n_geom,) + tuple(cells))).astype(
         np.float32)
@@ -200,126 +132,25 @@ def _inputs(sl, cells, seed, storage):
     up = F.pad(torch.from_numpy(u), (1,) * 6)
     if storage == "bf16":
         up, r2 = up.to(BF), r2.to(BF)
-    return mv, up, r2
-
-
-TILES = sorted(set(ONCE_TILES) | {(1, 4, 16), (8, 8, 8), (2, 4, 32)})
-REPLAY = [("octet", (4, 4, 4)), ("octet", (3, 5, 6)), ("bcc", (5, 6, 7)),
-          ("hybrid", (4, 4, 4)), ("hybrid", (6, 6, 6))]
-
-
-@pytest.mark.parametrize("storage", ["f32", "bf16"])
-@pytest.mark.parametrize("name,cells", REPLAY)
-def test_replay_gives_the_plain_bits(name, cells, storage):
-    """The two phases on the tables give DenseForm.plain's bits under the
-    rule's tile and every tile of the menu that fits."""
-    sl = _lattice(name, cells)
-    mv, up, r2 = _inputs(sl, cells, sum(cells) + len(name), storage)
     form = mv.apply.fused.dense_form
     want = form.plain(up.to(BF), r2.to(BF))
-    tiles = [None] + [t for t in TILES if fused.once_smem_bytes(
-        form.recs, t, sl.nc) <= ONCE_SMEM_LIMIT]
-    for tile in tiles:
-        got = _replay(form, sl.grid, tile, up, r2)
-        assert torch.equal(got.view(torch.int16), want.view(torch.int16)), \
-            (tile, int((got.view(torch.int16)
-                        != want.view(torch.int16)).sum()))
+    got = _replay_once(form, sl.grid, up, r2)
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    assert differ == 0
 
 
-def test_replay_of_the_kernels_outputs():
-    """B3c and B4c as the wrappers compute them on the CPU (their plain
-    versions) equal the replay's K u put through their epilogues: the
-    float update of the float-compute kernels, each operation rounded on
-    its own, at the interior; zeros at the ghosts."""
-    sl = _lattice("octet", (3, 4, 5))
-    mv, up, r2 = _inputs(sl, (3, 4, 5), 5, "bf16")
-    fz = mv.apply.fused
-    rng = np.random.default_rng(9)
-    pad = lambda a: F.pad(torch.from_numpy(a), (1,) * 6).to(BF)
-    shape = (sl.nc, 6) + sl.grid
-    b, fm = (pad(rng.standard_normal(shape).astype(np.float32))
-             for _ in range(2))
-    Ku = _replay(fz.dense_form, sl.grid, None, up, r2).float()
-    inner = lambda v: v[..., 1:-1, 1:-1, 1:-1].float()
-    want = F.pad(inner(fm) * (inner(b) - Ku), (1,) * 6).to(BF)
-    got = fz.residual(b, up, fm, r2, "bf16")
-    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-    sc = torch.tensor([0.5, 0.25])
-    x1, r1, d1 = fz.cheb_run(b, fm, up, b, sc, r2, 0.75, 1.5, False, "bf16")
-    d = inner(up)
-    rr = inner(fm) - Ku
-    dd = 0.75 * d + ((1.5 * sc[1]) * rr) * inner(b)
-    for g, w in ((x1, inner(b) + d), (r1, rr), (d1, dd)):
-        w = F.pad(w, (1,) * 6).to(BF)
-        assert torch.equal(g.view(torch.int16), w.view(torch.int16))
-
-
-@pytest.mark.parametrize("cells", smoke.level_cells(50))
-def test_plans_of_the_50_hierarchy(cells):
-    """Every level of the 50^3 Octet hierarchy (host build only): the
-    rule's tile fits a block's shared memory, the chunks cover each box's
-    (y, z) positions once, every side's Sd word
-    of every tile point lies in its edge's box, and an edge's E columns
-    are the same bits from either side (what computing them once
-    relies on)."""
-    sl = _lattice("octet", (cells,) * 3)
-    form = DenseForm(sl)
-    plan = once_plan(sl.nc, sl.grid, form.recs)
-    assert plan["tile"] in ONCE_TILES
-    assert plan["smem_bytes"] <= ONCE_SMEM_LIMIT <= SMEM_MAX
-    assert plan["threads"] <= ONCE_THREADS and plan["threads"] % 32 == 0
-    edges, sides, chunks = once_tables(form.recs, form.columns, form.order,
-                                       sl.grid, plan["tile"])
-    assert len(chunks) == plan["chunks"]
-    for e, rec in enumerate(edges):
-        mine = chunks[chunks[:, 0] == e]
-        cover = np.zeros(rec["box"][1] * rec["box"][2], np.int64)
-        for _, a0, a1, _ in mine:
-            assert a1 - a0 <= 32               # a warp's lanes
-            cover[a0:a1] += 1
-        assert np.all(cover == 1)
-        a, b = form.columns[2 * e], form.columns[2 * e + 1]
-        assert np.array_equal(a[:2 + DENSE_A], b[:2 + DENSE_A])
-    tx, ty, tz = plan["tile"]
-    pt = np.arange(tx * ty * tz)
-    lz, ly, lx = pt % tz, (pt // tz) % ty, pt // (tz * ty)
-    for j, rec in enumerate(sides):
-        box = edges[form.recs[form.order[j]]["ei"]]
-        o = rec["sd"] + lx * rec["sx"] + ly * rec["sy"] + lz
-        assert o.min() >= box["sd"] and o.max() < box["sd"] + box["na"]
-    if cells == 50:
-        # the anchors computed per edge and point, against the two-sided
-        # form's 2 (ISSUE's sizing: about 1.2-1.3 for Octet)
-        assert plan["anchors_per_point"] < 1.3
-
-
-def test_hybrid_plans_fit_and_refusals():
-    """The 16-class, 70-edge hybrid has a tile that fits, but not every
-    tile does; a template whose smallest tile does not fit, and a tile
-    the kernels do not take, raise ValueError."""
-    sl = _lattice("hybrid", (6, 6, 6))
-    form = DenseForm(sl)
-    plan = once_plan(sl.nc, sl.grid, form.recs)
-    assert plan["smem_bytes"] <= SMEM_MAX
-    with pytest.raises(ValueError, match="shared memory"):
-        once_plan(sl.nc, sl.grid, form.recs, (8, 8, 8))
-    many = form.recs * 8                   # 560 edges
-    with pytest.raises(ValueError, match="smallest tile"):
-        once_plan(sl.nc, sl.grid, many)
-    for tile in ((3, 8, 8), (1, 2, 16), (2, 8)):
-        with pytest.raises(ValueError, match="tile"):
-            once_plan(sl.nc, sl.grid, form.recs, tile)
-
-
-def test_limits_and_layouts_match_the_source():
-    """The host's limits and record layouts are the source's."""
-    src = (CSRC / "mg_fused.cu").read_text()
-    define = lambda name: int(re.search(rf"#define {name} (\d+)",
-                                        src).group(1))
-    assert define("ONCE_THREADS") == ONCE_THREADS
-    assert define("ONCE_P") == ONCE_P
-    assert "MAX_SMEM = 227 * 1024" in src and ONCE_SMEM_LIMIT == 227 * 1024
-    assert f"sizeof(OnceEdge) == {ONCE_EDGE_DTYPE.itemsize}" in src
-    assert f"sizeof(OnceSide) == {ONCE_SIDE_DTYPE.itemsize}" in src
-    for tile in ONCE_TILES:
-        assert fused._once_tile_ok(tile)
+@pytest.mark.parametrize("name", sorted(GEOMS))
+def test_ops_per_point_counts_the_compute_once_form(name):
+    """ops_per_point is the compute-once count (each edge's d, p3, K, E
+    and Sd once, 28 + 12 a; each side's row and acc add, 12 b), below the
+    per-side count (every side's own d, p3, K, E and Sd) that the slab
+    kernels issue."""
+    form = DenseForm(_lattice(name, (2, 2, 2)))
+    recs = form.recs
+    once = sum(28 + 12 * len(recs[2 * e]["dense_a"])
+               + 12 * (len(recs[2 * e]["dense_b"])
+                       + len(recs[2 * e + 1]["dense_b"]))
+               for e in range(len(recs) // 2))
+    per_side = sum(28 + 12 * len(r["dense_a"]) + 12 * len(r["dense_b"])
+                   for r in recs)
+    assert form.ops_per_point() == once < per_side

@@ -601,13 +601,13 @@ def test_kriging_fit_raises_without_sklearn(monkeypatch):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,cells", SLAB_CASES)
 def test_bf16_compute_kernels_match_plain_on_card(name, cells, monkeypatch):
-    """B3c and B4c (a step and the final emit) on their plans, and B5c
-    where the routing marks the grid single, against their plain versions
-    (the dense form in bf16, every operation rounded on its own): B3c and
-    B4c the same bits (0 elements differ), B5c within 1e-2, in f32 and
-    bf16 storage; bitwise on repeat; ghosts written zero over NaN-filled
-    outputs; the bits that differ from the plain version's are printed
-    (run with -s)."""
+    """B3c and B4c (a step and the final emit) on their slab plans, and
+    B5c where the routing marks the grid single, against their plain
+    versions (the dense form in bf16, every operation rounded on its own):
+    B3c and B4c the same bits (0 elements differ), B5c within 1e-2, in f32
+    and bf16 storage; bitwise on repeat; ghosts written zero over
+    NaN-filled outputs; the bits that differ from the plain version's are
+    printed (run with -s)."""
     _need_card()
     from pylatticedso_tpu_torch.kernels.fused import cheb_static
     ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,

@@ -64,19 +64,14 @@ def test_parser_reads_pointers_ints_floats_and_doubles():
     ("stencil_matvec", "stencil_vjp_r2_f32", "ppppppiiiifffp"),
     ("stencil_matvec", "stencil_vjp_r2_f64", "ppppppiiiidddp"),
     ("stencil_matvec", "stencil_vjp_r2_occupancy", "i"),
-    ("mg_fused", "mg_residual", "ipppppppiiiiifffp"),
-    ("mg_fused", "mg_residual_occupancy", "ii"),
-    ("mg_fused", "mg_residual_bf16c", "ippppppppp" + "i" * 11 + "p"),
-    ("mg_fused", "mg_once_occupancy", "iiii"),
+    ("mg_fused", "mg_residual", "iippppppppiiiiifffp"),
+    ("mg_fused", "mg_residual_occupancy", "iii"),
 ])
 def test_planned_launchers_take_the_run(source, name, codes):
     """B3 takes its host plan's run (the int after the table pointers:
-    the sides and class_start), B3c its tile plan (the compute-once
-    tables, then the chunk and edge counts, tile, threads and shared
-    memory) and
-    the r^2-cotangent its beam table (no plan argument: its run is
-    compiled in), and each has its own occupancy query (B3's per storage,
-    B3c's and B4c's per kernel, storage, threads and shared memory): the
-    source and the table agree on all of them."""
+    the sides, class_start and the sides' dense records) and the
+    r^2-cotangent its beam table (no plan argument: its run is compiled
+    in), and each has its own occupancy query (B3's per storage and
+    compute type): the source and the table agree on all five."""
     assert parse(source)[name] == ("int", codes)
     assert launch.SIGNATURES[source][name] == codes
