@@ -26,8 +26,9 @@
 // in bf16 arithmetic (stencil_body.cuh dense_acc, from the sides' dense
 // records), widened to float; everything else is the float instance's,
 // with the Chebyshev update's operations each rounded on their own.  B5c
-// keeps x, r and d in float as B5 does and rounds d to bf16 at every
-// stencil read.  Bounds as below, with the dense form's operations (28 +
+// keeps x, r and d in float as B5 does and reads d as bf16, rounded once
+// when it is published (its own kernel, below).  Bounds as below, with
+// the dense form's operations (28 +
 // 12 for each term of E and of the row: 208 a side for Octet's 9 + 6
 // terms) at the non-tensor bf16 rate, twice the float rate: B3c at 50^3,
 // 1.32 GFLOP -> 9.9 us, is bound by bytes as B3 is.
@@ -218,6 +219,8 @@ enum { B5_BCAST = 0, B5_GLOBAL = 1 };
 
 struct B5Plan {
   int cluster, threads, ipt, per_block, n_items, n_sides, n_e, r2_smem;
+  int group, kmax;                // B5c only (B5: 1 and 0): G, and the
+                                  // rows a lane computes per item
 };
 
 __host__ __device__ inline long long align16(long long n) {
@@ -262,45 +265,6 @@ __device__ __forceinline__ void b5_stencil(
   }
 }
 
-// The dense form of K.d at one item (CB): self values from registers and
-// neighbours from the layout, each float d rounded to bf16 as it is read
-// (the TPU kernel casts its float d to the compute type at every stencil
-// read); the sides' dense records from global memory, through the
-// read-only path.  Unrolled by two, as b5_stencil.
-template <int LAYOUT, typename TR>
-__device__ __forceinline__ void b5_dense(
-    const float* d, const TR* r2, int Fp, int q, const float dv[6],
-    const Side* sides, const DenseSide* __restrict__ dense, int s_begin,
-    int s_end, float acc[6]) {
-  __nv_bfloat162 us[3], a[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    us[i] = __floats2bfloat162_rn(dv[2 * i], dv[2 * i + 1]);
-    a[i] = __float2bfloat162_rn(0.f);
-  }
-#pragma unroll 2
-  for (int s = s_begin; s < s_end; ++s) {
-    const Side& sd = sides[s];
-    __nv_bfloat162 cols[DENSE_WORDS];
-    dense_cols(dense + s, cols);
-    const int base = q + sd.du;
-    __nv_bfloat162 uo[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      const float* p = d + base + 2 * i * Fp;
-      uo[i] = LAYOUT == B5_GLOBAL
-                  ? __floats2bfloat162_rn(__ldcg(p), __ldcg(p + Fp))
-                  : __floats2bfloat162_rn(p[0], p[Fp]);
-    }
-    dense_acc(cols, sd.side, us, uo, ldh(r2 + q + sd.dr), a);
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    acc[2 * i] = __low2float(a[i]);
-    acc[2 * i + 1] = __high2float(a[i]);
-  }
-}
-
 // write a thread's new d value at flat offset o into the layout
 template <int LAYOUT>
 __device__ __forceinline__ void b5_put(float* d,
@@ -327,7 +291,7 @@ __device__ __forceinline__ void b5_sync(cooperative_groups::cluster_group& cl,
     cl.sync();
 }
 
-template <typename T, bool WITH_X0, int LAYOUT, bool CB>
+template <typename T, bool WITH_X0, int LAYOUT>
 __global__ void __launch_bounds__(B5_MAX_THREADS, 1)
 mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
                     const T* __restrict__ fd, const float* __restrict__ sc,
@@ -412,10 +376,7 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
     if (!have[j]) continue;
     const int c = cc[j], q = qq[j];
     float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (WITH_X0 && CB)
-      slab_dense<T, T>(x0, Fp, q, r2 + q, c, sides, s.dense, cstart[c],
-                       cstart[c + 1], acc);
-    else if (WITH_X0)
+    if (WITH_X0)
       slab_acc<float, Side>(x0, Fp, q, r2 + q, c, sides, cstart[c],
                             cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
@@ -450,18 +411,13 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
       if (!have[j]) continue;
       const int c = cc[j];
       float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (CB)
-        b5_dense<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, s.dense, cstart[c],
-                         cstart[c + 1], acc);
-      else
-        b5_stencil<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, cstart[c],
-                           cstart[c + 1], s.E, s.kG, s.G2, acc);
+      b5_stencil<LAYOUT>(d, r2, Fp, qq[j], dv[j], sides, cstart[c],
+                         cstart[c + 1], s.E, s.kG, s.G2, acc);
 #pragma unroll
       for (int k = 0; k < 6; ++k) {
         x[j][k] = x[j][k] + dv[j][k];
         r[j][k] = r[j][k] - acc[k];
-        dv[j][k] = CB ? cheb_d_rn(c1, dv[j][k], c2i, r[j][k], f[j][k])
-                      : c1 * dv[j][k] + (c2i * r[j][k]) * f[j][k];
+        dv[j][k] = c1 * dv[j][k] + (c2i * r[j][k]) * f[j][k];
       }
     }
     // no block overwrites d before every block has read it
@@ -474,6 +430,336 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
 #pragma unroll
     for (int k = 0; k < 6; ++k)
       st(out + (cc[j] * 6 + k) * Fp + qq[j], x[j][k] + dv[j][k]);
+  }
+}
+
+// ----------------------------------------------------------------- B5c
+// B5's bf16-compute instance (CB), laid out for the latency of the single
+// levels: B5 runs 1-2 warps a scheduler there, each thread adding its
+// class's 12 sides one after another, ~218 dependent bf16 instructions a
+// side (PERF.md).  B5's plan (one cluster per launch, contiguous items per
+// block, the same phases and barriers) with these changes:
+//   side-parallel rows: an item is owned by a group of G consecutive lanes
+//     of one warp (32 / G groups a warp; the lanes past them idle).  Lane j
+//     computes the dense rows of sides s_begin + j, s_begin + j + G, ...
+//     of the item's class (dense_row: dense_acc's operations, stopped at
+//     the row) into a warp-private slice of shared memory; after
+//     __syncwarp the lane that owns pair i of the item adds word i of the
+//     rows into a bf16 zero in table order: the plain version's sum
+//     (DenseForm.plain adds the rows one by one), with no block or cluster
+//     barrier added;
+//   d in bf16 pairs: the copy of d every block reads holds rows (2i, 2i+1)
+//     as one bf16x2 word, [class, 3, Fp], rounded once, when the owner
+//     publishes it.  The TPU kernel rounds its float d to the compute type
+//     at every stencil read (make_stencil_acc(T_full, ct)), and a value
+//     rounds the same whenever it is rounded.  It halves the broadcast
+//     stores and turns a side's six loads and three conversions into three
+//     loads; the global layout keeps the same words in its scratch;
+//   the item's x, r, d and fd stay in float, in shared memory: pair i of
+//     an item belongs to lane i % G of its group (slot i / G), which adds
+//     its rows, updates and publishes it, so a thread's registers hold one
+//     side's row, not four vectors of six per item;
+//   the sides' dense records are staged in shared memory once per launch,
+//     beside the side table, and read where dense_row uses them.
+// Every value has B5c's arithmetic whatever the cluster, layout or G, so
+// all of them give the same bits.
+#define B5C_MAX_THREADS 1024
+#define B5C_MAX_GROUP 12
+
+typedef unsigned int bf2w;          // the bits of one __nv_bfloat162
+
+__device__ __forceinline__ bf2w b5c_bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<const bf2w*>(&h);
+}
+__device__ __forceinline__ __nv_bfloat162 b5c_word(bf2w w) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&w);
+}
+
+// a word of d's copy: shared memory, or global scratch through L2
+template <int LAYOUT>
+__device__ __forceinline__ __nv_bfloat162 b5c_ld(const bf2w* d, int o) {
+  return b5c_word(LAYOUT == B5_GLOBAL ? __ldcg(d + o) : d[o]);
+}
+
+template <int LAYOUT>
+__device__ __forceinline__ void b5c_put(bf2w* d,
+                                        cooperative_groups::cluster_group& cl,
+                                        int ncl, int o, bf2w w) {
+  if (LAYOUT == B5_GLOBAL) {
+    __stcg(d + o, w);
+  } else if (ncl == 1) {
+    d[o] = w;
+  } else {
+    for (int r = 0; r < ncl; ++r) cl.map_shared_rank(d, r)[o] = w;
+  }
+}
+
+// One side's row at the padded point q: the other endpoint from x0
+// (storage T, six rows) or from d (bf16 pairs), the columns read from the
+// staged record as dense_row uses them.
+template <bool FROM_X0, int LAYOUT, typename T>
+__device__ __forceinline__ void b5c_row(const Side& sd,
+                                        const DenseSide* rec,
+                                        const bf2w* d, const T* x0,
+                                        const T* r2, int q, int Fp,
+                                        const __nv_bfloat162 us[3],
+                                        __nv_bfloat162 row[3]) {
+  __nv_bfloat162 uo[3];
+  if (FROM_X0) {
+    const T* ub = x0 + q + sd.du;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) uo[i] = ldh2(ub + 2 * i * Fp, Fp);
+  } else {
+    const int base = q + sd.du - sd.co * 3 * Fp;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) uo[i] = b5c_ld<LAYOUT>(d, base + i * Fp);
+  }
+  dense_row(reinterpret_cast<const __nv_bfloat162*>(rec), sd.side, us, uo,
+            ldh(r2 + q + sd.dr), row);
+}
+
+// The group's K.u at its item, in the pairs the lane owns: lane j leaves
+// the rows of sides s_begin + j + k G (k < kmax) in rows[k][3][nthr];
+// after __syncwarp, for each of its pairs i = j + pp G < 3, it adds word
+// i of every side's row, s_begin .. s_end - 1, into acc[pp], a bf16 zero.
+// Every lane computes kmax rows with no branch, a side past s_end (or of
+// an idle lane, whose q is an interior point) as the class's last side,
+// whose row no lane reads: the rows of one lane then overlap.
+template <bool FROM_X0, int LAYOUT, typename T>
+__device__ __forceinline__ void b5c_sum(const Side* sides,
+                                        const DenseSide* dense, const bf2w* d,
+                                        const T* x0, const T* r2, int q,
+                                        int Fp, const __nv_bfloat162 us[3],
+                                        bool have, int s_begin, int s_end,
+                                        int j, int G, int kmax, bf2w* rows,
+                                        int tid, int lane0, int nthr,
+                                        __nv_bfloat162 acc[3]) {
+#pragma unroll 2
+  for (int k = 0; k < kmax; ++k) {
+    const int s = max(min(s_begin + k * G + j, s_end - 1), 0);
+    __nv_bfloat162 row[3];
+    b5c_row<FROM_X0, LAYOUT, T>(sides[s], dense + s, d, x0, r2, q, Fp, us,
+                                row);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      rows[(k * 3 + i) * nthr + tid] = b5c_bits(row[i]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int pp = 0; pp < 3; ++pp) {
+    const int i = j + pp * G;
+    acc[pp] = __float2bfloat162_rn(0.f);
+    if (!have || i >= 3) continue;
+    int k = 0, g = 0;
+#pragma unroll 4
+    for (int s = s_begin; s < s_end; ++s) {
+      acc[pp] = __hadd2_rn(acc[pp],
+                           b5c_word(rows[(k * 3 + i) * nthr + lane0 + g]));
+      if (++g == G) {
+        g = 0;
+        ++k;
+      }
+    }
+  }
+  // no lane overwrites its rows before the group has read them
+  __syncwarp();
+}
+
+template <typename T, bool WITH_X0, int LAYOUT>
+__global__ void __launch_bounds__(B5C_MAX_THREADS, 1)
+mg_cheb_full_dense_kernel(const T* __restrict__ b, const T* __restrict__ x0,
+                          const T* __restrict__ fd,
+                          const float* __restrict__ sc,
+                          const T* __restrict__ r2g, T* __restrict__ out,
+                          float* __restrict__ dgf,
+                          const int* __restrict__ items, ChebCoefs cf,
+                          int degree, B5Plan p, Stencil s) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int nc = s.nc;
+  const int Fp = (s.X + 2) * (s.Y + 2) * (s.Z + 2);
+  bf2w* const dg = reinterpret_cast<bf2w*>(dgf);
+
+  // the carve-up of kernels/fused.py b5_smem_bytes(compute="bf16")
+  unsigned char* sp = smem;
+  Side* sides = (Side*)sp;
+  sp += align16((long long)p.n_sides * sizeof(Side));
+  int* cstart = (int*)sp;
+  sp += align16(4LL * (nc + 1));
+  DenseSide* dense = (DenseSide*)sp;
+  sp += align16((long long)p.n_sides * sizeof(DenseSide));
+  bf2w* d = dg;
+  if (LAYOUT == B5_BCAST) {
+    d = (bf2w*)sp;
+    sp += align16(4LL * nc * 3 * Fp);
+  }
+  // the items' state: x, r, d, fd, each [per_block, 3] float pairs
+  float2* state = (float2*)sp;
+  sp += align16(8LL * 4 * 3 * p.per_block);
+  // each thread's rows: [kmax, 3, threads] words
+  bf2w* rows = (bf2w*)sp;
+  sp += align16(4LL * 3 * p.kmax * nthr);
+  const T* r2 = p.r2_smem ? (const T*)sp : r2g;
+  if (p.r2_smem) sp += align16((long long)sizeof(T) * p.n_e * Fp);
+  unsigned dyn_smem;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn_smem));
+  if (sp - smem > (long long)dyn_smem) __trap();
+
+  b5_stage(sides, s.sides, (long long)p.n_sides * sizeof(Side));
+  b5_stage(cstart, s.class_start, 4LL * (nc + 1));
+  b5_stage(dense, s.dense, (long long)p.n_sides * sizeof(DenseSide));
+  if (p.r2_smem)
+    b5_stage((void*)r2, r2g, (long long)sizeof(T) * p.n_e * Fp);
+  if (LAYOUT == B5_BCAST)
+    for (int i = tid; i < nc * 3 * Fp; i += nthr) d[i] = 0u;
+  // zero ghosts of out (and of d in global scratch), as B5
+  const int Yp = s.Y + 2, Zp = s.Z + 2;
+  for (int i = rank * nthr + tid; i < nc * Fp; i += p.cluster * nthr) {
+    const int c = i / Fp, q = i - c * Fp;
+    const int px = q / (Yp * Zp), f = q - px * (Yp * Zp);
+    const int py = f / Zp, pz = f - py * Zp;
+    if (px >= 1 && px <= s.X && py >= 1 && py <= s.Y && pz >= 1
+        && pz <= s.Z)
+      continue;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * Fp + q, 0.f);
+    if (LAYOUT == B5_GLOBAL) {
+#pragma unroll
+      for (int i2 = 0; i2 < 3; ++i2) __stcg(dg + (c * 3 + i2) * Fp + q, 0u);
+    }
+  }
+
+  // the thread's group: lane j of group g (the lanes past 32 / G groups
+  // of a warp own no item)
+  const int G = p.group, gpw = 32 / G;
+  const int lane = tid & 31, gi = lane / G, j = lane - gi * G;
+  const int lane0 = (tid & ~31) + gi * G;
+  const int ngroups = (nthr >> 5) * gpw;
+  const int g = (tid >> 5) * gpw + gi;
+  const int i0 = rank * p.per_block;
+  const int i1 = min(i0 + p.per_block, p.n_items);
+  const float inv_theta = sc[0], inv_delta = sc[1];
+  const int pb = p.per_block;
+  // an idle lane's item: class 0 at the first interior point, so that its
+  // rows read inside the padded fields
+  const int idle = (Yp + 1) * Zp + 1;
+  // staged tables and zeroed d ready in every block; every block of the
+  // cluster has started before any distributed-shared-memory access
+  b5_sync<LAYOUT>(cl, p.cluster);
+  int most = 0;
+  for (int c = 0; c < nc; ++c) most = max(most, cstart[c + 1] - cstart[c]);
+  if ((most + G - 1) / G > p.kmax) __trap();      // the rows' slice is short
+
+  // x = x0 (or 0), r = b - K x0 (or b), d = (r fd) inv_theta
+  for (int jj = 0; jj < p.ipt; ++jj) {
+    const int sl = g + jj * ngroups;
+    const bool have = gi < gpw && i0 + sl < i1;
+    const int e = have ? items[i0 + sl] : idle;
+    const int c = e >> B5_Q_BITS, q = e & ((1 << B5_Q_BITS) - 1);
+    __nv_bfloat162 a[3];
+    if (WITH_X0) {
+      __nv_bfloat162 us[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        us[i] = have ? ldh2(x0 + (c * 6 + 2 * i) * Fp + q, Fp)
+                     : __float2bfloat162_rn(0.f);
+      b5c_sum<true, LAYOUT, T>(sides, dense, d, x0, r2, q, Fp, us, have,
+                               cstart[c], cstart[c + 1], j, G, p.kmax,
+                               rows, tid, lane0, nthr, a);
+    }
+    if (!have) continue;
+#pragma unroll
+    for (int pp = 0; pp < 3; ++pp) {
+      const int i = j + pp * G;
+      if (i >= 3) continue;
+      const int o = (c * 6 + 2 * i) * Fp + q;
+      float xv[2], rv[2], fv[2], dv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int oh = o + h * Fp;
+        const float acc = WITH_X0 ? (h ? __high2float(a[pp])
+                                       : __low2float(a[pp])) : 0.f;
+        xv[h] = WITH_X0 ? ld(x0 + oh) : 0.f;
+        rv[h] = WITH_X0 ? ld(b + oh) - acc : ld(b + oh);
+        fv[h] = ld(fd + oh);
+        dv[h] = (rv[h] * fv[h]) * inv_theta;
+      }
+      state[(0 * pb + sl) * 3 + i] = make_float2(xv[0], xv[1]);
+      state[(1 * pb + sl) * 3 + i] = make_float2(rv[0], rv[1]);
+      state[(2 * pb + sl) * 3 + i] = make_float2(dv[0], dv[1]);
+      state[(3 * pb + sl) * 3 + i] = make_float2(fv[0], fv[1]);
+    }
+  }
+
+  for (int step = 0; step < degree; ++step) {
+    // publish d as bf16 pairs, then every block reads its neighbours'
+    for (int jj = 0; jj < p.ipt; ++jj) {
+      const int sl = g + jj * ngroups;
+      if (gi >= gpw || i0 + sl >= i1) continue;
+      const int e = items[i0 + sl];
+      const int c = e >> B5_Q_BITS, q = e & ((1 << B5_Q_BITS) - 1);
+      for (int i = j; i < 3; i += G) {
+        const float2 dv = state[(2 * pb + sl) * 3 + i];
+        b5c_put<LAYOUT>(d, cl, p.cluster, (c * 3 + i) * Fp + q,
+                        b5c_bits(__floats2bfloat162_rn(dv.x, dv.y)));
+      }
+    }
+    b5_sync<LAYOUT>(cl, p.cluster);
+    // x += d, r -= K d, d = c1 d + (c2 inv_delta) r fd
+    const float c1 = cf.c1[step];
+    const float c2i = cf.c2[step] * inv_delta;
+    for (int jj = 0; jj < p.ipt; ++jj) {
+      const int sl = g + jj * ngroups;
+      const bool have = gi < gpw && i0 + sl < i1;
+      const int e = have ? items[i0 + sl] : idle;
+      const int c = e >> B5_Q_BITS, q = e & ((1 << B5_Q_BITS) - 1);
+      __nv_bfloat162 us[3], a[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        us[i] = have ? b5c_ld<LAYOUT>(d, (c * 3 + i) * Fp + q)
+                     : __float2bfloat162_rn(0.f);
+      b5c_sum<false, LAYOUT, T>(sides, dense, d, x0, r2, q, Fp, us, have,
+                                cstart[c], cstart[c + 1], j, G, p.kmax,
+                                rows, tid, lane0, nthr, a);
+      if (!have) continue;
+#pragma unroll
+      for (int pp = 0; pp < 3; ++pp) {
+        const int i = j + pp * G;
+        if (i >= 3) continue;
+        float2 x = state[(0 * pb + sl) * 3 + i];
+        float2 r = state[(1 * pb + sl) * 3 + i];
+        float2 dv = state[(2 * pb + sl) * 3 + i];
+        const float2 f = state[(3 * pb + sl) * 3 + i];
+        x.x = x.x + dv.x;
+        x.y = x.y + dv.y;
+        r.x = r.x - __low2float(a[pp]);
+        r.y = r.y - __high2float(a[pp]);
+        dv.x = cheb_d_rn(c1, dv.x, c2i, r.x, f.x);
+        dv.y = cheb_d_rn(c1, dv.y, c2i, r.y, f.y);
+        state[(0 * pb + sl) * 3 + i] = x;
+        state[(1 * pb + sl) * 3 + i] = r;
+        state[(2 * pb + sl) * 3 + i] = dv;
+      }
+    }
+    // no block overwrites d before every block has read it
+    if (step + 1 < degree) b5_sync<LAYOUT>(cl, p.cluster);
+  }
+
+  for (int jj = 0; jj < p.ipt; ++jj) {
+    const int sl = g + jj * ngroups;
+    if (gi >= gpw || i0 + sl >= i1) continue;
+    const int e = items[i0 + sl];
+    const int c = e >> B5_Q_BITS, q = e & ((1 << B5_Q_BITS) - 1);
+    for (int i = j; i < 3; i += G) {
+      const float2 x = state[(0 * pb + sl) * 3 + i];
+      const float2 dv = state[(2 * pb + sl) * 3 + i];
+      const int o = (c * 6 + 2 * i) * Fp + q;
+      st(out + o, x.x + dv.x);
+      st(out + o + Fp, x.y + dv.y);
+    }
   }
 }
 
@@ -639,6 +925,15 @@ extern "C" int mg_cheb_run_occupancy(int dtype, int compute, int final_,
 static const int MAX_SMEM = 227 * 1024;
 static const int MAX_DEVICES = 64;
 
+// the kernel of B5 (CB false) or of B5c, storage T
+template <typename T, bool WITH_X0, int LAYOUT, bool CB>
+static auto cheb_full_fn() {
+  if constexpr (CB)
+    return mg_cheb_full_dense_kernel<T, WITH_X0, LAYOUT>;
+  else
+    return mg_cheb_full_kernel<T, WITH_X0, LAYOUT>;
+}
+
 // B5's function attributes, set once per device (they are per-device
 // state), each call's return code checked
 template <typename T, bool WITH_X0, int LAYOUT, bool CB>
@@ -649,7 +944,7 @@ static cudaError_t cheb_full_attrs() {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   if (done[dev]) return cudaSuccess;
-  auto kern = mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>;
+  auto kern = cheb_full_fn<T, WITH_X0, LAYOUT, CB>();
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            MAX_SMEM);
   if (e != cudaSuccess) return e;
@@ -691,7 +986,7 @@ static int cheb_full(const ChebFullArgs& a, const ChebCoefs& cf, int degree,
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = cluster_config(p, smem, stream, &attr);
-  e = cudaLaunchKernelEx(&cfg, mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>,
+  e = cudaLaunchKernelEx(&cfg, cheb_full_fn<T, WITH_X0, LAYOUT, CB>(),
                          (const T*)a.b, (const T*)a.x0, (const T*)a.fd,
                          (const float*)a.sc, (const T*)a.r2, (T*)a.out,
                          (float*)a.dg, (const int*)a.items, cf, degree, p,
@@ -729,31 +1024,41 @@ static int cheb_full_instance(int with_x0, int layout, int compute,
 }
 
 static B5Plan make_plan(int cluster, int threads, int ipt, int per_block,
-                        int n_items, int n_sides, int n_e, int r2_smem) {
+                        int n_items, int n_sides, int n_e, int r2_smem,
+                        int group, int kmax) {
   B5Plan p;
   p.cluster = cluster; p.threads = threads; p.ipt = ipt;
   p.per_block = per_block; p.n_items = n_items; p.n_sides = n_sides;
-  p.n_e = n_e; p.r2_smem = r2_smem;
+  p.n_e = n_e; p.r2_smem = r2_smem; p.group = group;
+  p.kmax = kmax;
   return p;
 }
 
 // a plan the kernel can run: the partition covers n_items, the sizes are
 // within the kernel's limits and the shared memory the host sized for it
-// fits one block
-static bool plan_ok(int layout, const B5Plan& p, int smem) {
-  return (layout == B5_BCAST || layout == B5_GLOBAL) && p.cluster >= 1
-      && p.cluster <= B5_MAX_CLUSTER && p.threads >= 1
-      && p.threads <= B5_MAX_THREADS && p.ipt >= 1 && p.ipt <= B5_MAX_IPT
-      && p.per_block <= p.threads * p.ipt
+// fits one block.  B5: one thread per item slot; B5c: whole warps, 32 / G
+// groups of G lanes each, one item slot per group
+static bool plan_ok(int layout, int compute, const B5Plan& p, int smem) {
+  const bool common = (layout == B5_BCAST || layout == B5_GLOBAL)
+      && p.cluster >= 1 && p.cluster <= B5_MAX_CLUSTER && p.threads >= 1
+      && p.ipt >= 1 && p.ipt <= B5_MAX_IPT
       && (long long)p.per_block * p.cluster >= p.n_items
       && smem >= 0 && smem <= MAX_SMEM;
+  if (!compute)
+    return common && p.threads <= B5_MAX_THREADS
+        && p.per_block <= p.threads * p.ipt && p.group == 1 && p.kmax == 0;
+  return common && p.threads <= B5C_MAX_THREADS && p.threads % 32 == 0
+      && p.group >= 1 && p.group <= B5C_MAX_GROUP
+      && p.per_block <= (p.threads / 32) * (32 / p.group) * p.ipt
+      && p.kmax >= 1;
 }
 
-// B5: plan fields as the host planned them (kernels/fused.py b5_plan),
-// smem the dynamic shared memory of one block (bytes, b5_smem_bytes there);
-// c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg: float scratch
-// of nc * 6 * Fp (layout B5_GLOBAL only, else null); items: the interior
-// list
+// B5 (compute 0) and B5c (compute 1): plan fields as the host planned
+// them (kernels/fused.py b5_plan; group and kmax B5c's, 1 and 0 for
+// B5), smem the dynamic shared memory of one block (bytes, b5_smem_bytes
+// there); c1, c2: host arrays of `degree` floats (<= MAX_DEGREE); dg:
+// scratch of nc * 6 * Fp floats for B5, of nc * 3 * Fp 32-bit words for
+// B5c (layout B5_GLOBAL only, else null); items: the interior list
 extern "C" int mg_cheb_full(int dtype, int compute, int with_x0, int layout,
                             const void* b, const void* x0, const void* fd,
                             const void* sc, const void* r2, void* out,
@@ -761,16 +1066,17 @@ extern "C" int mg_cheb_full(int dtype, int compute, int with_x0, int layout,
                             const float* c2, int degree,
                             int cluster, int threads, int ipt, int per_block,
                             int n_items, int n_sides, int n_e, int r2_smem,
-                            int smem, const void* sides,
+                            int group, int kmax, int smem,
+                            const void* sides,
                             const void* class_start, const void* dense,
                             int nc, int X, int Y, int Z, float E, float kG,
                             float G2, void* stream) {
   if (degree < 0 || degree > MAX_DEGREE || !flags_ok(dtype, compute, dense))
     return (int)cudaErrorInvalidValue;
   const B5Plan p = make_plan(cluster, threads, ipt, per_block, n_items,
-                             n_sides, n_e, r2_smem);
+                             n_sides, n_e, r2_smem, group, kmax);
   const long long Fp = (long long)(X + 2) * (Y + 2) * (Z + 2);
-  if (!plan_ok(layout, p, smem) || Fp >= (1 << B5_Q_BITS)
+  if (!plan_ok(layout, compute, p, smem) || Fp >= (1 << B5_Q_BITS)
       || (layout == B5_GLOBAL && dg == nullptr))
     return (int)cudaErrorInvalidValue;
   ChebCoefs cf;
@@ -797,7 +1103,7 @@ static int max_clusters(const B5Plan& p, size_t smem) {
   cudaLaunchConfig_t cfg = cluster_config(p, smem, 0, &attr);
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(
-      &n, (void*)mg_cheb_full_kernel<T, WITH_X0, LAYOUT, CB>, &cfg);
+      &n, (void*)cheb_full_fn<T, WITH_X0, LAYOUT, CB>(), &cfg);
   return e == cudaSuccess ? n : -(int)e;
 }
 
@@ -824,8 +1130,10 @@ static int max_clusters_instance(int with_x0, int layout, int compute,
 extern "C" int mg_cheb_full_max_clusters(int dtype, int compute, int with_x0,
                                          int layout, int cluster,
                                          int threads, int smem) {
-  const B5Plan p = make_plan(cluster, threads, 1, threads, threads, 0, 0, 0);
-  if (!plan_ok(layout, p, smem) || !flags_ok(dtype, compute, (const void*)1))
+  const B5Plan p = make_plan(cluster, threads, 1, threads, threads, 0, 0, 0,
+                             1, compute ? 1 : 0);
+  if (!plan_ok(layout, compute, p, smem)
+      || !flags_ok(dtype, compute, (const void*)1))
     return -(int)cudaErrorInvalidValue;
   if (dtype == 0)
     return max_clusters_instance<float>(with_x0, layout, compute, p, smem);

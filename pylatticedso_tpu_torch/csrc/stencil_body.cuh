@@ -243,15 +243,14 @@ __device__ __forceinline__ void dense_cols(const DenseSide* ds,
   }
 }
 
-// One side's dense-form contribution added to acc, from its columns c
-// (dense_cols), the self values us, the other endpoint's uo (pairs of
-// rows) and the side's r^2.
-__device__ __forceinline__ void dense_acc(const __nv_bfloat162 c[DENSE_WORDS],
+// One side's dense-form row, from its columns c (dense_cols), the self
+// values us, the other endpoint's uo (pairs of rows) and the side's r^2.
+__device__ __forceinline__ void dense_row(const __nv_bfloat162 c[DENSE_WORDS],
                                           int side,
                                           const __nv_bfloat162 us[3],
                                           const __nv_bfloat162 uo[3],
                                           __nv_bfloat16 r2,
-                                          __nv_bfloat162 acc[3]) {
+                                          __nv_bfloat162 row[3]) {
   // side A: uA = self, uB = other; side B the other way round
   __nv_bfloat162 a[3], b[3], d[3];
 #pragma unroll
@@ -291,7 +290,6 @@ __device__ __forceinline__ void dense_acc(const __nv_bfloat162 c[DENSE_WORDS],
       __low2bfloat162(Sd[1]), __high2bfloat162(Sd[1]),
       __low2bfloat162(Sd[2]), __high2bfloat162(Sd[2])};
   const int r0 = 3 * (2 + DENSE_A);
-  __nv_bfloat162 row[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) row[i] = __hmul2_rn(sv[0], c[r0 + i]);
 #pragma unroll
@@ -299,6 +297,18 @@ __device__ __forceinline__ void dense_acc(const __nv_bfloat162 c[DENSE_WORDS],
 #pragma unroll
     for (int i = 0; i < 3; ++i)
       row[i] = __hadd2_rn(row[i], __hmul2_rn(sv[s], c[r0 + 3 * s + i]));
+}
+
+// One side's dense-form contribution added to acc: its row (dense_row),
+// then the add
+__device__ __forceinline__ void dense_acc(const __nv_bfloat162 c[DENSE_WORDS],
+                                          int side,
+                                          const __nv_bfloat162 us[3],
+                                          const __nv_bfloat162 uo[3],
+                                          __nv_bfloat16 r2,
+                                          __nv_bfloat162 acc[3]) {
+  __nv_bfloat162 row[3];
+  dense_row(c, side, us, uo, r2, row);
 #pragma unroll
   for (int i = 0; i < 3; ++i) acc[i] = __hadd2_rn(acc[i], row[i]);
 }

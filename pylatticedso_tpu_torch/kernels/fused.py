@@ -23,8 +23,10 @@ use it for their layout: it only picks B5 or B3 + B4 per level.
 (``b5_plan``): the cluster size follows a fixed rule from the level's
 interior item count, each block owns a contiguous share of the interior
 list (``b5_items``), and d sits in every block's shared memory where it
-fits, in global scratch elsewhere.  The result is the same bits whatever
-the cluster size or layout.
+fits, in global scratch elsewhere.  B5c gives each item a group of G lanes
+of one warp, which compute its sides' rows apart (``b5c_lanes``,
+``b5c_side_order``), reads d as bf16 pairs and stages the dense records.
+The result is the same bits whatever the cluster size, layout or G.
 
 **B3's and B4's launch.**  B3 and B4 run on B1's slab plan (``b3_plan``,
 ``b4_plan``: runs of a padded plane's flat points, one thread per (class,
@@ -65,7 +67,8 @@ from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 
 __all__ = ["FusedSmoother", "route", "has_kernel_matvec", "dense_form",
            "cheb_static", "storage_dtype", "KERNELS", "b5_plan", "b5_items",
-           "b5_partition", "B5_CLUSTERS", "DenseForm", "pack_dense_coefs",
+           "b5_partition", "b5c_groups", "b5c_lanes", "b5c_side_order",
+           "B5_CLUSTERS", "B5C_GROUPS", "DenseForm", "pack_dense_coefs",
            "DENSE_DTYPE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
@@ -360,6 +363,7 @@ class DenseForm:
                 records["col"][i, q] = bits[q]
         order = sorted(range(S), key=lambda i: recs[i]["cs"])
         self.table = records[order]
+        self.table_order = order      # record of each side-table position
         # the plain version's gathers: per side, the flat index in the
         # padded fields of its self values, its other endpoint's and its
         # r^2 at every interior point
@@ -410,14 +414,28 @@ class DenseForm:
     def plain(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
         """K u in the dense form on bf16 ghost-padded u [nc, 6, Xp, Yp,
         Zp] and r^2 [n_e, Xp, Yp, Zp]: bf16 [nc, 6, X, Y, Z], every product
-        and sum rounded to bf16 on its own, in JAX's order.  Batched over
-        the sides: each side's elements see one torch op for each JAX op;
-        a slot without a term is passed over by ``torch.where``, and the
-        per-class sum adds the sides in record order (a class with fewer
-        sides adds exact zeros, which leave a bf16 sum as it is)."""
+        and sum rounded to bf16 on its own, in JAX's order: each side's
+        row (``rows``), and per class the rows added one by one in record
+        order (a class with fewer sides adds exact zeros, which leave a
+        bf16 sum as it is)."""
+        X, Y, Z = self.grid
+        rows = self.rows(up, r2p)
+        t = self._dev(up.device)
+        rows = torch.cat([rows, torch.zeros_like(rows[:1])])[t["order"]]
+        acc = torch.zeros((self.nc, 6, X, Y, Z), dtype=torch.bfloat16,
+                          device=up.device)
+        for k in range(rows.shape[1]):
+            acc = acc + rows[:, k]
+        return acc
+
+    def rows(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
+        """Every side's dense-form row at every interior point, bf16 [S,
+        6, X, Y, Z] in record order, from bf16 ghost-padded u and r^2.
+        Batched over the sides: each side's elements see one torch op for
+        each JAX op; a slot without a term is passed over by
+        ``torch.where``."""
         if up.dtype != torch.bfloat16 or r2p.dtype != torch.bfloat16:
             raise ValueError("the dense form takes bf16 u and r^2")
-        X, Y, Z = self.grid
         t = self._dev(up.device)
         S = len(self.recs)
         flat, flat_r2 = up.reshape(-1), r2p.reshape(-1)
@@ -452,13 +470,7 @@ class DenseForm:
 
         E = col_accum(src, 2, DENSE_A)
         Sd = K * E
-        rows = col_accum(Sd, 2 + DENSE_A, DENSE_B)
-        rows = torch.cat([rows, torch.zeros_like(rows[:1])])[t["order"]]
-        acc = torch.zeros((self.nc, 6, X, Y, Z), dtype=torch.bfloat16,
-                          device=up.device)
-        for k in range(rows.shape[1]):
-            acc = acc + rows[:, k]
-        return acc
+        return col_accum(Sd, 2 + DENSE_A, DENSE_B)
 
 
 # ------------------------------------------------------------ B5's plan
@@ -467,7 +479,7 @@ class DenseForm:
 # level's interior items over its blocks and threads, and where d and r^2
 # live.  The kernel takes it as it is.  The layouts of d: a full copy in
 # every block's shared memory, each block's updates broadcast into all of
-# them, or float global scratch.
+# them, or global scratch.
 B5_LAYOUTS = {"bcast": 0, "global": 1}          # csrc's B5_BCAST, B5_GLOBAL
 # the layout of d on a level whose d fits a block's shared memory
 B5_SMEM_LAYOUT = "bcast"
@@ -477,10 +489,18 @@ B5_CLUSTERS = (1, 2, 4, 8, 16)  # 16 needs the non-portable cluster size
 # (8), 4^3 (2), 2^3 (1) and the hybrid check case (4)
 B5_ITEMS_PER_BLOCK = 256
 B5_MAX_THREADS = 256            # csrc's B5_MAX_THREADS
-B5_MAX_IPT = 4                  # items per thread, csrc's B5_MAX_IPT
+B5_MAX_IPT = 4                  # item slots per thread (B5c: per group)
 B5_Q_BITS = 22                  # csrc's B5_Q_BITS: (class << 22) | point
 B5_SMEM_LIMIT = 227 * 1024      # csrc's MAX_SMEM: one block's dynamic, sm_90
 B5_MAX_DEGREE = 64              # csrc's MAX_DEGREE (Chebyshev coefficients)
+# B5c (the bf16-compute instance): G lanes of one warp per item (the
+# group; 32 // G groups a warp), blocks of up to 1,024 threads.  The rule:
+# the smallest cluster that leaves <= B5C_ITEMS_PER_BLOCK items to a block,
+# groups of B5C_GROUP lanes
+B5C_GROUPS = (1, 2, 3, 4, 6, 12)        # csrc's B5C_MAX_GROUP is the last
+B5C_MAX_THREADS = 1024                  # csrc's B5C_MAX_THREADS
+B5C_ITEMS_PER_BLOCK = 64
+B5C_GROUP = 4
 
 
 def _align16(n: int) -> int:
@@ -488,13 +508,25 @@ def _align16(n: int) -> int:
 
 
 def b5_smem_bytes(layout: str, nc: int, Fp: int, n_sides: int, n_e: int,
-                  r2_smem: bool, itemsize: int) -> int:
-    """Dynamic shared memory of one B5 block, as the kernel carves it up
-    (the one place its size is decided; the launch passes it): the sides
-    table, class_start, d in float (layout ``bcast``) and r^2 in the
-    storage type."""
+                  r2_smem: bool, itemsize: int, compute: str = "f32",
+                  per_block: int = 0, threads: int = 0,
+                  kmax: int = 0) -> int:
+    """Dynamic shared memory of one B5 (B5c under bf16 ``compute``) block,
+    as the kernel carves it up (the one place its size is decided; the
+    launch passes it).  B5: the sides table, class_start, d in float
+    (layout ``bcast``) and r^2 in the storage type.  B5c: the sides table,
+    class_start, the sides' dense records, d as bf16 pairs (layout
+    ``bcast``), the block's ``per_block`` items' x, r, d and fd in float,
+    each of its ``threads`` threads' ``kmax`` rows (3 words each), and
+    r^2."""
     n = _align16(n_sides * SIDE_DTYPE.itemsize) + _align16(4 * (nc + 1))
-    if layout == "bcast":
+    if compute == "bf16":
+        n += _align16(n_sides * DENSE_DTYPE.itemsize)
+        if layout == "bcast":
+            n += _align16(4 * nc * 3 * Fp)
+        n += _align16(8 * 4 * 3 * per_block)
+        n += _align16(4 * 3 * kmax * threads)
+    elif layout == "bcast":
         n += _align16(4 * nc * 6 * Fp)
     if r2_smem:
         n += _align16(itemsize * n_e * Fp)
@@ -503,37 +535,65 @@ def b5_smem_bytes(layout: str, nc: int, Fp: int, n_sides: int, n_e: int,
 
 def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
             cluster: Optional[int] = None,
-            layout: Optional[str] = None) -> Dict:
-    """B5's launch plan for a level: ``cluster`` blocks (by default the
-    rule: the smallest power of two that leaves at most
-    ``B5_ITEMS_PER_BLOCK`` interior items to a block), ``per_block``
-    contiguous items per block, ``threads`` threads of ``ipt`` items each;
-    d in shared memory (``B5_SMEM_LAYOUT``) where it fits one block, else
-    in global scratch (``layout`` forces one); r^2 staged in shared memory
+            layout: Optional[str] = None, compute: str = "f32",
+            group: Optional[int] = None,
+            max_sides: Optional[int] = None) -> Dict:
+    """B5's (B5c's under bf16 ``compute``) launch plan for a level:
+    ``cluster`` blocks (by default the rule: the smallest power of two
+    that leaves at most ``B5_ITEMS_PER_BLOCK`` interior items to a block,
+    ``B5C_ITEMS_PER_BLOCK`` for B5c), ``per_block`` contiguous items per
+    block; B5: ``threads`` threads of ``ipt`` item slots each; B5c: groups
+    of ``group`` lanes (default ``B5C_GROUP``), ``32 // group`` groups a
+    warp, ``ipt`` item slots a group, in whole warps, each lane computing
+    ``kmax`` rows (``max_sides``, the most sides of a class, over G); d in
+    shared memory (``B5_SMEM_LAYOUT``) where it fits one block, else in
+    global scratch (``layout`` forces one); r^2 staged in shared memory
     where it fits after d.  Raises ValueError for a plan the kernel cannot
     run."""
     X, Y, Z = grid
     Fp = (X + 2) * (Y + 2) * (Z + 2)
     n_items = nc * X * Y * Z
+    bf16c = compute == "bf16"
     if Fp >= 1 << B5_Q_BITS:
         raise ValueError(f"B5: {Fp} padded points per class exceed the "
                          f"item encoding (2^{B5_Q_BITS})")
     if cluster is None:
+        most = B5C_ITEMS_PER_BLOCK if bf16c else B5_ITEMS_PER_BLOCK
         cluster = 1
-        while cluster < B5_CLUSTERS[-1] \
-                and -(-n_items // cluster) > B5_ITEMS_PER_BLOCK:
+        while cluster < B5_CLUSTERS[-1] and -(-n_items // cluster) > most:
             cluster *= 2
     if cluster not in B5_CLUSTERS or cluster > n_items:
         raise ValueError(f"B5: cluster {cluster} for {n_items} items")
     per_block = -(-n_items // cluster)
-    threads = min(B5_MAX_THREADS, -(-per_block // 32) * 32)
-    ipt = -(-per_block // threads)
-    if ipt > B5_MAX_IPT:
-        raise ValueError(
-            f"B5: {n_items} interior items do not fit a cluster of "
-            f"{cluster} blocks of {B5_MAX_THREADS} threads x {B5_MAX_IPT}")
+    if bf16c:
+        group = B5C_GROUP if group is None else group
+        if group not in B5C_GROUPS:
+            raise ValueError(f"B5c: group {group} not in {B5C_GROUPS}")
+        if max_sides is None:
+            raise ValueError("B5c: the plan needs max_sides")
+        kmax = -(-max_sides // group)
+        gpw = 32 // group
+        for ipt in range(1, B5_MAX_IPT + 1):
+            threads = 32 * -(-(-(-per_block // ipt)) // gpw)
+            if threads <= B5C_MAX_THREADS:
+                break
+        else:
+            raise ValueError(
+                f"B5c: {n_items} interior items do not fit a cluster of "
+                f"{cluster} blocks of {B5C_MAX_THREADS} threads in groups "
+                f"of {group} x {B5_MAX_IPT}")
+    else:
+        group, kmax = 1, 0
+        threads = min(B5_MAX_THREADS, -(-per_block // 32) * 32)
+        ipt = -(-per_block // threads)
+        if ipt > B5_MAX_IPT:
+            raise ValueError(
+                f"B5: {n_items} interior items do not fit a cluster of "
+                f"{cluster} blocks of {B5_MAX_THREADS} threads x "
+                f"{B5_MAX_IPT}")
     size = lambda lay, r2s: b5_smem_bytes(lay, nc, Fp, n_sides, n_e, r2s,
-                                          itemsize)
+                                          itemsize, compute, per_block,
+                                          threads, kmax)
     if layout is None:
         layout = B5_SMEM_LAYOUT \
             if size(B5_SMEM_LAYOUT, False) <= B5_SMEM_LIMIT else "global"
@@ -547,6 +607,7 @@ def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
     return {"layout": layout, "cluster": cluster, "threads": threads,
             "ipt": ipt, "per_block": per_block, "n_items": n_items,
             "n_sides": n_sides, "n_e": n_e, "r2_smem": r2_smem,
+            "compute": compute, "group": group, "kmax": kmax,
             "smem_bytes": smem}
 
 
@@ -564,15 +625,48 @@ def b5_items(nc: int, grid) -> np.ndarray:
 
 def b5_partition(plan: Dict) -> List[np.ndarray]:
     """Per block, the items (indices into ``b5_items``) its threads own, in
-    the kernel's order (thread t, slot j: block start + t + j * threads)."""
+    the kernel's order: B5, thread t's slot j holds block start + t + j *
+    threads; B5c, the slot j of the group g (lanes g's of its warp) holds
+    block start + g + j * groups, groups = warps * (32 // group)."""
     out = []
+    n = plan["threads"] if plan["compute"] == "f32" else b5c_groups(plan)
     for blk in range(plan["cluster"]):
         i0 = blk * plan["per_block"]
         i1 = min(i0 + plan["per_block"], plan["n_items"])
-        t = np.arange(plan["threads"])
-        idx = np.concatenate([i0 + t + j * plan["threads"]
-                              for j in range(plan["ipt"])])
+        t = np.arange(n)
+        idx = np.concatenate([i0 + t + j * n for j in range(plan["ipt"])])
         out.append(idx[idx < i1])
+    return out
+
+
+def b5c_groups(plan: Dict) -> int:
+    """B5c: the item groups of one block (whole warps of 32 // group
+    groups)."""
+    return plan["threads"] // 32 * (32 // plan["group"])
+
+
+def b5c_lanes(plan: Dict) -> np.ndarray:
+    """B5c: per thread of a block, (group, lane in the group), group -1
+    for the lanes past a warp's last whole group (they own no item)."""
+    t = np.arange(plan["threads"])
+    G = plan["group"]
+    gpw = 32 // G
+    lane = t % 32
+    gi, j = lane // G, lane % G
+    g = np.where(gi < gpw, (t // 32) * gpw + gi, -1)
+    return np.stack([g, j], axis=1)
+
+
+def b5c_side_order(group: int, s_begin: int, s_end: int, kmax: int):
+    """B5c: the sides of one class as the kernel visits them: (side, lane
+    that computes its row, step k of that lane) in the order the group
+    adds the rows (k = 0 .. kmax - 1, then lanes 0 .. group - 1)."""
+    out = []
+    for k in range(kmax):
+        for g in range(group):
+            s = s_begin + k * group + g
+            if s < s_end:
+                out.append((s, g, k))
     return out
 
 
@@ -596,10 +690,15 @@ class FusedSmoother:
         self.grid = tuple(slat.grid)
         self.nc = slat.nc
         self.n_e = len(slat.edges)
+        # the most sides of one class (B5c's rows per lane follow it)
+        self.max_sides = int(np.max(np.bincount(
+            [r["cs"] for r in self.dense_form.recs], minlength=self.nc)))
         self.launches: Dict[str, int] = {k: 0 for k in KERNELS}
-        # B5's plan and launches by cluster size, for the reports
+        # B5's plan, launches by cluster size and by shape (compute,
+        # degree, with x0), for the reports
         self.b5_plans: Dict[tuple, Dict] = {}
         self.b5_launches: Dict[int, int] = {}
+        self.b5_shapes: Dict[Tuple[str, int, bool], int] = {}
         self._dev: Dict[tuple, object] = {}     # per-device launch args
         self._coefs: Dict[tuple, tuple] = {}    # (frac, degree) -> c1, c2
         padded = tuple(g + 2 for g in self.grid)
@@ -867,19 +966,21 @@ class FusedSmoother:
     def b5_plan(self, io: torch.dtype, with_x0: bool = False,
                 cluster: Optional[int] = None, layout: Optional[str] = None,
                 device: Optional[int] = None,
-                compute: str = "f32") -> Dict:
+                compute: str = "f32",
+                group: Optional[int] = None) -> Dict:
         """B5's (B5c's) plan on this level (``b5_plan``) for storage
         ``io``.  On a card (``device``) the plan is asked of the card once,
         for the instance that will run, before its first launch there
         (plans are cached), and raises if the card cannot hold one such
         cluster."""
-        key = (io, with_x0, cluster, layout, device, compute)
+        key = (io, with_x0, cluster, layout, device, compute, group)
         plan = self.b5_plans.get(key)
         if plan is not None:
             return plan
         itemsize = torch.finfo(io).bits // 8
         plan = b5_plan(self.nc, self.grid, self.n_e, self.mv.n_sides,
-                       itemsize, cluster, layout)
+                       itemsize, cluster, layout, compute, group,
+                       self.max_sides)
         if device is not None:
             fits = launch.functions("mg_fused")["mg_cheb_full_max_clusters"](
                 int(io == torch.bfloat16), int(compute == "bf16"),
@@ -921,12 +1022,14 @@ class FusedSmoother:
     def cheb_full(self, b, x0, fd, sc, r2, frac: float, degree: int,
                   cluster: Optional[int] = None,
                   layout: Optional[str] = None,
-                  compute: Optional[str] = None):
+                  compute: Optional[str] = None,
+                  group: Optional[int] = None):
         """B5 (B5c under bf16 compute): the whole smoother (x0 residual
         when ``x0`` is given, ``degree`` steps, x + d) in one launch, on a
-        single-program level only.  ``cluster`` and ``layout`` override
-        the plan's (the card tests and ``chip_smoke.py`` run every one;
-        the result is the same bits whatever they are)."""
+        single-program level only.  ``cluster``, ``layout`` and B5c's
+        ``group`` override the plan's (the card tests and
+        ``chip_smoke.py`` run every one; the result is the same bits
+        whatever they are)."""
         if not self.single_ok:
             raise ValueError(
                 f"B5 runs only on levels the routing marks single (grid "
@@ -940,12 +1043,15 @@ class FusedSmoother:
         if not 0 <= degree <= B5_MAX_DEGREE:
             raise ValueError(f"B5 degree {degree} out of range")
         dev = b.get_device()
-        plan = self.b5_plan(io, x0 is not None, cluster, layout, dev, ct)
+        plan = self.b5_plan(io, x0 is not None, cluster, layout, dev, ct,
+                            group)
         items = self._b5_items(dev)
         c1, c2 = self._b5_coefs(frac, degree)
         dg = None
         if plan["layout"] == "global":
-            dg = torch.empty(b.numel(), dtype=torch.float32, device=b.device)
+            # d in float (B5), or as bf16 pairs in 32-bit words (B5c)
+            dg = torch.empty(b.numel() // (2 if ct == "bf16" else 1),
+                             dtype=torch.float32, device=b.device)
         out = torch.empty_like(b)
         rc = launch.functions("mg_fused")["mg_cheb_full"](
             int(io == torch.bfloat16), int(ct == "bf16"), int(x0 is not None),
@@ -955,11 +1061,13 @@ class FusedSmoother:
             None if dg is None else dg.data_ptr(), items, c1, c2,
             degree, plan["cluster"], plan["threads"], plan["ipt"],
             plan["per_block"], plan["n_items"], plan["n_sides"], self.n_e,
-            int(plan["r2_smem"]), plan["smem_bytes"], *self._static(dev),
-            launch.stream(dev))
+            int(plan["r2_smem"]), plan["group"], plan["kmax"],
+            plan["smem_bytes"], *self._static(dev), launch.stream(dev))
         launch.check("mg_cheb_full", rc)
         self.launches[self.counter("cheb_full", ct)] += 1
         self.b5_launches[plan["cluster"]] = \
             self.b5_launches.get(plan["cluster"], 0) + 1
+        shape = (ct, degree, x0 is not None)
+        self.b5_shapes[shape] = self.b5_shapes.get(shape, 0) + 1
         return out
 

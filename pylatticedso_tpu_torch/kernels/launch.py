@@ -39,11 +39,12 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "mg_residual_occupancy": "iii",
         "mg_cheb_run": "iii" + "p" * 9 + "ff" + "ppp" + "iiiiifffp",
         "mg_cheb_run_occupancy": "iiii",
-        "mg_cheb_full": "iiii" + "p" * 10 + "i" * 10 + "pppiiiifffp",
+        "mg_cheb_full": "iiii" + "p" * 10 + "i" * 12 + "pppiiiifffp",
         "mg_cheb_full_max_clusters": "iiiiiii",
     },
     "probes": {
         "probe_chain": "ppiiiip",
+        "probe_chain_1d": "ppiiiiip",
         "probe_chain_length": "",
         "probe_scale": "ppip",
     },

@@ -28,9 +28,10 @@ bound, float64 on the multigrid route, projected gradient;
 (o2) FEM_AUTO's routing, SLSQP and the unstructured problem on an 8^3
 grid).  The probes P1 and P2 run through their own entry (``probes.main``).
 
-B5 is also run under every cluster size and layout of d the card can hold
-(``_b5_sweep``: the same bits as its plan's, each timed by CUDA events and
-by CUDA-graph replay).  Last, each route's step and path (c)'s take two
+B5 is also run under every cluster size and layout of d the card can hold,
+and B5c under every cluster size, layout and group size (``_b5_sweep``:
+the same bits as its plan's, each timed by CUDA events and by CUDA-graph
+replay).  Last, each route's step and path (c)'s take two
 more warm steps under ``torch.profiler`` (``profile_phase``: device busy
 time and idle share).  ``run(device, n)`` runs every phase and returns a report;
 it raises on the first failure.  ``chip_smoke.py`` calls it with
@@ -55,8 +56,8 @@ from . import probes
 from .fem.solve import pcg
 from .kernels import build
 from .kernels.fused import KERNELS as FUSED_KERNELS
-from .kernels.fused import (B5_CLUSTERS, B5_LAYOUTS, FusedSmoother,
-                            cheb_static)
+from .kernels.fused import (B5_CLUSTERS, B5_LAYOUTS, B5C_GROUPS,
+                            FusedSmoother, cheb_static)
 from .kernels.stencil import StencilMatvec
 from .parallel.multigrid import _coarsen_cells, _estimate_lmax, mg_apply
 from .parallel.structured import (StructuredLattice,
@@ -110,15 +111,16 @@ IMPOSED_X = 1e-3             # prescribed X displacement of the clamped face
 # inputs; a rounding point out of place moves a value by 2^-8 = 3.9e-3 of
 # itself, and repeated ones add up past the limit); the bf16-compute
 # instances B3c-B5c 1e-2 in either storage (bf16 arithmetic on both
-# sides, in the same order), and B3c and B4c the same bits as their plain
-# versions (SAME_BITS: 0 elements differ)
+# sides, in the same order), and B3c, B4c and B5c the same bits as their
+# plain versions (SAME_BITS: 0 elements differ)
 STORAGE_TOL = {"f32": {"B3": 1e-5, "B4": 2e-5, "B5": 2e-5, "B3c": 1e-2,
                        "B4c": 1e-2, "B5c": 1e-2},
                "bf16": {"B2": 1e-2, "B3": 1e-2, "B4": 1e-2, "B5": 1e-2,
                         "B3c": 1e-2, "B4c": 1e-2, "B5c": 1e-2}}
-SAME_BITS = ("B3c", "B4c")
+SAME_BITS = ("B3c", "B4c", "B5c")
 STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 RESIDUAL_TOL = 1e-5
+LONG_REPS = 20               # P1's long launch: REPS x LONG_REPS repeats
 ITERATION_RISE = 1.1         # a route's warm CG iterations vs the f32 route
 HYBRID = ["BCC", "Hybrid1", "Hybrid4"]
 # the optimizer phase: its density bound and slack, iterations, the
@@ -667,9 +669,10 @@ def _was(kernel: str, case: str, storage: str, variant: str) -> str:
 
 def _b5_sweep(fz, run, io, with_x0, device, label, storage,
               variant, compute: str = "f32") -> Dict:
-    """B5 (B5c under bf16 ``compute``) under every cluster size and layout
-    of d the card can run on this level: each gives the plan's bits (and
-    so does a repeat), and each is timed on the card."""
+    """B5 under every cluster size and layout of d the card can run on
+    this level, and B5c (bf16 ``compute``) under every cluster size,
+    layout and group size: each gives the plan's bits (and so does a
+    repeat), and each is timed on the card."""
     cuda = device.type == "cuda"
     index = (device.index or 0) if cuda else None
     tag = "B5" if compute == "f32" else "B5c"
@@ -679,30 +682,38 @@ def _b5_sweep(fz, run, io, with_x0, device, label, storage,
     if not same(run()):
         raise AssertionError(f"{tag} on {label} ({storage}, {variant}): two "
                              f"identical launches differ bitwise")
+    groups = B5C_GROUPS if compute == "bf16" else (None,)
     sweep = []
     for layout in B5_LAYOUTS:
         for cluster in B5_CLUSTERS:
-            try:
-                fz.b5_plan(io, with_x0, cluster, layout, index, compute)
-            except ValueError:
-                continue          # too few items, too many, or no room
-            kw = {"cluster": cluster, "layout": layout}
-            got = run(**kw)
-            _sync(device)
-            if not same(got):
-                raise AssertionError(
-                    f"{tag} on {label} ({storage}, {variant}): cluster "
-                    f"{cluster}, layout {layout} differs bitwise from the "
-                    f"plan's (cluster {plan['cluster']}, {plan['layout']})")
-            ms = _median_ms(lambda: run(**kw), device, reps=5, batch=20) \
-                if cuda else None
-            sweep.append({"cluster": cluster, "layout": layout, "ms": ms,
-                          "device_ms": _graph_ms(lambda: run(**kw), device)})
+            for group in groups:
+                try:
+                    fz.b5_plan(io, with_x0, cluster, layout, index, compute,
+                               group)
+                except ValueError:
+                    continue          # too few items, too many, or no room
+                kw = {"cluster": cluster, "layout": layout}
+                if compute == "bf16":
+                    kw["group"] = group
+                got = run(**kw)
+                _sync(device)
+                if not same(got):
+                    raise AssertionError(
+                        f"{tag} on {label} ({storage}, {variant}): {kw} "
+                        f"differs bitwise from the plan's (cluster "
+                        f"{plan['cluster']}, {plan['layout']}, group "
+                        f"{plan['group']})")
+                ms = _median_ms(lambda: run(**kw), device, reps=5,
+                                batch=20) if cuda else None
+                sweep.append({**kw, "group": group, "ms": ms,
+                              "device_ms": _graph_ms(lambda: run(**kw),
+                                                     device)})
     if not any(c["layout"] == "global" for c in sweep):
         raise AssertionError(f"{tag} on {label}: the global-d layout never "
                              f"ran")
     return {"plan": {k: plan[k] for k in ("cluster", "layout", "threads",
-                                          "ipt", "r2_smem", "smem_bytes")},
+                                          "ipt", "group", "r2_smem",
+                                          "smem_bytes")},
             "sweep": sweep, "device_ms": _graph_ms(run, device)}
 
 
@@ -753,6 +764,7 @@ def _zero(ctr) -> None:
             for k in w.fused.launches:
                 w.fused.launches[k] = 0
             w.fused.b5_launches.clear()
+            w.fused.b5_shapes.clear()
     for op in ctr["ops"]:
         op.plain_calls = 0
 
@@ -776,6 +788,20 @@ def _b5_clusters(ctr) -> List[Dict[int, int]]:
                 per[cl] = per.get(cl, 0) + k
         out.append(dict(sorted(per.items())))
     return out
+
+
+def _b5_shapes(ctr) -> List[Dict]:
+    """B5's and B5c's launches by shape: per MG level, compute, degree and
+    x0, as the wrappers counted them."""
+    out: Dict[tuple, int] = {}
+    for lvl, ws in enumerate(ctr["mvs"]):
+        for w in ws:
+            for (ct, degree, x0), k in w.fused.b5_shapes.items():
+                key = (lvl, ct, degree, x0)
+                out[key] = out.get(key, 0) + k
+    return [{"level": lvl, "kernel": "B5" if ct == "f32" else "B5c",
+             "degree": degree, "x0": x0, "launches": k}
+            for (lvl, ct, degree, x0), k in sorted(out.items())]
 
 
 def _plain_calls(ctr) -> int:
@@ -866,6 +892,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         window_s.append(time.perf_counter() - t1)
     counts = _read(ctr)
     b5_clusters = _b5_clusters(ctr)
+    b5_shapes = _b5_shapes(ctr)
 
     # true residual of the last solve, with the plain operator in f64
     sl64 = StructuredLattice("Octet", (n, n, n), (1.0, 1.0, 1.0), E_MOD, NU,
@@ -933,7 +960,7 @@ def _main_path(device, n, route, steps, windows, refresh, tol, maxiter):
         "compliance_rel_err": c_err, "u_rel_err": u_err, "bitwise": bitwise,
         "finite": finite, "launches_per_level": counts["B1"],
         "kernel_launches": counts, "b5_clusters": b5_clusters,
-        "grad_shape": list(gg.shape),
+        "b5_shapes": b5_shapes, "grad_shape": list(gg.shape),
     }
     if not finite:
         raise AssertionError(f"non-finite main-path result: {report}")
@@ -1173,13 +1200,23 @@ def probe_phase(device: torch.device) -> Dict:
                                    reps=7, batch=10)
             rec["device_ms"] = _graph_ms(lambda: probes.chain(x, kind),
                                          device)
+            # one launch of REPS x LONG_REPS repeats: the kernel's own time
+            # per REPS, without the graph's gap between launches
+            long = lambda: probes.chain(x, kind, reps=probes.REPS * LONG_REPS)
+            if not torch.equal(long(), want):
+                raise AssertionError(f"P1 ({kind}) x {LONG_REPS} is not "
+                                     f"bitwise equal to its plain version")
+            rec["long_ms"] = _median_ms(long, device, reps=7) / LONG_REPS
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=3, batch=2)
             rec["gflops"] = probes.flops(kind) / rec["ms"] / 1e6
         else:
             rec["ms"] = rec["gflops"] = rec["device_ms"] = None
+            rec["long_ms"] = None
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=1)
+        if kind == "1d" and cuda:
+            rec["plan"] = probes.chain_plan(probes._n_sm(device.index or 0))
         rec["library_ms"] = None
         cases.append(rec)
     x = xs["scale"]
@@ -1397,6 +1434,7 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
         window_s.append(time.perf_counter() - t1)
     counts = _read(ctr)
     b5_clusters = _b5_clusters(ctr)
+    b5_shapes = _b5_shapes(ctr)
     plain_calls = _plain_calls(ctr)
     _abs, g_err = _err(g.to(torch.float64), g_ref)
     finite = bool(torch.isfinite(cc) and torch.isfinite(gg).all()
@@ -1406,7 +1444,8 @@ def _design_fused(device, n, steps, windows, maxiter, g_ref) -> Dict:
            "cold_iterations": cold, "warm_iterations": iters,
            "window_s": window_s, "s_per_step": min(window_s) / steps,
            "single_levels": single, "kernel_launches": counts,
-           "b5_clusters": b5_clusters, "plain_gather_calls": plain_calls}
+           "b5_clusters": b5_clusters, "b5_shapes": b5_shapes,
+           "plain_gather_calls": plain_calls}
     if not finite:
         raise AssertionError(f"(c) non-finite result: {rep}")
     if not bitwise:
@@ -1677,7 +1716,7 @@ def _entry(name, source, replaces, launches, recs, head, per_level,
         "launches_per_level": per_level,
         "cases": [{k: c.get(k) for k in (
             "case", "storage", "variant", "ms", "ms_cold", "wrapper_ms",
-            "device_ms", "plain_ms", "autograd_ms",
+            "device_ms", "plain_ms", "autograd_ms", "long_ms",
             "library_ms", "bound_ms", "bound_by", "max_rel_err")}
             for c in recs],
     }
@@ -1700,6 +1739,18 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
 
     def launches(tag):
         return [sum(x) for x in zip(*[run[tag] for run in runs])]
+
+    def per_shape(tag):
+        """B5's or B5c's launches over the main paths by (level, degree,
+        x0)."""
+        got: Dict[tuple, int] = {}
+        for rep in list(mains.values()) + [design["c"]]:
+            for x in rep["b5_shapes"]:
+                if x["kernel"] == tag:
+                    key = (x["level"], x["degree"], x["x0"])
+                    got[key] = got.get(key, 0) + x["launches"]
+        return [{"level": lvl, "degree": dg, "x0": x0, "launches": k}
+                for (lvl, dg, x0), k in sorted(got.items())]
 
     def of(tag):
         return [c for c in fused_cases if c["kernel"] == tag]
@@ -1731,6 +1782,8 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
         out.append(_entry(name, FusedSmoother.source, replaces,
                           sum(launches(tag)), of(tag), head(tag, variant),
                           launches(tag)))
+        if tag in ("B5", "B5c"):
+            out[-1]["launches_per_shape"] = per_shape(tag)
     for tag, key in (("P1", "chain"), ("P2", "scale")):
         recs = [c for c in probe["cases"] if c["kernel"] == tag]
         name, replaces = probes.KERNELS[key]
@@ -1820,13 +1873,17 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             log(f"{c['kernel']} {c['case']} {c['storage']} {c['variant']}: "
                 f"plan cluster "
                 f"{p['cluster']} x {p['threads']} threads x {p['ipt']} "
-                f"items, d {p['layout']}, r^2 in shared memory "
+                f"items (groups of {p['group']} lanes), d {p['layout']}, "
+                f"r^2 in shared memory "
                 f"{p['r2_smem']} ({p['smem_bytes']} bytes) | "
                 f"{_ms(c['ms'])} (device, graph replay "
                 f"{_ms(c['device_ms'])}) vs before the redesign {was} | "
                 f"bitwise equal across, "
-                f"cluster/layout event (graph) times: "
-                + ", ".join(f"{x['cluster']}/{x['layout']} {_ms(x['ms'])} "
+                f"cluster/layout[/group] event (graph) times: "
+                + ", ".join(f"{x['cluster']}/{x['layout']}"
+                            + ("" if x["group"] is None else
+                               f"/{x['group']}")
+                            + f" {_ms(x['ms'])} "
                             f"({_ms(x['device_ms'])})"
                             for x in c["sweep"]) + f" [{card}]")
     budget.check("kernels B2-B5, B3c-B5c")
@@ -1874,7 +1931,9 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             else (f", torch.mul {_ms(c['library_ms'])} (P2 / torch.mul "
                   f"{c['ms'] / c['library_ms']:.3f}, not gated)")
         graph = "" if c["kernel"] != "P1" \
-            else f" (device, graph replay {_ms(c['device_ms'])})"
+            else (f" (device, graph replay {_ms(c['device_ms'])}) (one "
+                  f"launch of {LONG_REPS} x REPS, per REPS "
+                  f"{_ms(c['long_ms'])}; plan {c.get('plan')})")
         log(f"{c['kernel']} {c['case']}: bitwise equal to plain | kernel "
             f"{_ms(c['ms'])}{graph}{rate}, plain {c['plain_ms']:.4f} "
             f"ms{lib}, bound {c['bound_ms']:.6f} ms ({c['bound_by']}) "

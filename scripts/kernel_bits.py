@@ -3,7 +3,7 @@ the same bits where the arithmetic is meant to be the same, and times of
 the redesigned kernels in turns.
 
     python3 scripts/kernel_bits.py CHECKOUT_A CHECKOUT_B [--out FILE]
-        [--same B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c] [--timed B3,r2]
+        [--same B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c,P1] [--timed B3,r2]
 
 Needs one CUDA card.  Runs, in a fresh process per checkout and in the
 order A B B A, each checkout's own ``pylatticedso_tpu_torch`` (its kernels
@@ -12,9 +12,12 @@ seeds: at every grid of ``smoke._grids(50)`` (each MG level of the 50^3
 Octet hierarchy and the hybrid check case) B1 float32 and float64, B2, B3,
 B4 (a step and the final emit) and B5 (every variant the smoke runs) in
 float32 and bfloat16 storage, their bf16-compute instances B3c, B4c and
-B5c on the levels that have them (the dense ones), and the r^2-cotangent
-kernel in float32 and float64.  Each run reports a hash of every output and, for the kernels of
-``--timed``, CUDA-event and CUDA-graph times.  Prints, per kernel, whether
+B5c on the levels that have them (the dense ones; B5c also at degree 1,
+one phase), the r^2-cotangent kernel in float32 and float64, and P1 in
+both kinds, at REPS and in one launch of REPS x 20 repeats.  Each run
+reports a hash of every output and, for the kernels of ``--timed``,
+CUDA-event and CUDA-graph times, and each checkout's registers and spills
+of B5, B5c and P1 as nvcc's ``-Xptxas -v`` printed them.  Prints, per kernel, whether
 A's and B's outputs are the same bits on every grid (required for the
 kernels of ``--same``; each checkout's two runs must agree too), the
 largest difference of the others relative to their largest value, and
@@ -31,12 +34,13 @@ import tempfile
 from pathlib import Path
 
 CHILD = r"""
-import hashlib, json, sys
+import hashlib, inspect, json, sys
 sys.path.insert(0, {root!r})
 import numpy as np
 import torch
 import torch.nn.functional as F
-from pylatticedso_tpu_torch import smoke
+from pylatticedso_tpu_torch import probes, smoke
+from pylatticedso_tpu_torch.kernels import build, launch
 from pylatticedso_tpu_torch.kernels.fused import cheb_static
 from pylatticedso_tpu_torch.parallel.multigrid import _estimate_lmax
 from pylatticedso_tpu_torch.parallel.structured import StructuredLattice
@@ -123,8 +127,10 @@ for seed, (geom, cells, h, label, lvl) in enumerate(smoke._grids(50)):
         if lvl == len(smoke.level_cells(50)) - 1:
             variants.append((smoke.MG_OPTS["coarse_degree"], 1.0 / 64.0,
                              None))
-        for (dg, fr, x0), ct in [(v, ct) for ct in computes
-                                 for v in variants]:
+        runs = [(v, ct) for ct in computes for v in variants]
+        if fz.dense:
+            runs.append(((1, frac, None), "bf16"))
+        for (dg, fr, x0), ct in runs:
             scv = fz.sc(lmax, fr)
             tag = "B5" if ct == "f32" else "B5c"
             name = f"{{tag}} {{storage}} degree {{dg}}{{', x0' if x0 is not None else ''}}"
@@ -143,16 +149,45 @@ for seed, (geom, cells, h, label, lvl) in enumerate(smoke._grids(50)):
     put("B1f64", label, lambda: B.launch(up, r2))
     put("r2 f64", label, lambda: B.launch_vjp(up, gp, r2), keep_out=True)
 
+# P1 at REPS, and in one launch of REPS x LONG repeats (the parent's
+# wrapper takes no repeat count: its launcher then, which takes one)
+LONG = 20
+xs = probes.inputs(dev)["chain"]
+for kind in ("1d", "2d"):
+    put(f"P1 {{kind}}", "REPS", lambda: probes.chain(xs, kind))
+    if "reps" in inspect.signature(probes.chain).parameters:
+        long = lambda: probes.chain(xs, kind, reps=probes.REPS * LONG)
+    else:
+        o = torch.empty_like(xs)
+        fns = launch.functions("probes")
+        long = lambda: (fns["probe_chain"](
+            xs.data_ptr(), o.data_ptr(), probes.ROWS, probes.T,
+            int(kind == "2d"), probes.REPS * LONG, launch.stream(0)), o)[1]
+    put(f"P1 {{kind}}", f"REPS x {{LONG}}", long)
+
 torch.save(keep, {keep_path!r})
-print(json.dumps({{"hashes": hashes, "times": times}}))
+print(json.dumps({{"hashes": hashes, "times": times,
+                  "ptxas": dict(build.build_log)}}))
 """
+
+
+def _registers(log):
+    """(function, registers/spill line) of B5, B5c and P1 in a build log."""
+    out, func = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            func = line.split("'")[1] if "'" in line else None
+        elif func and ("cheb_full" in func or "probe_chain" in func) \
+                and ("registers" in line or "spill" in line):
+            out.append((func, line.strip()))
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("a")
     ap.add_argument("b")
-    ap.add_argument("--same", default="B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c",
+    ap.add_argument("--same", default="B1,B1f64,B2,B3,B4,B5,B3c,B4c,B5c,P1",
                     help="kernels whose outputs must be the same bits")
     ap.add_argument("--timed", default="B3,r2")
     ap.add_argument("--out", help="also write the runs here (JSON)")
@@ -177,6 +212,10 @@ def main() -> int:
 
     import torch
     a, b = runs[0], runs[1]
+    for tag, run in (("A", a), ("B", b)):
+        for name, log in sorted(run["ptxas"].items()):
+            for func, line in _registers(log):
+                print(f"ptxas {tag} {name} {func}: {line}")
     bad = []
     for label in ("inputs",):
         ins = {k: v for k, v in a["hashes"].items() if k.startswith(label)}

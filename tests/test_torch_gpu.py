@@ -124,6 +124,10 @@ def test_probes_match_plain_on_card():
     for kind in ("1d", "2d"):
         assert torch.equal(probes.chain(xs["chain"], kind),
                            probes.plain_chain(xs["chain"], kind))
+        # one launch of 20 x REPS repeats: the same values
+        assert torch.equal(probes.chain(xs["chain"], kind,
+                                        reps=20 * probes.REPS),
+                           probes.plain_chain(xs["chain"], kind))
     assert torch.equal(probes.scale(xs["scale"]),
                        probes.plain_scale(xs["scale"]))
     assert probes.launches["chain"] >= 2 and probes.launches["scale"] >= 1
@@ -604,10 +608,10 @@ def test_bf16_compute_kernels_match_plain_on_card(name, cells, monkeypatch):
     """B3c and B4c (a step and the final emit) on their slab plans, and
     B5c where the routing marks the grid single, against their plain
     versions (the dense form in bf16, every operation rounded on its own):
-    B3c and B4c the same bits (0 elements differ), B5c within 1e-2, in f32
-    and bf16 storage; bitwise on repeat; ghosts written zero over
-    NaN-filled outputs; the bits that differ from the plain version's are
-    printed (run with -s)."""
+    the same bits (0 elements differ; within 1e-2 besides, the CPU
+    parity's tolerance), in f32 and bf16 storage; bitwise on repeat; ghosts
+    written zero over NaN-filled outputs; the counts of elements whose bits
+    differ are printed (run with -s)."""
     _need_card()
     from pylatticedso_tpu_torch.kernels.fused import cheb_static
     ts, tm, diag, u, r, aux = _slab_inputs(name, cells, torch.float32,
@@ -659,8 +663,7 @@ def test_bf16_compute_kernels_match_plain_on_card(name, cells, monkeypatch):
                 assert err <= 1e-2, (io, key, err)
                 n += smoke._bits_differ(a, w)
             differ[(str(io), key)] = n
-            if not key.startswith("B5c"):
-                assert n == 0, (io, key, n)
+            assert n == 0, (io, key, n)
     print(f"\n{name} {cells}: elements whose bits differ from the plain "
           f"version's {differ}")
     assert fz.launches["residual_bf16c"] == 4
@@ -673,11 +676,13 @@ def test_bf16_compute_kernels_match_plain_on_card(name, cells, monkeypatch):
 @pytest.mark.parametrize("storage", ["f32", "bf16"])
 @pytest.mark.parametrize("cells", [7, 4, 2])
 def test_b5c_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
-    """B5c on the 50^3 hierarchy's single levels, as B5 is held: within
-    1e-2 of its plain version, bitwise on repeat and the same bits under
-    every cluster size and layout of d the card can run."""
+    """B5c on the 50^3 hierarchy's single levels: the same bits as its
+    plain version (and within 1e-2 of it, the CPU parity's tolerance),
+    bitwise on repeat and the same bits under every cluster size, layout
+    of d and group size G the card can run."""
     _need_card()
-    from pylatticedso_tpu_torch.kernels.fused import B5_CLUSTERS, B5_LAYOUTS
+    from pylatticedso_tpu_torch.kernels.fused import (B5_CLUSTERS,
+                                                      B5_LAYOUTS, B5C_GROUPS)
     fz, io, lmax, b, x, fd, r2 = _b5_level(cells, storage)
     assert fz.single_ok and fz.dense
     cases = [(None, 2, 0.35), (x, 2, 0.35)]
@@ -692,19 +697,23 @@ def test_b5c_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
         err = float((want.float() - plain.float()).abs().max()
                     / plain.float().abs().max())
         assert err <= smoke.STORAGE_TOL[storage]["B5c"], err
+        assert smoke._bits_differ(want, plain) == 0
         assert torch.equal(want, run())
         ran = set()
         for layout in B5_LAYOUTS:
             for cluster in B5_CLUSTERS:
-                try:
-                    fz.b5_plan(io, x0 is not None, cluster, layout, 0,
-                               "bf16")
-                except ValueError:
-                    continue
-                assert torch.equal(run(cluster=cluster, layout=layout),
-                                   want), (cluster, layout)
-                ran.add((cluster, layout))
-        assert any(lay == "global" for _, lay in ran)
+                for group in B5C_GROUPS:
+                    try:
+                        fz.b5_plan(io, x0 is not None, cluster, layout, 0,
+                                   "bf16", group)
+                    except ValueError:
+                        continue
+                    assert torch.equal(run(cluster=cluster, layout=layout,
+                                           group=group), want), \
+                        (cluster, layout, group)
+                    ran.add((cluster, layout, group))
+        assert any(lay == "global" for _, lay, _ in ran)
+        assert {g for _, _, g in ran} == set(B5C_GROUPS)
     assert fz.launches["cheb_full_bf16c"] > 0 and \
         fz.launches["cheb_full"] == 0
     torch.cuda.synchronize()

@@ -122,7 +122,11 @@ def test_phases_rehearse_on_cpu():
         if c["kernel"] not in ("B5", "B5c"):
             continue
         assert set(c["plan"]) == {"cluster", "layout", "threads", "ipt",
-                                  "r2_smem", "smem_bytes"}
+                                  "group", "r2_smem", "smem_bytes"}
+        # B5c's plan groups G lanes per item, and its sweep runs every G
+        assert (c["plan"]["group"] == 1) == (c["kernel"] == "B5")
+        if c["kernel"] == "B5c":
+            assert {x["group"] for x in c["sweep"]} >= {1, 4}
         assert c["plan"]["layout"] == "bcast"
         swept = {(x["cluster"], x["layout"]) for x in c["sweep"]}
         assert (c["plan"]["cluster"], "bcast") in swept
