@@ -460,9 +460,14 @@ mg_cheb_full_kernel(const T* __restrict__ b, const T* __restrict__ x0,
 //     its rows, updates and publishes it, so a thread's registers hold one
 //     side's row, not four vectors of six per item;
 //   the sides' dense records are staged in shared memory once per launch,
-//     beside the side table, and read where dense_row uses them.
-// Every value has B5c's arithmetic whatever the cluster, layout or G, so
-// all of them give the same bits.
+//     beside the side table.
+// The plan (kernels/fused.py b5_plan) picks the cluster, G and the layout
+// of d per level from a sweep on the card.  On an H100 (PERF.md §6) the
+// 7^3 and 4^3 levels gain the most; the coarsest level's degree-24 sweep
+// gains least: its 25 phases stay bound by the issue of ~220 instructions
+// a row on one to eight SMs and by the cluster's barrier.  Every value has
+// B5c's arithmetic whatever the cluster, layout or G, so all of them give
+// the same bits.
 #define B5C_MAX_THREADS 1024
 #define B5C_MAX_GROUP 12
 
@@ -495,8 +500,8 @@ __device__ __forceinline__ void b5c_put(bf2w* d,
 }
 
 // One side's row at the padded point q: the other endpoint from x0
-// (storage T, six rows) or from d (bf16 pairs), the columns read from the
-// staged record as dense_row uses them.
+// (storage T, six rows) or from d (bf16 pairs), the columns loaded from
+// the staged record (13 16-byte loads).
 template <bool FROM_X0, int LAYOUT, typename T>
 __device__ __forceinline__ void b5c_row(const Side& sd,
                                         const DenseSide* rec,
@@ -514,8 +519,17 @@ __device__ __forceinline__ void b5c_row(const Side& sd,
 #pragma unroll
     for (int i = 0; i < 3; ++i) uo[i] = b5c_ld<LAYOUT>(d, base + i * Fp);
   }
-  dense_row(reinterpret_cast<const __nv_bfloat162*>(rec), sd.side, us, uo,
-            ldh(r2 + q + sd.dr), row);
+  __nv_bfloat162 cols[DENSE_WORDS];
+  const uint4* w = reinterpret_cast<const uint4*>(rec);
+#pragma unroll
+  for (int k = 0; k < DENSE_WORDS / 4; ++k) {
+    const uint4 v = w[k];
+    cols[4 * k] = b5c_word(v.x);
+    cols[4 * k + 1] = b5c_word(v.y);
+    cols[4 * k + 2] = b5c_word(v.z);
+    cols[4 * k + 3] = b5c_word(v.w);
+  }
+  dense_row(cols, sd.side, us, uo, ldh(r2 + q + sd.dr), row);
 }
 
 // The group's K.u at its item, in the pairs the lane owns: lane j leaves

@@ -11,20 +11,11 @@
 // recorded.  The multiply and the add are rounded separately (__fmul_rn,
 // __fadd_rn: nvcc would otherwise contract them into one FMA), so the
 // result is bitwise equal to the plain torch loop, which rounds each op.
-// Kind "2d" (probe_chain_kernel): one thread per computed element (24,576),
-// blockIdx.y is the repeat; every repeat writes the same values.  Kind "1d"
-// (probe_chain_1d_kernel): its 3,072 x 100 (repeat, element) chains are
-// 1.14 waves of the card's resident threads at one a thread, so the host
-// sizes one wave instead (probes.py chain_plan: one block per SM, or as
-// many as the chains need, P1_CHAINS chains a thread), and each thread
-// runs its chains interleaved, so the dependent latency of one chain
-// hides behind the others'.  Every chain loads its input by its own
-// __ldcv (a load nvcc may not merge with another chain's: it would fold
-// repeats of one element otherwise) and writes its result to the 8 rows,
-// as every repeat of the TPU grid writes them.  Bound by operations: 100
-// x 200 x 2 FP32 instructions per computed element, no memory traffic to
-// speak of (196,608 bytes in and out), and 400 dependent instructions a
-// chain, so latency-bound unless enough warps and chains hide it.
+// Threads: one per computed element (3,072 for "1d", 24,576 for "2d"),
+// blockIdx.y is the repeat; every repeat writes the same values.  Bound by
+// operations: 100 x 200 x 2 flops per element, no memory traffic to speak
+// of (196,608 bytes in and out), and a chain of 400 dependent instructions
+// per thread, so latency-bound unless enough warps hide it.
 //
 // P2 probe_scale replaces the inline kernel k of scripts/tpu_harvest_r5.sh
 // :25 (r6.sh:27, r7.sh:22, r8.sh:19): o = x * 2.0 on an (8, 128) float
@@ -34,7 +25,6 @@
 #include <cuda_runtime.h>
 
 #define P1_K 200
-#define P1_CHAINS 4
 
 __global__ void __launch_bounds__(256)
 probe_chain_kernel(const float* __restrict__ x, float* __restrict__ o,
@@ -48,48 +38,6 @@ probe_chain_kernel(const float* __restrict__ x, float* __restrict__ o,
     o[idx] = v;
   } else {                       // "1d": broadcast row 0 to every row
     for (int r = 0; r < out_rows; ++r) o[r * cols + idx] = v;
-  }
-}
-
-// R chains c0 + r nt, interleaved: element (c0 + r nt) % cols of row 0,
-// written to every one of the out_rows rows
-template <int R>
-__device__ __forceinline__ void chain_run(const float* __restrict__ x,
-                                          float* __restrict__ o, int cols,
-                                          int out_rows, int c0, int nt) {
-  float v[R];
-  int e[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    e[r] = (c0 + r * nt) % cols;
-    v[r] = __ldcv(x + e[r]);
-  }
-  // unrolled by 8 steps, as probe_chain_kernel (a fully unrolled chain
-  // of 200 steps is 1,600 instructions a path, past the instruction cache)
-#pragma unroll 8
-  for (int k = 0; k < P1_K; ++k)
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      v[r] = __fadd_rn(__fmul_rn(v[r], 1.0001f), 0.5f);
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    for (int row = 0; row < out_rows; ++row) o[row * cols + e[r]] = v[r];
-}
-
-// "1d": n = cols x reps chains over the grid's nt threads, P1_CHAINS a
-// thread per round; where a thread's last chain of a round falls past n
-// it runs the others (the host's plan leaves at most one short).  A chain
-// past n recomputes an element's value, which is the same value
-__global__ void __launch_bounds__(1024)
-probe_chain_1d_kernel(const float* __restrict__ x, float* __restrict__ o,
-                      int cols, int out_rows, int n) {
-  const int nt = gridDim.x * blockDim.x;
-  for (int c0 = blockIdx.x * blockDim.x + threadIdx.x; c0 < n;
-       c0 += P1_CHAINS * nt) {
-    if (c0 + (P1_CHAINS - 1) * nt < n)
-      chain_run<P1_CHAINS>(x, o, cols, out_rows, c0, nt);
-    else
-      chain_run<P1_CHAINS - 1>(x, o, cols, out_rows, c0, nt);
   }
 }
 
@@ -107,19 +55,6 @@ extern "C" int probe_chain(const void* x, void* o, int rows, int cols,
   const dim3 grid((computed + threads - 1) / threads, reps);
   probe_chain_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)o, kind_2d ? rows : 1, cols, rows);
-  return (int)cudaGetLastError();
-}
-
-// "1d" on the host's grid (probes.py chain_plan): n_chains = cols x reps
-extern "C" int probe_chain_1d(const void* x, void* o, int rows, int cols,
-                              int n_chains, int blocks, int threads,
-                              void* stream) {
-  if (blocks < 1 || threads < 32 || threads > 1024 || threads % 32 != 0
-      || n_chains < 1 || n_chains % cols != 0
-      || (long long)blocks * threads * P1_CHAINS < n_chains)
-    return (int)cudaErrorInvalidValue;
-  probe_chain_1d_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)o, cols, rows, n_chains);
   return (int)cudaGetLastError();
 }
 

@@ -495,12 +495,20 @@ B5_SMEM_LIMIT = 227 * 1024      # csrc's MAX_SMEM: one block's dynamic, sm_90
 B5_MAX_DEGREE = 64              # csrc's MAX_DEGREE (Chebyshev coefficients)
 # B5c (the bf16-compute instance): G lanes of one warp per item (the
 # group; 32 // G groups a warp), blocks of up to 1,024 threads.  The rule:
-# the smallest cluster that leaves <= B5C_ITEMS_PER_BLOCK items to a block,
-# groups of B5C_GROUP lanes
+# the smallest cluster that leaves <= B5C_ITEMS_PER_BLOCK items to a block
+# (at most 16); G by the items a block holds (B5C_GROUP_RULE: more than 32
+# items, 4 lanes; more than 8, 6; else 12); d broadcast into every block
+# where a block holds <= B5C_BCAST_ITEMS items, else in global scratch.
+# On an H100 (smoke._b5_sweep, every cluster, layout and G, two runs) it
+# picks the fastest or within 2% of it on the shapes the V-cycle launches:
+# 7^3 degree 2 (16 blocks, G 4, global), 4^3 degree 2 (16, 6, bcast), the
+# coarsest level's 2^3 degree 24 (16, 12, bcast), and the hybrid check
+# case (16, 4, global)
 B5C_GROUPS = (1, 2, 3, 4, 6, 12)        # csrc's B5C_MAX_GROUP is the last
 B5C_MAX_THREADS = 1024                  # csrc's B5C_MAX_THREADS
-B5C_ITEMS_PER_BLOCK = 64
-B5C_GROUP = 4
+B5C_ITEMS_PER_BLOCK = 8
+B5C_GROUP_RULE = ((32, 4), (8, 6), (0, 12))
+B5C_BCAST_ITEMS = 32
 
 
 def _align16(n: int) -> int:
@@ -543,13 +551,13 @@ def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
     that leaves at most ``B5_ITEMS_PER_BLOCK`` interior items to a block,
     ``B5C_ITEMS_PER_BLOCK`` for B5c), ``per_block`` contiguous items per
     block; B5: ``threads`` threads of ``ipt`` item slots each; B5c: groups
-    of ``group`` lanes (default ``B5C_GROUP``), ``32 // group`` groups a
+    of ``group`` lanes (default ``B5C_GROUP_RULE``), ``32 // group`` groups a
     warp, ``ipt`` item slots a group, in whole warps, each lane computing
     ``kmax`` rows (``max_sides``, the most sides of a class, over G); d in
-    shared memory (``B5_SMEM_LAYOUT``) where it fits one block, else in
-    global scratch (``layout`` forces one); r^2 staged in shared memory
-    where it fits after d.  Raises ValueError for a plan the kernel cannot
-    run."""
+    shared memory (``B5_SMEM_LAYOUT``) where it fits one block (for B5c,
+    and the block holds at most ``B5C_BCAST_ITEMS`` items), else in global
+    scratch (``layout`` forces one); r^2 staged in shared memory where it
+    fits after d.  Raises ValueError for a plan the kernel cannot run."""
     X, Y, Z = grid
     Fp = (X + 2) * (Y + 2) * (Z + 2)
     n_items = nc * X * Y * Z
@@ -566,7 +574,8 @@ def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
         raise ValueError(f"B5: cluster {cluster} for {n_items} items")
     per_block = -(-n_items // cluster)
     if bf16c:
-        group = B5C_GROUP if group is None else group
+        if group is None:
+            group = next(g for most, g in B5C_GROUP_RULE if per_block > most)
         if group not in B5C_GROUPS:
             raise ValueError(f"B5c: group {group} not in {B5C_GROUPS}")
         if max_sides is None:
@@ -574,7 +583,8 @@ def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
         kmax = -(-max_sides // group)
         gpw = 32 // group
         for ipt in range(1, B5_MAX_IPT + 1):
-            threads = 32 * -(-(-(-per_block // ipt)) // gpw)
+            groups = -(-per_block // ipt)
+            threads = 32 * -(-groups // gpw)
             if threads <= B5C_MAX_THREADS:
                 break
         else:
@@ -595,8 +605,10 @@ def b5_plan(nc: int, grid, n_e: int, n_sides: int, itemsize: int,
                                           itemsize, compute, per_block,
                                           threads, kmax)
     if layout is None:
-        layout = B5_SMEM_LAYOUT \
-            if size(B5_SMEM_LAYOUT, False) <= B5_SMEM_LIMIT else "global"
+        fits = size(B5_SMEM_LAYOUT, False) <= B5_SMEM_LIMIT
+        if bf16c:
+            fits = fits and per_block <= B5C_BCAST_ITEMS
+        layout = B5_SMEM_LAYOUT if fits else "global"
     if layout not in B5_LAYOUTS:
         raise ValueError(f"B5: layout {layout!r}")
     r2_smem = size(layout, True) <= B5_SMEM_LIMIT

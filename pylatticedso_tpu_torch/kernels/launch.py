@@ -44,7 +44,6 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
     },
     "probes": {
         "probe_chain": "ppiiiip",
-        "probe_chain_1d": "ppiiiiip",
         "probe_chain_length": "",
         "probe_scale": "ppip",
     },

@@ -5,9 +5,9 @@
   ``make(kind)``: on one (8, 3072) float32 block, a chain of K = 200
   dependent ``v = v * 1.0001 + 0.5``, repeated REPS = 100 times per
   launch.  Kind ``"1d"`` runs the chain on row 0 and broadcasts it to the
-  8 rows, kind ``"2d"`` runs it on all 8 rows.  Kind ``"1d"`` runs on the
-  host's one-wave grid (``chain_plan``: ``CHAINS`` interleaved chains a
-  thread).
+  8 rows, kind ``"2d"`` runs it on all 8 rows.  ``chain(x, kind, reps)``
+  runs ``reps`` repeats in one launch (the measurement that separates the
+  kernel's own time from the gap between launches).
 * P2 ``scale(x)`` replaces the inline liveness kernel of
   ``scripts/tpu_harvest_r{5,6,7,8}.sh``: ``o = x * 2.0`` on an (8, 128)
   float32 array in one launch.
@@ -36,15 +36,11 @@ import torch
 from .kernels import launch
 
 __all__ = ["chain", "plain_chain", "scale", "plain_scale", "flops",
-           "chain_plan", "launches", "T", "K", "REPS", "ROWS", "CHAINS",
-           "KERNELS"]
+           "launches", "T", "K", "REPS", "ROWS", "KERNELS"]
 
 ROWS, T = 8, 3072             # P1's block
 K = 200                       # chain length (dependent multiply-adds)
 REPS = 100                    # repeats per launch (the TPU grid)
-CHAINS = 4                    # "1d": chains a thread (probes.cu P1_CHAINS)
-MAX_BLOCK = 1024              # threads a block
-SM_THREADS = 2048             # resident threads an SM (sm_90)
 SCALE_SHAPE = torch.Size((8, 128))    # P2's array
 SCALE_N = 8 * 128
 SOURCE = "pylatticedso_tpu_torch/csrc/probes.cu"
@@ -83,29 +79,6 @@ def flops(kind: str, reps: int = REPS) -> int:
     return K * T * 2 * reps * (1 if kind == "1d" else ROWS)
 
 
-def chain_plan(n_sm: int, reps: int = REPS) -> Dict[str, int]:
-    """Kind "1d"'s grid on a card of ``n_sm`` SMs: its T x ``reps``
-    (repeat, element) chains spread evenly over the SMs, ``CHAINS`` a
-    thread, in whole warps and as few blocks an SM as hold them (one at
-    REPS: the whole launch is one wave of resident blocks).  Every thread
-    gets ``CHAINS`` chains a round, or one fewer in its last round."""
-    n = T * reps
-    per_sm = -(-n // (CHAINS * n_sm))                 # threads an SM
-    blocks_per_sm = -(-per_sm // MAX_BLOCK)
-    threads = 32 * -(-(-(-per_sm // blocks_per_sm)) // 32)
-    blocks = n_sm * blocks_per_sm
-    nt = blocks * threads
-    return {"chains": n, "chains_per_thread": CHAINS, "blocks": blocks,
-            "threads": threads, "blocks_per_sm": blocks_per_sm,
-            "rounds": -(-n // (CHAINS * nt)),
-            "waves": -(-blocks_per_sm // (SM_THREADS // threads))}
-
-
-@functools.cache
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plain_chain(x: torch.Tensor, kind: str) -> torch.Tensor:
     """P1's plain version: the chain once (every repeat gives the same
     values), each multiply and add rounded on its own."""
@@ -128,14 +101,8 @@ def chain(x: torch.Tensor, kind: str, reps: int = REPS) -> torch.Tensor:
     fns = _functions()
     out = torch.empty_like(x)
     dev = x.get_device()
-    if kind == "1d":
-        plan = chain_plan(_n_sm(dev), reps)
-        rc = fns["probe_chain_1d"](x.data_ptr(), out.data_ptr(), ROWS, T,
-                                   plan["chains"], plan["blocks"],
-                                   plan["threads"], launch.stream(dev))
-    else:
-        rc = fns["probe_chain"](x.data_ptr(), out.data_ptr(), ROWS, T, 1,
-                                reps, launch.stream(dev))
+    rc = fns["probe_chain"](x.data_ptr(), out.data_ptr(), ROWS, T,
+                            int(kind == "2d"), reps, launch.stream(dev))
     launch.check("probe_chain", rc)
     launches["chain"] += 1
     return out

@@ -1200,13 +1200,14 @@ def probe_phase(device: torch.device) -> Dict:
                                    reps=7, batch=10)
             rec["device_ms"] = _graph_ms(lambda: probes.chain(x, kind),
                                          device)
-            # one launch of REPS x LONG_REPS repeats: the kernel's own time
-            # per REPS, without the graph's gap between launches
+            # one launch of REPS x LONG_REPS repeats (graph replay): the
+            # kernel's own time per REPS, with the gap between launches
+            # spread over LONG_REPS times the work
             long = lambda: probes.chain(x, kind, reps=probes.REPS * LONG_REPS)
             if not torch.equal(long(), want):
                 raise AssertionError(f"P1 ({kind}) x {LONG_REPS} is not "
                                      f"bitwise equal to its plain version")
-            rec["long_ms"] = _median_ms(long, device, reps=7) / LONG_REPS
+            rec["long_ms"] = _graph_ms(long, device, calls=5) / LONG_REPS
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=3, batch=2)
             rec["gflops"] = probes.flops(kind) / rec["ms"] / 1e6
@@ -1215,8 +1216,6 @@ def probe_phase(device: torch.device) -> Dict:
             rec["long_ms"] = None
             rec["plain_ms"] = _median_ms(lambda: probes.plain_chain(x, kind),
                                          device, reps=1)
-        if kind == "1d" and cuda:
-            rec["plan"] = probes.chain_plan(probes._n_sm(device.index or 0))
         rec["library_ms"] = None
         cases.append(rec)
     x = xs["scale"]
@@ -1933,7 +1932,7 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         graph = "" if c["kernel"] != "P1" \
             else (f" (device, graph replay {_ms(c['device_ms'])}) (one "
                   f"launch of {LONG_REPS} x REPS, per REPS "
-                  f"{_ms(c['long_ms'])}; plan {c.get('plan')})")
+                  f"{_ms(c['long_ms'])})")
         log(f"{c['kernel']} {c['case']}: bitwise equal to plain | kernel "
             f"{_ms(c['ms'])}{graph}{rate}, plain {c['plain_ms']:.4f} "
             f"ms{lib}, bound {c['bound_ms']:.6f} ms ({c['bound_by']}) "

@@ -94,48 +94,19 @@ def test_chain_length_is_checked_once_when_the_library_binds(monkeypatch):
         probes._functions.cache_clear()
 
 
-@pytest.mark.parametrize("n_sm", [132, 114, 80])
-def test_chain_1d_runs_in_one_wave(n_sm):
-    """P1 1d's grid (``chain_plan``): one block per SM, whole warps, every
-    SM the same threads; each thread runs CHAINS interleaved chains or one
-    fewer (the kernel's two paths), so the grid covers the T x REPS
-    chains once, and it is one wave of resident threads."""
-    plan = probes.chain_plan(n_sm)
-    n = probes.T * probes.REPS
-    assert plan["chains"] == n == 307_200
-    assert plan["chains_per_thread"] == probes.CHAINS == 4
-    assert plan["blocks"] == n_sm and plan["blocks_per_sm"] == 1
-    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
-    assert plan["waves"] == 1 and plan["rounds"] == 1
-    assert plan["threads"] <= probes.SM_THREADS
-    nt = plan["blocks"] * plan["threads"]
-    assert (probes.CHAINS - 1) * nt <= n <= probes.CHAINS * nt
-    # no fewer warps an SM would hold the chains
-    assert (plan["threads"] - 32) * n_sm * probes.CHAINS < n
-    # the chains of one thread, t + r nt, are distinct chains of every
-    # repeat and element
-    t = np.arange(nt)
-    c = np.concatenate([t + r * nt for r in range(probes.CHAINS)])
-    c = c[c < n]
-    assert np.array_equal(np.sort(c), np.arange(n))
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_chain_takes_a_repeat_count(kind):
+    """P1 in one launch of 20 x REPS repeats (the measurement that
+    separates the kernel's own time from the gap between launches): the
+    same values as at REPS, and 20 times the operations."""
+    x = probes.inputs("cpu")["chain"]
+    np.testing.assert_array_equal(
+        probes.chain(x, kind, reps=20 * probes.REPS).numpy(),
+        probes.plain_chain(x, kind).numpy())
+    assert probes.flops(kind, 20 * probes.REPS) == 20 * probes.flops(kind)
+    assert probes.launches["chain"] == 0
 
 
-def test_chain_1d_long_launch_plan():
-    """One launch of 20 x REPS repeats (the measurement that separates the
-    kernel's time from the gap between launches): more blocks an SM, each
-    thread still CHAINS or one fewer chains in one round."""
-    plan = probes.chain_plan(132, 20 * probes.REPS)
-    nt = plan["blocks"] * plan["threads"]
-    assert plan["chains"] == 20 * probes.T * probes.REPS
-    assert plan["blocks"] % 132 == 0 and plan["blocks_per_sm"] > 1
-    assert plan["rounds"] == 1
-    assert (probes.CHAINS - 1) * nt <= plan["chains"] <= probes.CHAINS * nt
-    assert probes.flops("1d", 20 * probes.REPS) == 20 * probes.flops("1d")
-
-
-def test_chain_constants_are_the_kernel_source_constants():
+def test_chain_length_is_the_kernel_source_constant():
     text = (ROOT / probes.SOURCE).read_text()
-    define = lambda name: int(re.search(rf"#define {name} (\d+)",
-                                        text).group(1))
-    assert define("P1_K") == probes.K
-    assert define("P1_CHAINS") == probes.CHAINS
+    assert int(re.search(r"#define P1_K (\d+)", text).group(1)) == probes.K
