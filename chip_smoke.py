@@ -19,8 +19,15 @@ fused bf16 route; then the design optimizer through optimize_lattice: the
 float64 on the multigrid route, three projected-gradient iterations, its
 gradient against a central difference, and SLSQP, the routing and the
 unstructured problem on an 8^3 grid (pylatticedso_tpu_torch/smoke.py);
-last, each of the compliance and design-gradient steps takes two more
-warm steps under torch.profiler (device busy time and idle share).
+then the full-lattice statics (pylatticedso_tpu_torch/smoke_statics.py):
+bench.py's second mode, the edge-sharded float32 compliance step with
+block Jacobi on the 50^3 Octet lattice (3,030,000 beams), cold and 8
+warm chunked steps against a float64 reference, the step's other forms
+at 8^3 in float64, and the statics, penalized statics and unit-cell
+homogenization on the card against the CPU; last, each of the
+compliance and design-gradient steps and the edge-sharded step take two
+more warm steps under torch.profiler, the unfused routes lo and f32 one
+(device busy time and idle share).
 Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
@@ -37,8 +44,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
     ap.add_argument("--profile", help="write the profile tables (two warm "
-                    "steps of each route and of the design-gradient path (c) "
-                    "under torch.profiler) here")
+                    "steps of each route, of the design-gradient path (c) "
+                    "and of the edge-sharded step under torch.profiler) "
+                    "here")
     args = ap.parse_args()
     try:
         import torch
@@ -58,6 +66,7 @@ def main() -> int:
     if args.profile:
         profs = {route: m["profile"] for route, m in report["mains"].items()}
         profs["design"] = report["design"]["c"]["profile"]
+        profs["statics"] = report["statics"]["s1"]["profile"]
         with open(args.profile, "w") as fh:
             json.dump(profs, fh, indent=1)
     print(f"wall: {report['wall_s']:.1f} s "

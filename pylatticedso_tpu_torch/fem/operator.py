@@ -37,6 +37,8 @@ class SegmentSum:
     table is built with a stable sort on ``idx``'s device.  ``self(values)``
     is differentiable (its gradient is the gather ``g[idx]``), and so is
     ``self.gather(x)`` = ``x[idx]`` (its gradient is this ordered sum).
+    ``dim=1`` sums the columns of ``[k, M]`` values instead (the column
+    layout of ``parallel.sharding``): the same terms in the same order.
     """
 
     def __init__(self, idx: torch.Tensor, num_segments: int):
@@ -54,42 +56,45 @@ class SegmentSum:
         table[rank, sidx] = order
         self.table = table
 
-    def _sum(self, values: torch.Tensor) -> torch.Tensor:
-        vp = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
+    def _sum(self, values: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        shape = list(values.shape)
+        shape[dim] = 1
+        vp = torch.cat([values, values.new_zeros(shape)], dim=dim)
         if self.table.shape[0] == 0:
-            return values.new_zeros((self.num_segments,) + values.shape[1:])
-        out = vp[self.table[0]]
+            shape[dim] = self.num_segments
+            return values.new_zeros(shape)
+        out = vp.index_select(dim, self.table[0])
         for k in range(1, self.table.shape[0]):
-            out = out + vp[self.table[k]]
+            out = out + vp.index_select(dim, self.table[k])
         return out
 
-    def __call__(self, values: torch.Tensor) -> torch.Tensor:
-        return _OrderedSum.apply(values, self)
+    def __call__(self, values: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return _OrderedSum.apply(values, self, dim)
 
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        return _OrderedGather.apply(x, self)
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        return _OrderedGather.apply(x, self, dim)
 
 
 class _OrderedSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, seg):
-        ctx.seg = seg
-        return seg._sum(values)
+    def forward(ctx, values, seg, dim):
+        ctx.seg, ctx.dim = seg, dim
+        return seg._sum(values, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.seg.idx], None
+        return g.index_select(ctx.dim, ctx.seg.idx), None, None
 
 
 class _OrderedGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seg):
-        ctx.seg = seg
-        return x[seg.idx]
+    def forward(ctx, x, seg, dim):
+        ctx.seg, ctx.dim = seg, dim
+        return x.index_select(dim, seg.idx)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.seg._sum(g), None
+        return ctx.seg._sum(g, ctx.dim), None, None
 
 
 class BeamOperator(NamedTuple):

@@ -27,13 +27,19 @@ design optimizer runs through ``opti.optimize_lattice`` (``optimizer_phase``:
 bound, float64 on the multigrid route, projected gradient;
 (o2) FEM_AUTO's routing, SLSQP and the unstructured problem on an 8^3
 grid).  The probes P1 and P2 run through their own entry (``probes.main``).
+The full-lattice statics run through ``smoke_statics.statics_phase``:
+(s1) bench.py's second mode, the edge-sharded float32 step on the n^3
+Octet lattice; (s2) its other forms at 8^3 in float64; (s3) the statics
+and the simulation layer on the device against the CPU.  This path has
+no kernel of its own (plain torch, as the JAX package's is XLA).
 
 B5 is also run under every cluster size and layout of d the card can hold,
 and B5c under every cluster size, layout and group size (``_b5_sweep``:
 the same bits as its plan's, each timed by CUDA events and by CUDA-graph
-replay).  Last, each route's step and path (c)'s take two
-more warm steps under ``torch.profiler`` (``profile_phase``: device busy
-time and idle share).  ``run(device, n)`` runs every phase and returns a report;
+replay).  Last, each route's step, path (c)'s and (s1)'s take two
+more warm steps under ``torch.profiler``, the unfused routes lo and f32
+one (``PROFILE_STEPS``; ``profile_phase``, ``profile_drive``: device
+busy time and idle share).  ``run(device, n)`` runs every phase and returns a report;
 it raises on the first failure.  ``chip_smoke.py`` calls it with
 ``device="cuda"``, n = 50; the CPU tests rehearse it at n = 4, where each
 wrapper runs its plain version and nothing is timed as a device number.
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import probes
+from . import probes, smoke_statics
 from .fem.solve import pcg
 from .kernels import build
 from .kernels.fused import KERNELS as FUSED_KERNELS
@@ -136,6 +142,10 @@ OPT_FD_TOL = 1e-5
 OCTET_DENSITY_FIT = (Path(__file__).resolve().parent / "fits"
                      / "Octet_0.01_0.1_10.gpr.npz")
 PAD = (1, 1, 1, 1, 1, 1)
+# warm steps profiled per route: the unfused routes (~1,300 device events
+# per CG iteration) take one, so the run stays in its budget with the
+# statics phase (the profiler's post-processing grows with the events)
+PROFILE_STEPS = {"lo": 1, "f32": 1}
 
 
 class Budget:
@@ -1651,14 +1661,25 @@ def optimizer_phase(device: torch.device, n: int, small: int = OPT_SMALL,
 
 def profile_phase(step, r: torch.Tensor, u: torch.Tensor, pstate,
                   device: torch.device, route: str, steps: int = 2) -> Dict:
-    """Device time by kernel over ``steps`` warm-started steps of a built
+    """``profile_drive`` over ``steps`` warm-started steps of a built
     main-path ``step`` (frozen ``pstate``, warm start ``u``, radii near
-    ``r``), from ``torch.profiler``: the busy share of the window's wall
-    clock, the device events (kernels, copies, fills) per CG iteration and
-    the kernels that take the most device time.  ``route="design"`` names
-    path (c) of ``design_phase``, whose iterations count the forward and
-    adjoint solves.  The profiler's own host cost lengthens the wall
-    clock."""
+    ``r``).  ``route="design"`` names path (c) of ``design_phase``, whose
+    iterations count the forward and adjoint solves."""
+
+    def drive(k):
+        step(r * (1.0 + 1e-3 * (k + 1)), u, pstate)
+        return sum(v or 0 for v in _solves(step).values())
+
+    return profile_drive(drive, device, route, steps)
+
+
+def profile_drive(drive: Callable[[int], int], device: torch.device,
+                  route: str, steps: int = 2) -> Dict:
+    """Device time by kernel over ``steps`` calls ``drive(k)`` (each one
+    step, returning its CG iterations), from ``torch.profiler``: the busy
+    share of the window's wall clock, the device events (kernels, copies,
+    fills) per CG iteration and the kernels that take the most device
+    time.  The profiler's own host cost lengthens the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
@@ -1668,8 +1689,7 @@ def profile_phase(step, r: torch.Tensor, u: torch.Tensor, pstate,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for k in range(steps):
-            step(r * (1.0 + 1e-3 * (k + 1)), u, pstate)
-            iters.append(sum(v or 0 for v in _solves(step).values()))
+            iters.append(drive(k))
         _sync(device)
         wall = time.perf_counter() - t
     rows = []
@@ -2041,14 +2061,71 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"unstructured {o2['same_bits_unstructured']}; launches "
         f"{o2['kernel_launches']} [{card}]")
     budget.check("optimizer")
+
+    stat = smoke_statics.statics_phase(
+        dev, n, steps=steps, small=min(smoke_statics.SMALL, n),
+        cells=tuple(min(c, max(1, n // 4))
+                    for c in smoke_statics.FLEXION_CELLS))
+    s1, s2, s3 = stat["s1"], stat["s2"], stat["s3"]
+    su, ref = s1["setup_s"], s1["reference"]
+    log(f"statics (s1) bench.py's second mode, {n}^3 Octet ({s1['dofs']} "
+        f"DOF, {s1['beams']} beams), f32 block Jacobi, tol "
+        f"{smoke_statics.TOL:g}, chunk {smoke_statics.CHUNK}: build_lattice "
+        f"{s1['build_lattice_s']:.2f} s, BCs {s1['bc_s']:.2f} s; setup: "
+        f"frames and ordered table (width {su['width']}) "
+        f"{su['lattice_s']:.3f} s, step {su['step_s']:.3f} s, block factors "
+        f"{su['factors_s']:.4f} s; cold {s1['cold']['iterations']} CG "
+        f"iterations in {s1['cold']['s']:.3f} s "
+        f"({s1['cold_ms_per_iteration']:.3f} ms/iteration); warm s "
+        f"{[round(x, 4) for x in s1['warm_s']]}, iterations "
+        f"{s1['warm_iterations']}: {s1['s_per_step']:.4f} s/step, "
+        f"{s1['ms_per_iteration']:.3f} ms per CG iteration; compliance "
+        f"{s1['compliance']:.9e} (cold {s1['compliance_cold']:.9e}); vs the "
+        f"f64 reference (tol {smoke_statics.REF_TOL:g}, "
+        f"{ref['iterations']} iterations, {ref['s']:.2f} s): c "
+        f"{ref['c_rel_err']:.2e} (tol {smoke_statics.C_TOL:g}), g "
+        f"{ref['g_rel_err']:.2e} (tol {smoke_statics.G_TOL:g}); repeated "
+        f"step bitwise {s1['bitwise']} [{card}]")
+    log(f"statics (s2) {s2['n']}^3 Octet f64 ({s2['dofs']} DOF): step vs "
+        f"step.chunked c {s2['form_c_rel_err']:.2e} (tol "
+        f"{smoke_statics.S2_C_TOL:g}), g {s2['form_g_rel_err']:.2e} (tol "
+        f"{smoke_statics.S2_G_TOL:g}); g.v {s2['directional']:.9e} vs "
+        f"central difference {s2['finite_difference']:.9e} (h "
+        f"{s2['fd_h']:.1e}): rel err {s2['fd_rel_err']:.2e} (tol "
+        f"{smoke_statics.S2_FD_TOL:g}); batch bits {s2['batch_bits']}, "
+        f"descent_loop bits {s2['descent_bits']}, repeat bits "
+        f"{s2['repeat_bits']}; CG iterations block Jacobi "
+        f"{s2['block_iterations']} vs Jacobi {s2['jacobi_iterations']} "
+        f"[{card}]")
+    for name in ("solve_fem_lattice", "solve_fem_penalized"):
+        x = s3[name]
+        log(f"statics (s3) {name} {s3['cells']} BCC ({s3['dofs']} DOF "
+            f"before subdivision) f64: compliance {x['compliance']:.9e}, "
+            f"{x['iterations']} CG iterations, device {x['device_s']:.2f} s"
+            f" vs CPU {x['cpu_s']:.2f} s; rel err vs CPU {x['rel_err']:.2e}"
+            f" (tol {smoke_statics.S3_TOL:g}); same bits on repeat "
+            f"{x['same_bits']} [{card}]")
+    x = s3["homogenize_cell"]
+    log(f"statics (s3) homogenize_cell Octet f64: C00 {x['C00']:.9e}, Ex "
+        f"{x['Ex']:.9e}; device {x['device_s']:.2f} s vs CPU "
+        f"{x['cpu_s']:.2f} s; C rel err vs CPU {x['rel_err']:.2e} (tol "
+        f"{smoke_statics.S3_TOL:g}); same bits on repeat {x['same_bits']} "
+        f"[{card}]")
+    budget.check("statics")
     # the profiles come last: once torch.profiler has traced the card, the
     # process's later launches cost the host more (on an H100 the phases
     # run after the profiles read 30-50% more s/step)
-    reps = dict(mains, design=c)
+    reps = dict(mains, design=c, statics=s1)
     for route, rep in reps.items():
         with _env(**ROUTE_ENV.get(route, ROUTE_ENV["fused"])):
-            rep["profile"] = prof = profile_phase(
-                *rep.pop("profile_inputs"), dev, route)
+            steps_p = PROFILE_STEPS.get(route, 2)
+            if route == "statics":
+                prof = profile_drive(rep.pop("profile_drive"), dev, route,
+                                     steps_p)
+            else:
+                prof = profile_phase(*rep.pop("profile_inputs"), dev, route,
+                                     steps_p)
+            rep["profile"] = prof
         log(f"profile [{route}]: {prof['wall_ms']:.1f} ms wall, device busy "
             f"{prof['device_busy_ms']:.1f} ms (idle share "
             f"{prof['idle_share']:.3f}), iterations {prof['iterations']}, "
@@ -2060,6 +2137,7 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             "fused_cases": fused_cases, "cases64": cases64,
             "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
             "mains": mains, "design": design, "optimizer": opt,
+            "statics": stat,
             "kernels": kernels_line(cases, fused_cases, mains, cases64,
                                     vjp_cases + vjp_grids, probe, design,
                                     opt),

@@ -717,3 +717,97 @@ def test_b5c_same_bits_for_every_cluster_and_layout_on_card(cells, storage):
     assert fz.launches["cheb_full_bf16c"] > 0 and \
         fz.launches["cheb_full"] == 0
     torch.cuda.synchronize()
+
+
+def _bench2(n):
+    """bench.py's second mode at n^3 (``smoke_statics.bench2_config``)."""
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.fem.bc import apply_boundary_conditions
+    from pylatticedso_tpu_torch.smoke_statics import bench2_config
+    lat = build_lattice(bench2_config(n))
+    return lat, apply_boundary_conditions(lat)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["block_jacobi", "jacobi"])
+def test_sharded_step_on_card_matches_the_cpu(precond):
+    """The edge-sharded step (float64) on the card against the CPU: step
+    and step.chunked within 1e-10 (c, g, u), the same CG iterations, and
+    the same bits on repeat on the card."""
+    _need_card()
+    from pylatticedso_tpu_torch.parallel.sharding import (
+        ShardedLattice, make_compliance_step, make_mesh)
+    lat, bc = _bench2(5)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        shl = ShardedLattice(make_mesh(devices=[dev]), lat.nodes, lat.edges,
+                             1013.0, 0.3, dtype=torch.float64)
+        step = make_compliance_step(shl, ~bc.fixed, bc.f_applied, tol=1e-11,
+                                    maxiter=5000, preconditioner=precond)
+        r = shl.radius_padded(lat.radius)
+        c, g = step(r)
+        cc, gc, u, _ = step.chunked(r, chunk=128)
+        out[dev] = (c, g, cc, gc, u, step.chunked.last_iterations)
+        if dev == "cuda":
+            c2, g2 = step(r)
+            cc2, gc2, u2, _ = step.chunked(r, chunk=128)
+            for a, b in zip((c, g, cc, gc, u), (c2, g2, cc2, gc2, u2)):
+                assert torch.equal(a, b)
+    for a, b in zip(out["cuda"][:5], out["cpu"][:5]):
+        err = float((a.cpu() - b).abs().max() / b.abs().max())
+        assert err <= 1e-10, err
+    assert out["cuda"][5] == out["cpu"][5]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_sharded_f32_step_same_bits_on_card():
+    """The float32 chunked step of bench.py's second mode: a warm step
+    repeated from the same (r, u) gives the same bits."""
+    _need_card()
+    from pylatticedso_tpu_torch.parallel.sharding import (
+        ShardedLattice, make_compliance_step, make_mesh)
+    lat, bc = _bench2(8)
+    shl = ShardedLattice(make_mesh(), lat.nodes, lat.edges, 1013.0, 0.3)
+    step = make_compliance_step(shl, ~bc.fixed, bc.f_applied, tol=1e-6)
+    r = shl.radius_padded(lat.radius)
+    _, _, u, _ = step.chunked(r)
+    a = step.chunked(r * 1.001, u)
+    b = step.chunked(r * 1.001, u)
+    for x, y in zip(a[:3], b[:3]):
+        assert torch.equal(x, y)
+    assert a[2].dtype == torch.float32 and step.chunked.last_converged
+
+
+@pytest.mark.gpu
+def test_statics_and_homogenization_on_card_match_the_cpu():
+    """``solve_fem`` (plain and penalized), ``solve_fem_cell`` and
+    ``homogenize_cell`` in float64 on the card against the CPU within
+    1e-10, the same bits on repeat on the card."""
+    _need_card()
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.fem.homogenization import homogenize_cell
+    from pylatticedso_tpu_torch.fem.statics import solve_fem
+    from pylatticedso_tpu_torch.sim.boundary_order import boundary_node_order
+    from pylatticedso_tpu_torch.sim.utils_simulation import solve_fem_cell
+    from pylatticedso_tpu_torch.smoke_statics import (OCTET_CELL,
+                                                      flexion_config)
+    lat = build_lattice(flexion_config((2, 1, 1)))
+    cell = build_lattice(OCTET_CELL)
+    nb = len(boundary_node_order(cell.nodes, [0, 1, 0, 1, 0, 1]))
+    u_b = np.random.default_rng(15).normal(size=(nb, 6)) * 1e-3
+    runs = [lambda d: solve_fem(lat, subdivide_h=0.25, device=d),
+            lambda d: solve_fem(lat, penalization=True, device=d),
+            lambda d: solve_fem_cell(cell, 0, u_b, target_h=0.1, device=d)]
+    for fn in runs:
+        a, b, c = fn("cuda"), fn("cuda"), fn("cpu")
+        assert np.array_equal(a.u, b.u) and np.array_equal(a.reaction,
+                                                           b.reaction)
+        for x, y in ((a.u, c.u), (a.reaction, c.reaction)):
+            assert np.abs(x - y).max() <= 1e-10 * np.abs(y).max()
+        assert abs(a.compliance - c.compliance) <= 1e-10 * abs(c.compliance)
+    h, h2 = homogenize_cell(cell, device="cuda"), homogenize_cell(
+        cell, device="cuda")
+    hc = homogenize_cell(cell, device="cpu")
+    assert np.array_equal(h.C, h2.C)
+    assert np.abs(h.C - hc.C).max() <= 1e-10 * np.abs(hc.C).max()

@@ -34,7 +34,7 @@ def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"structured.py", "multigrid.py", "stencil.py", "fused.py",
             "convert.py", "solve.py", "smoke.py", "probes.py",
-            "chip_smoke.py"} <= names
+            "smoke_statics.py", "sharding.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -58,6 +58,34 @@ def test_scan_covers_the_optimizer_slice(rel):
     path = ROOT / "pylatticedso_tpu_torch" / rel
     assert path in FILES
     assert (ROOT / "pylatticedso_tpu" / rel).exists()
+
+
+# the statics slice's modules: full-lattice statics, the edge-sharded step,
+# the simulation layer and the rest of the design front end
+STATICS_SLICE = ["fem/subdivide.py", "fem/statics.py", "fem/homogenization.py",
+                 "fem/__init__.py", "parallel/sharding.py", "sim/__init__.py",
+                 "sim/penalization.py", "sim/boundary_order.py",
+                 "sim/utils_simulation.py", "design/cleanup.py",
+                 "design/transforms.py", "design/mesh_trimmer.py"]
+
+
+@pytest.mark.parametrize("rel", STATICS_SLICE)
+def test_scan_covers_the_statics_slice(rel):
+    path = ROOT / "pylatticedso_tpu_torch" / rel
+    assert path in FILES
+    assert (ROOT / "pylatticedso_tpu" / rel).exists()
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
+@pytest.mark.parametrize("rel", ["fem/subdivide.py", "sim/penalization.py",
+                                 "sim/boundary_order.py", "design/cleanup.py",
+                                 "design/transforms.py",
+                                 "design/mesh_trimmer.py"])
+def test_framework_free_copies_are_copies(rel):
+    """The numpy-only modules are the port's own copies of the JAX
+    package's, byte for byte."""
+    assert (ROOT / "pylatticedso_tpu_torch" / rel).read_text() == \
+        (ROOT / "pylatticedso_tpu" / rel).read_text()
 
 
 def test_native_builds_its_own_copy():

@@ -9,10 +9,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
-from pylatticedso_tpu_torch import probes, smoke
+from pylatticedso_tpu_torch import probes, smoke, smoke_statics
 
 # one torch thread per test worker: the suite runs several workers at once
 torch.set_num_threads(1)
@@ -233,10 +234,46 @@ def test_phases_rehearse_on_cpu():
     json.dumps(rep["kernels"])
     assert not any("before_ms" in c for k in rep["kernels"]
                    for c in k["cases"])
+    # the full-lattice statics: (s1) bench.py's second mode at n = 4,
+    # (s2) the step's other forms at min(8, n), (s3) the statics and the
+    # simulation layer (the beam-flexion config cut to 1x1x1 cells at n = 4)
+    st = rep["statics"]
+    s1, s2, s3 = st["s1"], st["s2"], st["s3"]
+    assert (s1["n"], s1["dofs"], s1["beams"]) == (4, 6 * 365, 1728)
+    assert s1["bitwise"] and s1["finite"] and s1["u_shape"] == [6, 365]
+    assert s1["setup_s"]["width"] == 12            # Octet's node degree
+    assert len(s1["warm_s"]) == len(s1["warm_iterations"]) == 2
+    assert s1["cold"]["iterations"] > 0 and s1["cold"]["chunked_iters"] == 256
+    assert s1["reference"]["c_rel_err"] <= smoke_statics.C_TOL
+    assert s1["reference"]["g_rel_err"] <= smoke_statics.G_TOL
+    assert s1["reference"]["iterations"] > s1["cold"]["iterations"]
+    assert s1["profile"]["route"] == "statics" and "profile_drive" not in s1
+    assert len(s1["profile"]["iterations"]) == 2
+    assert s2["n"] == 4 and s2["batch_bits"] and s2["descent_bits"]
+    assert s2["repeat_bits"] and s2["fd_rel_err"] <= smoke_statics.S2_FD_TOL
+    assert s2["form_c_rel_err"] <= smoke_statics.S2_C_TOL
+    assert s2["form_g_rel_err"] <= smoke_statics.S2_G_TOL
+    assert s2["block_iterations"] <= s2["jacobi_iterations"]
+    assert s3["cells"] == [1, 1, 1]
+    for name in ("solve_fem_lattice", "solve_fem_penalized",
+                 "homogenize_cell"):
+        assert s3[name]["same_bits"] and s3[name]["rel_err"] == 0.0, name
+    assert s3["solve_fem_lattice"]["iterations"] > 0
+    for tag in ("statics (s1) bench.py's second mode, 4^3 Octet (2190 DOF, "
+                "1728 beams)", "statics (s2) 4^3 Octet f64",
+                "statics (s3) solve_fem_lattice [1, 1, 1] BCC",
+                "statics (s3) solve_fem_penalized",
+                "statics (s3) homogenize_cell Octet f64",
+                "profile [statics]"):
+        assert any(line.startswith(tag) for line in lines), tag
+    assert lines.index(next(x for x in lines if x.startswith("profile ["))) \
+        > lines.index(next(x for x in lines if x.startswith("statics (s3)")))
     # the profile of each route's own step and of path (c)'s, taken after
     # every phase
     for route, main in rep["mains"].items():
         assert main["profile"]["route"] == route
+        assert len(main["profile"]["iterations"]) == \
+            smoke.PROFILE_STEPS.get(route, 2)
         assert "profile_inputs" not in main
         assert any(line.startswith(f"profile [{route}]") for line in lines)
     assert rep["design"]["c"]["profile"]["route"] == "design"
@@ -270,6 +307,28 @@ def test_profile_phase_reports_busy_share_and_b5():
     assert prof["device_busy_ms"] == 0.0 and prof["idle_share"] == 1.0
     assert prof["b5_ms"] == 0.0 and prof["b5_launches"] == 0
     assert prof["wall_ms"] > 0 and prof["phase_s"] >= prof["wall_ms"] / 1e3
+
+
+def test_statics_gates_fail_loudly(monkeypatch):
+    """(s1)'s comparison with its float64 reference and (s2)'s central
+    difference raise when they miss (tolerances set to 0 here), and two
+    results that differ in one bit are not the same bits."""
+    dev = torch.device("cpu")
+    monkeypatch.setattr(smoke_statics, "C_TOL", 0.0)
+    with pytest.raises(AssertionError, match="f64 reference"):
+        smoke_statics.s1_phase(dev, 2, steps=1)
+    monkeypatch.setattr(smoke_statics, "S2_FD_TOL", 0.0)
+    with pytest.raises(AssertionError, match="central difference"):
+        smoke_statics.s2_phase(dev, 2)
+    from pylatticedso_tpu_torch.fem.statics import FEMResult
+    u = np.ones((3, 6))
+    a = FEMResult(u=u, reaction=u, compliance=1.0, energy=0.5,
+                  iterations=1, residual=0.0)
+    b = FEMResult(u=np.nextafter(u, 2.0), reaction=u, compliance=1.0,
+                  energy=0.5, iterations=1, residual=0.0)
+    got = smoke_statics._results_agree(a, b, 1e-10)
+    assert got["ok"] and not got["same_bits"]
+    assert smoke_statics._results_agree(a, a, 0.0)["same_bits"]
 
 
 def test_paired_timing_takes_both_in_turns():
