@@ -24,10 +24,16 @@ bench.py's second mode, the edge-sharded float32 compliance step with
 block Jacobi on the 50^3 Octet lattice (3,030,000 beams), cold and 8
 warm chunked steps against a float64 reference, the step's other forms
 at 8^3 in float64, and the statics, penalized statics and unit-cell
-homogenization on the card against the CPU; last, each of the
-compliance and design-gradient steps and the edge-sharded step take two
-more warm steps under torch.profiler, the unfused routes lo and f32 one
-(device busy time and idle share).
+homogenization on the card against the CPU; then the domain-decomposition
+route (pylatticedso_tpu_torch/smoke_ddm.py): the three-point-bending
+surrogate chain at full width (10x5x5 cells of BCC+Hybrid1+Hybrid4, a
+1,000-sample reduced basis trained on the card, value-and-gradient
+evaluations on the refined matrix-free route and on plain float64 CG),
+the penalized L-beam through optimize_lattice's DDM route, and the exact
+DDM solver against the FEM, the CPU and FE2; last, each of the
+compliance and design-gradient steps, the edge-sharded step and the DDM
+evaluation take two more warm steps under torch.profiler, the unfused
+routes lo and f32 one (device busy time and idle share).
 Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
@@ -43,10 +49,10 @@ import sys
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="write the full report (JSON) here")
-    ap.add_argument("--profile", help="write the profile tables (two warm "
-                    "steps of each route, of the design-gradient path (c) "
-                    "and of the edge-sharded step under torch.profiler) "
-                    "here")
+    ap.add_argument("--profile", help="write the profile tables (warm "
+                    "steps of each route, of the design-gradient path (c), "
+                    "of the edge-sharded step and of the DDM evaluation "
+                    "under torch.profiler) here")
     args = ap.parse_args()
     try:
         import torch
@@ -67,6 +73,7 @@ def main() -> int:
         profs = {route: m["profile"] for route, m in report["mains"].items()}
         profs["design"] = report["design"]["c"]["profile"]
         profs["statics"] = report["statics"]["s1"]["profile"]
+        profs["ddm"] = report["ddm"]["d1"]["profile"]
         with open(args.profile, "w") as fh:
             json.dump(profs, fh, indent=1)
     print(f"wall: {report['wall_s']:.1f} s "

@@ -1,5 +1,5 @@
 """Design optimization of strut radii (PyTorch port of
-``pylatticedso_tpu.opti`` without its DDM route)."""
+``pylatticedso_tpu.opti``)."""
 
 from .density import (KrigingDensity, density_analytic, density_dataset,
                       density_voxel, filter_outliers)
@@ -80,14 +80,15 @@ def optimize_lattice(lattice, max_iterations=None, driver: str = "slsqp",
     ``optimization_informations`` block (LatticeOpti.optimize_lattice parity,
     lattice_opti.py:141-226).
 
-    ``"FEM_STRUCTURED"`` (or ``"FEM_AUTO"`` when the lattice qualifies)
-    uses the dense stencil operator — the fast path for uniform lattices,
-    the hand-written stencil kernels on a CUDA device; anything else uses
-    the full matrix-free operator.  ``simulation_type: "DDM"`` raises
-    ``NotImplementedError``: the surrogate-DDM problem is not ported yet
-    (ROADMAP.md queue A, item 5).  ``kwargs`` reach the problem
-    (``device``, ``dtype``, ``density_model``, ``precond``, ``mg_opts``,
-    ...).  Returns (problem, OptimizationResult).
+    ``simulation_type: "DDM"`` routes through the surrogate-DDM problem
+    (penalized surrogate by default; under a constraint, a feasible start
+    with a move limit, then ``slsqp_polish``); ``"FEM_STRUCTURED"`` (or
+    ``"FEM_AUTO"`` when the lattice qualifies) uses the dense stencil
+    operator — the fast path for uniform lattices, the hand-written stencil
+    kernels on a CUDA device; anything else uses the full matrix-free
+    operator.  ``kwargs`` reach the problem (``device``, ``dtype``,
+    ``density_model``, ``surrogate``, ``precond``, ``mg_opts``, ...).
+    Returns (problem, OptimizationResult).
     """
     cfg = lattice.config.optimization or {}
     sim_type = cfg.get("simulation_type", "FEM")
@@ -100,11 +101,19 @@ def optimize_lattice(lattice, max_iterations=None, driver: str = "slsqp",
         normalized=cfg.get("enable_parameter_normalization", True),
     )
     common.update(kwargs)
+    robust_drive = False
     if sim_type == "DDM":
-        raise NotImplementedError(
-            "simulation_type 'DDM' (the surrogate domain-decomposition "
-            "problem) is not ported yet: ROADMAP.md queue A, item 5")
-    if sim_type in ("FEM_STRUCTURED", "FEM_AUTO"):
+        from .ddm_optimizer import DDMOptimizationProblem
+        # the reference's DDM datasets are built on penalized cells
+        # (its dataset script re-applies set_penalized_beams per radius
+        # sample), so penalization defaults ON for the DDM route
+        common.setdefault("penalization", True)
+        problem = DDMOptimizationProblem(lattice, **common)
+        # modern scipy's C SLSQP needs the feasible-start + move-limit
+        # drive on density-constrained surrogate problems (see
+        # OptimizationProblem.optimize_slsqp)
+        robust_drive = bool(common.get("constraints"))
+    elif sim_type in ("FEM_STRUCTURED", "FEM_AUTO"):
         from .structured_optimizer import StructuredOptimizationProblem
         try:
             problem = StructuredOptimizationProblem(lattice, **common)
@@ -117,7 +126,19 @@ def optimize_lattice(lattice, max_iterations=None, driver: str = "slsqp",
     iters = max_iterations if max_iterations is not None \
         else cfg.get("max_iterations", 20)
     if driver == "slsqp":
-        result = problem.optimize_slsqp(max_iterations=iters)
+        if robust_drive:
+            result1 = problem.optimize_slsqp(max_iterations=iters,
+                                             ftol=cfg.get("ftol", 1e-6),
+                                             feasible_start=True,
+                                             move_limit=0.1)
+            # restart-until-stationary free polish; keeps the better,
+            # feasible point each round (the free polish can regress —
+            # the very scipy>=1.16 pathology the move-limited phase
+            # guards against)
+            result = slsqp_polish(problem, result1, max_iterations=iters,
+                                  ftol=cfg.get("ftol", 1e-6))
+        else:
+            result = problem.optimize_slsqp(max_iterations=iters)
     elif driver == "projected":
         result = problem.optimize_projected(max_iterations=iters)
     else:

@@ -31,14 +31,20 @@ The full-lattice statics run through ``smoke_statics.statics_phase``:
 (s1) bench.py's second mode, the edge-sharded float32 step on the n^3
 Octet lattice; (s2) its other forms at 8^3 in float64; (s3) the statics
 and the simulation layer on the device against the CPU.  This path has
-no kernel of its own (plain torch, as the JAX package's is XLA).
+no kernel of its own (plain torch, as the JAX package's is XLA).  The
+domain-decomposition route runs through ``smoke_ddm.ddm_phase``: (d1)
+the three-point-bending surrogate chain at full width (the reduced basis
+trained on the card, refined and plain float64 evaluations), (d2) the
+penalized L-beam through ``optimize_lattice``'s DDM route, (d3) the exact
+DDM solver against the FEM, the CPU and FE2; no kernel of its own either
+(JAX computes it outside Pallas).
 
 B5 is also run under every cluster size and layout of d the card can hold,
 and B5c under every cluster size, layout and group size (``_b5_sweep``:
 the same bits as its plan's, each timed by CUDA events and by CUDA-graph
-replay).  Last, each route's step, path (c)'s and (s1)'s take two
-more warm steps under ``torch.profiler``, the unfused routes lo and f32
-one (``PROFILE_STEPS``; ``profile_phase``, ``profile_drive``: device
+replay).  Last, each route's step, path (c)'s, (s1)'s and (d1)'s take
+two more warm steps under ``torch.profiler``, the unfused routes lo and
+f32 one (``PROFILE_STEPS``; ``profile_phase``, ``profile_drive``: device
 busy time and idle share).  ``run(device, n)`` runs every phase and returns a report;
 it raises on the first failure.  ``chip_smoke.py`` calls it with
 ``device="cuda"``, n = 50; the CPU tests rehearse it at n = 4, where each
@@ -58,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import probes, smoke_statics
+from . import probes, smoke_ddm, smoke_statics
 from .fem.solve import pcg
 from .kernels import build
 from .kernels.fused import KERNELS as FUSED_KERNELS
@@ -1692,18 +1698,20 @@ def profile_drive(drive: Callable[[int], int], device: torch.device,
             iters.append(drive(k))
         _sync(device)
         wall = time.perf_counter() - t
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies, fills): the host ops
-        # that launched them carry the same device time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    # device-side events only (kernels, copies, fills; the host ops that
+    # launched them carry the same device time), summed by name straight
+    # from the trace's records: the same sums and counts as key_averages,
+    # whose Python event tree takes ~0.6 ms an event (91 s of the DDM
+    # profile's ~150,000 device events, against 3.4 s here)
+    by_name: Dict[str, List] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = e.self_cuda_time_total
-        if dev_us > 0:
-            rows.append((e.key, dev_us / 1e3, e.count))
-    rows.sort(key=lambda x: -x[1])
+        row = by_name.setdefault(e.name(), [0.0, 0])
+        row[0] += e.duration_ns() / 1e6
+        row[1] += 1
+    rows = sorted(((k, ms, c) for k, (ms, c) in by_name.items() if ms > 0),
+                  key=lambda x: -x[1])
     busy_ms = sum(x[1] for x in rows)
     events = sum(x[2] for x in rows)
     b5 = [x for x in rows if "mg_cheb_full" in x[0]]
@@ -1813,13 +1821,95 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
     return out
 
 
+def _evals(evals) -> str:
+    """A DDM route's evaluations: cold s, warm s and CG iterations."""
+    return (f"cold {evals[0]['s']:.3f} s, warm s "
+            f"{[round(e['s'], 3) for e in evals[1:]]} (mean "
+            f"{np.mean([e['s'] for e in evals[1:]]):.3f}); CG iterations "
+            f"forward/adjoint {[(e['forward'], e['adjoint']) for e in evals]}")
+
+
+def log_ddm(ddm: Dict, card: str, log: Callable[[str], None]) -> None:
+    """The DDM phase's printed lines (``smoke_ddm``)."""
+    d1, d2, d3 = ddm["d1"], ddm["d2"], ddm["d3"]
+    cells = "x".join(str(c) for c in d1["cells"])
+    log(f"ddm (d1) three-point bending {cells} BCC+Hybrid1+Hybrid4 "
+        f"({d1['n_cells']} cells, {d1['params']} radii, {d1['nodes']} "
+        f"nodes, {d1['beams']} beams): build_lattice "
+        f"{d1['build_lattice_s']:.2f} s; offline {d1['samples']} samples: "
+        f"train {d1['train_s']:.2f} s (chained condensation f64 on the "
+        f"device {d1['condense_s']:.2f} s, greedy on the host "
+        f"{d1['greedy_s']:.2f} s), m_rb {d1['m_rb']} (n_b "
+        f"{d1['n_boundary']}); interface {d1['interface_dofs']} DOF (6N) on "
+        f"{d1['interface_nodes']} interface nodes, {d1['free_dofs']} free; "
+        f"problem {d1['problem_s']:.2f} s [{card}]")
+    log(f"ddm (d1) refined route ({d1['route']}, f32 CG + f64 residuals, "
+        f"cg_tol {smoke_ddm.CG_TOL:g}): {_evals(d1['refined_evals'])} "
+        f"[{card}]")
+    log(f"ddm (d1) plain f64 CG (refined=False): "
+        f"{_evals(d1['plain_evals'])} [{card}]")
+    g = d1["refined_vs_plain"]
+    log(f"ddm (d1) gates: surrogate S at {d1['gate_samples']} "
+        f"training samples vs direct chained condensation rel Frobenius "
+        f"{d1['surrogate_rel_err']:.2e} (tol {smoke_ddm.SURROGATE_TOL:g}), "
+        f"device vs CPU {d1['device_vs_cpu_rel_err']:.2e} (tol "
+        f"{smoke_ddm.DEVICE_CPU_TOL:g}); refined vs plain at cg_tol "
+        f"{d1['gate_tol']:g}: objective {g['objective']:.2e} (tol "
+        f"{smoke_ddm.REFINED_OBJ_TOL:g}), gradient {g['gradient']:.2e} (tol "
+        f"{smoke_ddm.REFINED_GRAD_TOL:g}), CG iterations "
+        f"{d1['gate_solves']}; at cg_tol {smoke_ddm.CG_TOL:g} (not gated): "
+        f"objective {d1['at_cg_tol']['objective']:.2e}, gradient "
+        f"{d1['at_cg_tol']['gradient']:.2e}; g.v {d1['directional']:.9e} vs "
+        f"central difference {d1['finite_difference']:.9e}: rel err "
+        f"{d1['fd_rel_err']:.2e} (tol {smoke_ddm.FD_TOL:g}); repeated "
+        f"evaluation bitwise {d1['bitwise']} [{card}]")
+    log(f"ddm (d2) L-beam ({d2['cells']} cells, {d2['geometries']} "
+        f"geometries, {d2['params']} radii, {d2['interface_dofs']} interface "
+        f"DOF, dense refined {d2['dense'] and d2['refined']}) through "
+        f"optimize_lattice DDM: penalized surrogate (numpy) step "
+        f"{d2['step']:g}, {d2['samples']} samples, m_rb {d2['m_rb']}: train "
+        f"{d2['train_s']:.2f} s (condensation {d2['condense_s']:.2f} s, "
+        f"greedy {d2['greedy_s']:.2f} s); drive {d2['drive_s']:.2f} s, "
+        f"{d2['iterations']} iterations, {d2['accepted']} accepted; "
+        f"objective {d2['start_objective']:.9e} (feasible start) -> "
+        f"{d2['objective']:.9e}, density {d2['density']:.9f} (bound "
+        f"{smoke_ddm.DENSITY:g}); s per evaluation "
+        f"{[round(x, 4) for x in d2['eval_s']]}, refinement passes "
+        f"{d2['eval_solves']}; {d2['message']} [{card}]")
+    c = d3["cantilever"]
+    log(f"ddm (d3) cantilever_ddm {c['cells']} BCC f64: DDM vs "
+        f"solve_fem(subdivide 0.05, penalized) interface u rel L2 "
+        f"{c['u_rel_l2']:.2e}, compliance {c['compliance_rel_err']:.2e} (tol "
+        f"{smoke_ddm.FEM_TOL:g}); {c['groups']} Schur groups; DDM "
+        f"{c['ddm_iterations']} CG iterations in {c['ddm_s']:.3f} s, FEM "
+        f"{c['fem_iterations']} in {c['fem_s']:.3f} s [{card}]")
+    t = d3["tpb_penalized"]
+    log(f"ddm (d3) three-point bending {t['cells']} penalized exact: "
+        f"{t['groups']} Schur group(s), {t['interior_dofs']} interior DOF; "
+        f"condensation f64 device {t['device_condense_s']:.2f} s, CPU "
+        f"{t['cpu_condense_s']:.2f} s; solve f64 device "
+        f"{t['device_iterations']} iterations in {t['device_solve_s']:.3f} "
+        f"s, CPU {t['cpu_iterations']} in {t['cpu_solve_s']:.3f} s, f32 "
+        f"operator refined {t['f32_iterations']} in {t['f32_solve_s']:.3f} "
+        f"s; device vs CPU {t['cpu_rel_err']:.2e} (tol "
+        f"{smoke_ddm.D3_CPU_TOL:g}), f32 refined vs f64 rel L2 "
+        f"{t['f32_rel_l2']:.2e} (tol {smoke_ddm.F32_TOL:g}) [{card}]")
+    f = d3["fe2"]
+    log(f"ddm (d3) FE2 one BCC cell, target_h 0.3: {f['columns']} inner "
+        f"solves in {f['s']:.2f} s; vs schur_complement rel err "
+        f"{f['rel_err']:.2e} (tol {smoke_ddm.FE2_TOL:g}) [{card}]")
+
+
 def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
 def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
-        budget_s: float = 600.0, log: Callable[[str], None] = print) -> Dict:
-    """Every phase in order; raises on the first failure."""
+        budget_s: float = 600.0, log: Callable[[str], None] = print,
+        ddm_size: Dict = smoke_ddm.FULL) -> Dict:
+    """Every phase in order; raises on the first failure.  ``ddm_size``
+    sets the DDM phase's cells, grids and depth (``smoke_ddm.FULL`` on the
+    card, ``smoke_ddm.SMALL`` in the CPU rehearsal)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke run needs the card")
@@ -2112,14 +2202,18 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         f"{smoke_statics.S3_TOL:g}); same bits on repeat {x['same_bits']} "
         f"[{card}]")
     budget.check("statics")
+
+    ddm = smoke_ddm.ddm_phase(dev, ddm_size)
+    log_ddm(ddm, card, log)
+    budget.check("ddm")
     # the profiles come last: once torch.profiler has traced the card, the
     # process's later launches cost the host more (on an H100 the phases
     # run after the profiles read 30-50% more s/step)
-    reps = dict(mains, design=c, statics=s1)
+    reps = dict(mains, design=c, statics=s1, ddm=ddm["d1"])
     for route, rep in reps.items():
         with _env(**ROUTE_ENV.get(route, ROUTE_ENV["fused"])):
             steps_p = PROFILE_STEPS.get(route, 2)
-            if route == "statics":
+            if "profile_drive" in rep:
                 prof = profile_drive(rep.pop("profile_drive"), dev, route,
                                      steps_p)
             else:
@@ -2137,7 +2231,7 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             "fused_cases": fused_cases, "cases64": cases64,
             "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
             "mains": mains, "design": design, "optimizer": opt,
-            "statics": stat,
+            "statics": stat, "ddm": ddm,
             "kernels": kernels_line(cases, fused_cases, mains, cases64,
                                     vjp_cases + vjp_grids, probe, design,
                                     opt),

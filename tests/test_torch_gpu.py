@@ -811,3 +811,81 @@ def test_statics_and_homogenization_on_card_match_the_cpu():
     hc = homogenize_cell(cell, device="cpu")
     assert np.array_equal(h.C, h2.C)
     assert np.abs(h.C - hc.C).max() <= 1e-10 * np.abs(hc.C).max()
+
+
+def _ddm_lattice(cells=(2, 1, 1)):
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.smoke_ddm import tpb_config
+    return build_lattice(tpb_config(cells))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solve_ddm_on_card_matches_the_cpu(dtype):
+    """``solve_ddm`` on the penalized three-point-bending lattice: the
+    float64 system on the card within 1e-10 of the CPU's, the float32
+    operator (the card's default) with the refined solve within 1e-8; the
+    same bits on repeat on the card."""
+    _need_card()
+    from pylatticedso_tpu_torch.ddm.solver import build_ddm_system, solve_ddm
+    lat = _ddm_lattice()
+    sys_ = build_ddm_system(lat, dtype=None if dtype == torch.float32
+                            else dtype, device="cuda")
+    assert sys_.S[0].dtype == dtype
+    cpu = solve_ddm(lat, tol=1e-12, device="cpu")
+    a = solve_ddm(lat, system=sys_, tol=1e-12)
+    b = solve_ddm(lat, system=sys_, tol=1e-12)
+    assert np.array_equal(a.u, b.u) and a.compliance == b.compliance
+    tol = 1e-10 if dtype == torch.float64 else 1e-8
+    assert np.abs(a.u - cpu.u).max() <= tol * np.abs(cpu.u).max()
+    assert abs(a.compliance - cpu.compliance) <= tol * abs(cpu.compliance)
+
+
+@pytest.mark.gpu
+def test_chained_schur_on_card_matches_the_cpu():
+    """The chained condensation of the three-geometry cell over a batch of
+    radii: within 1e-12 of the CPU's, the same bits on repeat (the
+    junction assembly is an ordered sum)."""
+    _need_card()
+    from pylatticedso_tpu_torch.ddm.schur import (discretize_cell_chained,
+                                                  schur_batch_chained)
+    lat = _ddm_lattice()
+    disc = discretize_cell_chained(lat, 0, share_weights=True)
+    mus = np.random.default_rng(16).uniform(0.01, 0.1, size=(64, 3))
+    a = schur_batch_chained(disc, mus, 1013.0, 0.3, device="cuda")
+    b = schur_batch_chained(disc, mus, 1013.0, 0.3, device="cuda")
+    c = schur_batch_chained(disc, mus, 1013.0, 0.3, device="cpu")
+    assert torch.equal(a, b)
+    assert float((a.cpu() - c).abs().max() / c.abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "matrix_free"])
+def test_surrogate_value_and_gradient_same_bits_on_card(dense, monkeypatch,
+                                                        tmp_path):
+    """A surrogate-DDM value-and-gradient on the card repeated from the
+    same theta and warm start gives the same bits (the gathers' gradients
+    and the dense interface matrix are ordered sums), on both refined
+    branches, and agrees with the CPU's plain float64 solve."""
+    _need_card()
+    from pylatticedso_tpu_torch.opti import ddm_optimizer
+    monkeypatch.chdir(tmp_path)
+    if not dense:
+        monkeypatch.setattr(ddm_optimizer, "DENSE_MAX_DOF", 0)
+    lat = _ddm_lattice()
+    kw = dict(opt_params={"type": "unit_cell"}, constraints={},
+              cg_tol=1e-11, cg_maxiter=2000, grid_step=0.0225)
+    prob = ddm_optimizer.DDMOptimizationProblem(lat, device="cuda", **kw)
+    assert prob.refined and (prob._dense is not None) == dense
+    x = np.clip(prob.param.x0 + 0.05, 0.0, 1.0)
+    u0 = torch.zeros((lat.num_nodes, 6), dtype=torch.float64, device="cuda")
+    (va, ua), ga = prob._vg_aux(x, u0)
+    (vb, ub), gb = prob._vg_aux(x, u0)
+    assert torch.equal(va, vb) and torch.equal(ga, gb) and torch.equal(ua, ub)
+    cpu = ddm_optimizer.DDMOptimizationProblem(
+        lat, device="cpu", surrogate=ddm_optimizer.SchurSurrogate(
+            prob._surrogate.basis, prob._surrogate.alpha,
+            prob._surrogate.samples, device="cpu"), **kw)
+    (vc, _), gc = cpu._vg_aux(x, u0.cpu())
+    assert abs(float(va) - float(vc)) <= 1e-9 * abs(float(vc))
+    assert float((ga.cpu() - gc).abs().max() / gc.abs().max()) <= 1e-6

@@ -77,6 +77,24 @@ def test_scan_covers_the_statics_slice(rel):
     assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
 
 
+# the domain-decomposition slice's modules: cell condensation, the interface
+# solver, the reduced-basis surrogate and the surrogate-DDM optimizer
+DDM_SLICE = ["ddm/__init__.py", "ddm/schur.py", "ddm/solver.py",
+             "ddm/surrogate.py", "opti/ddm_optimizer.py"]
+
+
+@pytest.mark.parametrize("rel", DDM_SLICE)
+def test_scan_covers_the_ddm_slice(rel):
+    path = ROOT / "pylatticedso_tpu_torch" / rel
+    assert path in FILES
+    assert (ROOT / "pylatticedso_tpu" / rel).exists()
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
+def test_scan_covers_the_ddm_smoke():
+    assert ROOT / "pylatticedso_tpu_torch/smoke_ddm.py" in FILES
+
+
 @pytest.mark.parametrize("rel", ["fem/subdivide.py", "sim/penalization.py",
                                  "sim/boundary_order.py", "design/cleanup.py",
                                  "design/transforms.py",

@@ -212,10 +212,27 @@ def test_warped_lattice_raises_instead_of_rerouting(sim_type):
                          device="cpu")
 
 
-def test_ddm_raises():
+def test_ddm_routes(tmp_path, monkeypatch):
+    """``"DDM"`` builds the surrogate-DDM problem and trains its surrogate
+    with penalization on (the JAX package's default for the route), under
+    the working directory (here a temporary one)."""
+    from pylatticedso_tpu_torch.opti import ddm_optimizer
+    monkeypatch.chdir(tmp_path)
+    trained = []
+    real = ddm_optimizer.build_schur_surrogate
+
+    def spy(*args, **kwargs):
+        trained.append(kwargs)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ddm_optimizer, "build_schur_surrogate", spy)
     lat = _opti_lattice((2, 1, 1), "DDM")
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
-        optimize_lattice(lat, device="cpu")
+    problem, res = optimize_lattice(
+        lat, density_model=KrigingDensity.load(OCTET_FIT), device="cpu")
+    assert isinstance(problem, ddm_optimizer.DDMOptimizationProblem)
+    assert len(trained) == 1 and trained[0]["penalization"] is True
+    assert not problem.refined               # the CPU: plain float64 CG
+    assert res.iterations >= 1 and np.isfinite(res.objective)
 
 
 def test_unknown_driver_raises():
@@ -276,6 +293,21 @@ def test_port_density_fit_is_the_jax_package_cache():
     assert port.read_bytes() == OCTET_FIT.read_bytes()
     a, b = KrigingDensity.load(port), KrigingDensity.load(OCTET_FIT)
     r = torch.linspace(0.01, 0.1, 7, dtype=torch.float64)[:, None]
+    assert torch.equal(a.mean(r), b.mean(r))
+
+
+def test_port_hybrid_density_fit_is_the_jax_package_cache():
+    """The DDM phase of the chip run loads the BCC+Hybrid1+Hybrid4 fit
+    from the port's own tree (``smoke_ddm.HYBRID_DENSITY_FIT``): the same
+    bytes as the JAX package's cached fit, and the same model."""
+    from pylatticedso_tpu_torch import smoke_ddm
+    port = smoke_ddm.HYBRID_DENSITY_FIT
+    jax_fit = (ROOT / "data/outputs/density_datasets"
+               / "BCC_Hybrid1_Hybrid4_0.01_0.1_10.gpr.npz")
+    assert port.parent == ROOT / "pylatticedso_tpu_torch" / "fits"
+    assert port.read_bytes() == jax_fit.read_bytes()
+    a, b = KrigingDensity.load(port), KrigingDensity.load(jax_fit)
+    r = torch.linspace(0.01, 0.1, 7, dtype=torch.float64)[:, None].repeat(1, 3)
     assert torch.equal(a.mean(r), b.mean(r))
 
 

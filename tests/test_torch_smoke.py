@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from pylatticedso_tpu_torch import probes, smoke, smoke_statics
+from pylatticedso_tpu_torch import probes, smoke, smoke_ddm, smoke_statics
+from pylatticedso_tpu_torch.opti import ddm_optimizer
 
 # one torch thread per test worker: the suite runs several workers at once
 torch.set_num_threads(1)
@@ -24,7 +25,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_phases_rehearse_on_cpu():
     lines = []
     rep = smoke.run(device="cpu", n=4, steps=2, windows=1,
-                    log=lines.append)
+                    log=lines.append, ddm_size=smoke_ddm.SMALL)
     assert rep["device"]["platform"] == "cpu"
     assert [c["case"].split()[0] for c in rep["cases"]] == \
         ["Octet", "Octet", "BCC+Hybrid1+Hybrid4"]
@@ -268,6 +269,46 @@ def test_phases_rehearse_on_cpu():
         assert any(line.startswith(tag) for line in lines), tag
     assert lines.index(next(x for x in lines if x.startswith("profile ["))) \
         > lines.index(next(x for x in lines if x.startswith("statics (s3)")))
+    # the DDM phase at the rehearsal's size (2x1x1 three-point bending, a
+    # 5-point grid per geometry; the 3-cell L-beam, a 3-point grid), after
+    # the statics and before the profiles, under every gate
+    d1, d2, d3 = (rep["ddm"][k] for k in ("d1", "d2", "d3"))
+    assert (d1["cells"], d1["n_cells"], d1["params"]) == ([2, 1, 1], 2, 6)
+    assert d1["samples"] == 125 and 0 < d1["m_rb"] <= 125
+    assert d1["refined"] and d1["route"] == "dense"   # 6N = 366 here
+    assert d1["interface_dofs"] == 6 * d1["nodes"]
+    assert 0 < d1["free_dofs"] <= 6 * d1["interface_nodes"]
+    assert d1["surrogate_rel_err"] <= smoke_ddm.SURROGATE_TOL
+    assert d1["device_vs_cpu_rel_err"] == 0.0       # the CPU on both sides
+    assert d1["refined_vs_plain"]["objective"] <= smoke_ddm.REFINED_OBJ_TOL
+    assert d1["refined_vs_plain"]["gradient"] <= smoke_ddm.REFINED_GRAD_TOL
+    assert d1["fd_rel_err"] <= smoke_ddm.FD_TOL and d1["bitwise"]
+    for evals in (d1["refined_evals"], d1["plain_evals"]):
+        assert len(evals) == 3
+        assert all(e["objective"] > 0 and e["forward"] > 0
+                   and e["adjoint"] > 0 for e in evals)
+    assert d1["profile"]["route"] == "ddm" and "profile_drive" not in d1
+    assert len(d1["profile"]["iterations"]) == 2
+    assert d2["cells"] == 3 and d2["dense"] and d2["refined"]
+    assert d2["accepted"] >= 1 and d2["objective"] <= d2["start_objective"]
+    assert d2["density"] <= smoke_ddm.DENSITY + smoke_ddm.DENSITY_SLACK
+    assert d3["cantilever"]["u_rel_l2"] <= smoke_ddm.FEM_TOL
+    assert d3["cantilever"]["compliance_rel_err"] <= smoke_ddm.FEM_TOL
+    t = d3["tpb_penalized"]
+    assert t["groups"] == 1 and t["cpu_rel_err"] == 0.0
+    assert t["f32_rel_l2"] <= smoke_ddm.F32_TOL
+    assert d3["fe2"]["rel_err"] <= smoke_ddm.FE2_TOL
+    for tag in ("ddm (d1) three-point bending 2x1x1 BCC+Hybrid1+Hybrid4 "
+                "(2 cells, 6 radii", "ddm (d1) refined route (dense",
+                "ddm (d1) plain f64 CG", "ddm (d1) gates:",
+                "ddm (d2) L-beam (3 cells", "ddm (d3) cantilever_ddm",
+                "ddm (d3) three-point bending [2, 1, 1] penalized exact",
+                "ddm (d3) FE2", "profile [ddm]"):
+        assert any(line.startswith(tag) for line in lines), tag
+    assert lines.index(next(x for x in lines if x.startswith("ddm (d1)"))) \
+        > lines.index(next(x for x in lines if x.startswith("statics (s3)")))
+    assert lines.index(next(x for x in lines if x.startswith("profile ["))) \
+        > lines.index(next(x for x in lines if x.startswith("ddm (d3) FE2")))
     # the profile of each route's own step and of path (c)'s, taken after
     # every phase
     for route, main in rep["mains"].items():
@@ -329,6 +370,33 @@ def test_statics_gates_fail_loudly(monkeypatch):
     got = smoke_statics._results_agree(a, b, 1e-10)
     assert got["ok"] and not got["same_bits"]
     assert smoke_statics._results_agree(a, a, 0.0)["same_bits"]
+
+
+def test_ddm_matrix_free_route_rehearses(monkeypatch):
+    """(d1)'s card route, the matrix-free refined solve (6N = 27,246 >
+    DENSE_MAX_DOF at full width), at the rehearsal's size: the same gates
+    with the dense plan switched off."""
+    monkeypatch.setattr(ddm_optimizer, "DENSE_MAX_DOF", 0)
+    d1 = smoke_ddm.d1_phase(torch.device("cpu"), smoke_ddm.SMALL)
+    assert d1["route"] == "matrix-free" and d1["refined"]
+    assert d1["refined_vs_plain"]["objective"] <= smoke_ddm.REFINED_OBJ_TOL
+    assert d1["refined_vs_plain"]["gradient"] <= smoke_ddm.REFINED_GRAD_TOL
+    assert d1["bitwise"] and d1["fd_rel_err"] <= smoke_ddm.FD_TOL
+    # the f32 inner CG takes more iterations than the dense factor's passes
+    assert all(e["forward"] > 3 for e in d1["refined_evals"])
+    assert d1["profile_drive"](0) > 0
+
+
+def test_ddm_gates_fail_loudly(monkeypatch):
+    """(d2)'s density gate raises when it misses (its slack made negative
+    here), and (d3)'s FE2 gate (its tolerance set to 0)."""
+    dev = torch.device("cpu")
+    monkeypatch.setattr(smoke_ddm, "DENSITY_SLACK", -1.0)
+    with pytest.raises(AssertionError, match=r"\(d2\) objective"):
+        smoke_ddm.d2_phase(dev, smoke_ddm.SMALL)
+    monkeypatch.setattr(smoke_ddm, "FE2_TOL", 0.0)
+    with pytest.raises(AssertionError, match="FE2 vs exact"):
+        smoke_ddm.d3_phase(dev, smoke_ddm.SMALL)
 
 
 def test_paired_timing_takes_both_in_turns():
