@@ -30,7 +30,14 @@ surrogate chain at full width (10x5x5 cells of BCC+Hybrid1+Hybrid4, a
 1,000-sample reduced basis trained on the card, value-and-gradient
 evaluations on the refined matrix-free route and on plain float64 CG),
 the penalized L-beam through optimize_lattice's DDM route, and the exact
-DDM solver against the FEM, the CPU and FE2; last, each of the
+DDM solver against the FEM, the CPU and FE2; then warped lattices
+(pylatticedso_tpu_torch/smoke_warped.py): the 50^3 Octet under a taper
+and twist on the unfused f32 multigrid route through the warped stencil
+kernel B1w against a float64 step, B1w (float32, float64) and its
+r^2-cotangent against their plain versions at every multigrid grid, the
+warped cantilever through optimize_lattice's FEM_AUTO route against the
+unstructured problem, and the solid mesh's signed distance on the card
+against the CPU; last, each of the
 compliance and design-gradient steps, the edge-sharded step and the DDM
 evaluation take two more warm steps under torch.profiler, the unfused
 routes lo and f32 one (device busy time and idle share).
@@ -56,7 +63,7 @@ def main() -> int:
     args = ap.parse_args()
     try:
         import torch
-        from pylatticedso_tpu_torch import smoke
+        from pylatticedso_tpu_torch import smoke, smoke_warped
     except ImportError as e:
         print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
         return 2
@@ -65,7 +72,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     report = smoke.run(device="cuda", n=50,
-                       log=lambda s: print(s, flush=True))
+                       log=lambda s: print(s, flush=True),
+                       warped_size=smoke_warped.FULL)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1, default=str)

@@ -172,6 +172,69 @@ __device__ __forceinline__ void slab_acc(
   }
 }
 
+// ---------------------------------------------------------- warped sides
+// A warped lattice (a node_transform moves the nodes, the grid topology
+// stays) carries its frame and length per beam instance, not per template
+// edge: the ghost-padded geometry field geo [n_e, 10, Xp, Yp, Zp] of the
+// JAX gather form (pylatticedso_tpu/parallel/structured.py:354-374),
+// rows 0-8 the frame (t, a1, a2 by xyz), row 9 the length, 1.0 in the
+// padding.  A side reads them at its r^2 anchor, as the JAX gather form
+// does (:560-565): row k of edge ei at the anchor is r2 position + 9 ei Fp
+// + k Fp, since the table's dr already holds ei * Fp.  1 / L is an IEEE
+// division in C, as JAX computes 1.0 / L in its dtype (the build has no
+// --use_fast_math), and L / 2 is L * 0.5.
+//
+// SideFrame is what side_acc reads of a side record, held in registers,
+// so a warped side goes through side_acc unchanged: the same strain,
+// force and row arithmetic in the same order.
+template <typename C>
+struct SideFrame {
+  int side;
+  C t[3], a1[3], a2[3];
+  C invL, halfL;
+};
+
+// the frame of the side whose row k of geometry lies at g + k * Fp
+template <typename C, typename T>
+__device__ __forceinline__ SideFrame<C> side_frame(const T* __restrict__ g,
+                                                   int Fp, int side) {
+  SideFrame<C> fr;
+  fr.side = side;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    fr.t[k] = ld(g + k * Fp);
+    fr.a1[k] = ld(g + (3 + k) * Fp);
+    fr.a2[k] = ld(g + (6 + k) * Fp);
+  }
+  const C L = ld(g + 9 * Fp);
+  fr.invL = (C)1 / L;
+  fr.halfL = L * (C)0.5;
+  return fr;
+}
+
+// slab_acc on a warped lattice: the sides of class c in table order, each
+// with the frame read at its r^2 anchor (gq = geo + q)
+template <typename C, typename SideT, typename T>
+__device__ __forceinline__ void slab_acc_warped(
+    const T* __restrict__ u, int Fp, int q, const T* __restrict__ r2q,
+    const T* __restrict__ gq, int c, const SideT* __restrict__ sides,
+    int s_begin, int s_end, C E, C kG, C G2, C acc[6]) {
+  C us[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) us[k] = ld(u + (c * 6 + k) * Fp + q);
+  for (int s = s_begin; s < s_end; ++s) {
+    const SideT& sd = sides[s];
+    const T* ub = u + q + sd.du;
+    C uo[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) uo[k] = ld(ub + k * Fp);
+    const C r2 = ld(r2q + sd.dr);
+    const SideFrame<C> fr =
+        side_frame<C>(gq + sd.dr + 9 * sd.ei * Fp, Fp, sd.side);
+    side_acc<C, SideFrame<C>>(fr, us, uo, r2, E, kG, G2, acc);
+  }
+}
+
 // ------------------------------------------------------------- dense form
 // The bf16-compute instances of B3-B5 (mg_fused.cu, PLDSO_MG_FUSED_COMPUTE
 // =bf16) follow the TPU kernels' dense form, not the gather form above:

@@ -75,6 +75,23 @@
 // 1.1-1.2x in float and bfloat16; in double faster than a slab build
 // whose threads looped over classes, but ~1.1x this one, PERF.md).
 
+// B1w, the warped variant (no TPU kernel: the JAX package's Pallas path
+// declines warped lattices, stencil_pallas.py:88-92, and runs its XLA
+// gather form with per-instance geometry fields, structured.py:354-374
+// and :560-565; the port needs a kernel because a CUDA tensor at a kernel
+// wrapper never takes the plain form).  The same slab plan, side table
+// and side loop as B1 (slab_acc_warped in stencil_body.cuh), each side's
+// frame and length read from the geometry field at its r^2 anchor, and
+// the warped r^2-cotangent: stencil_vjp_r2_kernel with W, reading the
+// beam's frame once at its anchor.  Bound on an H100 SXM at 50^3 Octet:
+// the geometry alone is 10 rows of 24 padded edge fields, 143 MB in float
+// (286 MB in double) against B1's 41 MB of u, r^2 and output, so B1w is
+// bound by bytes: 184 MB -> ~0.055 ms in float, ~0.110 ms in double, if
+// each geometry value is read once.  Each instance's frame is read by its
+// two sides from two output points, so a simple slab kernel reads it up
+// to twice (through L2 when the neighbour slab is near).  A layout that
+// derives a1 and a2 from t on the device (4 rows, not 10) is a later
+// redesign.
 #include "stencil_body.cuh"
 
 // One block per slab (stencil_body.cuh): blockIdx.y is the interior plane
@@ -97,6 +114,32 @@ stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
   C acc[6] = {0, 0, 0, 0, 0, 0};
   slab_acc<C, SideT>(up, Fp, q, r2p + q, c, sides, class_start[c],
                      class_start[c + 1], E, kG, G2, acc);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
+}
+
+// B1w: stencil_matvec_kernel on a warped lattice, the frames from the
+// geometry field geo [n_e, 10, Xp, Yp, Zp] (stencil_body.cuh, "warped
+// sides")
+template <typename T, typename C, typename SideT>
+__global__ void __launch_bounds__(SLAB_THREADS)
+stencil_matvec_warped_kernel(const T* __restrict__ up,
+                             const T* __restrict__ r2p,
+                             const T* __restrict__ geo, T* __restrict__ out,
+                             const SideT* __restrict__ sides,
+                             const int* __restrict__ class_start, int run,
+                             int X, int Y, int Z, C E, C kG, C G2) {
+  const int Yp = Y + 2, Zp = Z + 2, Fp = (X + 2) * Yp * Zp;
+  const int c = threadIdx.x / run;
+  const int f = blockIdx.x * run + (threadIdx.x - c * run);
+  const int x = blockIdx.y, y = f / Zp - 1, z = f - (y + 1) * Zp - 1;
+  if (y < 0 || y >= Y || z < 0 || z >= Z) return;
+  const int q = (x + 1) * Yp * Zp + f;
+  const int N = X * Y * Z, pt = (x * Y + y) * Z + z;
+  C acc[6] = {0, 0, 0, 0, 0, 0};
+  slab_acc_warped<C, SideT>(up, Fp, q, r2p + q, geo + q, c, sides,
+                            class_start[c], class_start[c + 1], E, kG, G2,
+                            acc);
 #pragma unroll
   for (int k = 0; k < 6; ++k) st(out + (c * 6 + k) * N + pt, acc[k]);
 }
@@ -131,7 +174,10 @@ stencil_matvec_kernel(const T* __restrict__ up, const T* __restrict__ r2p,
 // the edge's records are one address per warp and every load of a warp is
 // contiguous.  Threads of 2 or 4 points (a lane's points BEAM_RUN apart)
 // were measured and dropped: with the registers they take, neither was
-// faster on an H100 in every run (PERF.md).
+// faster on an H100 in every run (PERF.md).  With W (a warped lattice)
+// the beam's frame and length come from the geometry field at its anchor
+// Q, rows e * 10 + k, read once for both sides (side_frame); otherwise
+// from side A's record, and geo is not read.
 #define BEAM_RUN 32
 #define BEAM_EDGES (SLAB_THREADS / BEAM_RUN)
 
@@ -145,10 +191,11 @@ __device__ __forceinline__ bool endpoint_interior(int px, int py, int pz,
       && (unsigned)(pz + ((o >> 16) & 0xff) - 2) < (unsigned)Z;
 }
 
-template <typename T, typename C, typename SideT>
+template <typename T, typename C, typename SideT, bool W>
 __global__ void __launch_bounds__(SLAB_THREADS)
 stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
-                      const T* __restrict__ r2, T* __restrict__ out,
+                      const T* __restrict__ r2, const T* __restrict__ geo,
+                      T* __restrict__ out,
                       const SideT* __restrict__ sides,
                       const int4* __restrict__ beams, int n_e,
                       int X, int Y, int Z, C E, C kG, C G2) {
@@ -186,10 +233,24 @@ stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
   }
   const C r2v = ld(r2 + (e * Fp + Q));
   const C pi = (C)3.14159265358979323846;
-  const C t0 = sd.t[0], t1 = sd.t[1], t2 = sd.t[2];
-  const C b0 = sd.a1[0], b1 = sd.a1[1], b2 = sd.a1[2];
-  const C n0 = sd.a2[0], n1 = sd.a2[1], n2 = sd.a2[2];
-  const C invL = sd.invL, hl = sd.halfL;
+  SideFrame<C> fr;
+  if constexpr (W) {
+    fr = side_frame<C>(geo + (e * 10 * Fp + Q), Fp, 0);
+  } else {
+    fr.side = 0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      fr.t[k] = sd.t[k];
+      fr.a1[k] = sd.a1[k];
+      fr.a2[k] = sd.a2[k];
+    }
+    fr.invL = sd.invL;
+    fr.halfL = sd.halfL;
+  }
+  const C t0 = fr.t[0], t1 = fr.t[1], t2 = fr.t[2];
+  const C b0 = fr.a1[0], b1 = fr.a1[1], b2 = fr.a1[2];
+  const C n0 = fr.a2[0], n1 = fr.a2[1], n2 = fr.a2[2];
+  const C invL = fr.invL, hl = fr.halfL;
   const C du0 = b[0] - a[0], du1 = b[1] - a[1], du2 = b[2] - a[2];
   const C th0 = a[3] + b[3], th1 = a[4] + b[4], th2 = a[5] + b[5];
   const C dt0 = b[3] - a[3], dt1 = b[4] - a[4], dt2 = b[5] - a[5];
@@ -220,18 +281,34 @@ stencil_vjp_r2_kernel(const T* __restrict__ u, const T* __restrict__ g,
             + (lb[5] - la[5]) * md2);
 }
 
-template <typename T, typename C, typename SideT>
+template <typename T, typename C, typename SideT, bool W>
 static int launch_vjp(const void* up, const void* gp, const void* r2p,
-                      void* out, const void* sides, const void* beams,
-                      int n_e, int X, int Y, int Z, C E, C kG, C G2,
-                      void* stream) {
-  if (n_e < 1) return (int)cudaErrorInvalidValue;
+                      const void* geo, void* out, const void* sides,
+                      const void* beams, int n_e, int X, int Y, int Z, C E,
+                      C kG, C G2, void* stream) {
+  if (n_e < 1 || (W && geo == nullptr)) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_e + BEAM_EDGES - 1) / BEAM_EDGES,
                   ((Y + 2) * (Z + 2) + BEAM_RUN - 1) / BEAM_RUN, X + 2);
-  stencil_vjp_r2_kernel<T, C, SideT><<<grid, SLAB_THREADS, 0,
-                                       (cudaStream_t)stream>>>(
-      (const T*)up, (const T*)gp, (const T*)r2p, (T*)out,
+  stencil_vjp_r2_kernel<T, C, SideT, W><<<grid, SLAB_THREADS, 0,
+                                          (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)gp, (const T*)r2p, (const T*)geo, (T*)out,
       (const SideT*)sides, (const int4*)beams, n_e, X, Y, Z, E, kG, G2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename C, typename SideT>
+static int launch_warped(const void* up, const void* r2p, const void* geo,
+                         void* out, const void* sides,
+                         const void* class_start, int run, int nc, int X,
+                         int Y, int Z, C E, C kG, C G2, void* stream) {
+  if (!slab_plan_ok(run, nc) || geo == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(((Y + 2) * (Z + 2) + run - 1) / run, X);
+  stencil_matvec_warped_kernel<T, C, SideT><<<grid, nc * run, 0,
+                                              (cudaStream_t)stream>>>(
+      (const T*)up, (const T*)r2p, (const T*)geo, (T*)out,
+      (const SideT*)sides, (const int*)class_start, run, X, Y, Z, E, kG,
+      G2);
   return (int)cudaGetLastError();
 }
 
@@ -290,8 +367,9 @@ extern "C" int stencil_vjp_r2_f32(const void* up, const void* gp,
                                   const void* sides, const void* beams,
                                   int n_e, int X, int Y, int Z,
                                   float E, float kG, float G2, void* stream) {
-  return launch_vjp<float, float, Side>(up, gp, r2p, out, sides, beams, n_e,
-                                        X, Y, Z, E, kG, G2, stream);
+  return launch_vjp<float, float, Side, false>(up, gp, r2p, nullptr, out,
+                                               sides, beams, n_e, X, Y, Z,
+                                               E, kG, G2, stream);
 }
 
 extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
@@ -300,40 +378,104 @@ extern "C" int stencil_vjp_r2_f64(const void* up, const void* gp,
                                   int n_e, int X, int Y, int Z,
                                   double E, double kG, double G2,
                                   void* stream) {
-  return launch_vjp<double, double, SideD>(up, gp, r2p, out, sides, beams,
-                                           n_e, X, Y, Z, E, kG, G2, stream);
+  return launch_vjp<double, double, SideD, false>(up, gp, r2p, nullptr, out,
+                                                  sides, beams, n_e, X, Y, Z,
+                                                  E, kG, G2, stream);
 }
 
-template <typename T, typename C, typename SideT>
-static int occupancy(int threads) {
+// B1w: B1's arguments with the geometry field geo [n_e, 10, Xp, Yp, Zp]
+// (stencil_body.cuh, "warped sides") in the storage type after r^2
+extern "C" int stencil_matvec_warped_f32(const void* up, const void* r2p,
+                                         const void* geo, void* out,
+                                         const void* sides,
+                                         const void* class_start, int run,
+                                         int nc, int X, int Y, int Z,
+                                         float E, float kG, float G2,
+                                         void* stream) {
+  return launch_warped<float, float, Side>(up, r2p, geo, out, sides,
+                                           class_start, run, nc, X, Y, Z, E,
+                                           kG, G2, stream);
+}
+
+extern "C" int stencil_matvec_warped_f64(const void* up, const void* r2p,
+                                         const void* geo, void* out,
+                                         const void* sides,
+                                         const void* class_start, int run,
+                                         int nc, int X, int Y, int Z,
+                                         double E, double kG, double G2,
+                                         void* stream) {
+  return launch_warped<double, double, SideD>(up, r2p, geo, out, sides,
+                                              class_start, run, nc, X, Y, Z,
+                                              E, kG, G2, stream);
+}
+
+// the warped r^2-cotangent: the r^2-cotangent's arguments with geo after
+// r^2
+extern "C" int stencil_vjp_r2_warped_f32(const void* up, const void* gp,
+                                         const void* r2p, const void* geo,
+                                         void* out, const void* sides,
+                                         const void* beams, int n_e, int X,
+                                         int Y, int Z, float E, float kG,
+                                         float G2, void* stream) {
+  return launch_vjp<float, float, Side, true>(up, gp, r2p, geo, out, sides,
+                                              beams, n_e, X, Y, Z, E, kG, G2,
+                                              stream);
+}
+
+extern "C" int stencil_vjp_r2_warped_f64(const void* up, const void* gp,
+                                         const void* r2p, const void* geo,
+                                         void* out, const void* sides,
+                                         const void* beams, int n_e, int X,
+                                         int Y, int Z, double E, double kG,
+                                         double G2, void* stream) {
+  return launch_vjp<double, double, SideD, true>(up, gp, r2p, geo, out,
+                                                 sides, beams, n_e, X, Y, Z,
+                                                 E, kG, G2, stream);
+}
+
+template <typename K>
+static int occupancy(K kernel, int threads) {
   int n = 0;
   const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, stencil_matvec_kernel<T, C, SideT>, threads, 0);
+      &n, kernel, threads, 0);
   return e == cudaSuccess ? n : -(int)e;
 }
 
-// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) of `threads` threads
-// that one SM holds at once on the current device; a negative value is
-// -cudaError
+// blocks of B1 (dtype 0 float, 1 bfloat16, 2 double) or B1w (3 float, 4
+// double) of `threads` threads that one SM holds at once on the current
+// device; a negative value is -cudaError
 extern "C" int stencil_matvec_occupancy(int dtype, int threads) {
-  if (dtype == 0) return occupancy<float, float, Side>(threads);
-  if (dtype == 1) return occupancy<__nv_bfloat16, float, Side>(threads);
-  if (dtype == 2) return occupancy<double, double, SideD>(threads);
+  if (dtype == 0)
+    return occupancy(stencil_matvec_kernel<float, float, Side>, threads);
+  if (dtype == 1)
+    return occupancy(stencil_matvec_kernel<__nv_bfloat16, float, Side>,
+                     threads);
+  if (dtype == 2)
+    return occupancy(stencil_matvec_kernel<double, double, SideD>, threads);
+  if (dtype == 3)
+    return occupancy(stencil_matvec_warped_kernel<float, float, Side>,
+                     threads);
+  if (dtype == 4)
+    return occupancy(stencil_matvec_warped_kernel<double, double, SideD>,
+                     threads);
   return -(int)cudaErrorInvalidValue;
 }
 
-template <typename T, typename C, typename SideT>
-static int vjp_occupancy() {
-  int n = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, stencil_vjp_r2_kernel<T, C, SideT>, SLAB_THREADS, 0);
-  return e == cudaSuccess ? n : -(int)e;
-}
-
-// blocks of the r^2-cotangent kernel (dtype 0 float, 2 double) that one
-// SM holds at once on the current device; a negative value is -cudaError
+// blocks of the r^2-cotangent kernel (dtype 0 float, 2 double; warped: 3
+// float, 4 double) that one SM holds at once on the current device; a
+// negative value is -cudaError
 extern "C" int stencil_vjp_r2_occupancy(int dtype) {
-  if (dtype == 0) return vjp_occupancy<float, float, Side>();
-  if (dtype == 2) return vjp_occupancy<double, double, SideD>();
+  if (dtype == 0)
+    return occupancy(stencil_vjp_r2_kernel<float, float, Side, false>,
+                     SLAB_THREADS);
+  if (dtype == 2)
+    return occupancy(stencil_vjp_r2_kernel<double, double, SideD, false>,
+                     SLAB_THREADS);
+  if (dtype == 3)
+    return occupancy(stencil_vjp_r2_kernel<float, float, Side, true>,
+                     SLAB_THREADS);
+  if (dtype == 4)
+    return occupancy(stencil_vjp_r2_kernel<double, double, SideD, true>,
+                     SLAB_THREADS);
   return -(int)cudaErrorInvalidValue;
 }

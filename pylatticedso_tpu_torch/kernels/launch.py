@@ -33,6 +33,10 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "stencil_vjp_r2_f32": "ppppppiiiifffp",
         "stencil_vjp_r2_f64": "ppppppiiiidddp",
         "stencil_vjp_r2_occupancy": "i",
+        "stencil_matvec_warped_f32": "ppppppiiiiifffp",
+        "stencil_matvec_warped_f64": "ppppppiiiiidddp",
+        "stencil_vjp_r2_warped_f32": "pppppppiiiifffp",
+        "stencil_vjp_r2_warped_f64": "pppppppiiiidddp",
     },
     "mg_fused": {
         "mg_residual": "ii" + "p" * 8 + "iiiiifffp",

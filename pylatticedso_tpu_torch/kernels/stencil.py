@@ -19,6 +19,17 @@ launches, ``launches_f64`` its float64 launches (in either: those on a
 cotangent too), ``launches_vjp`` the r^2-cotangent kernel's launches and
 ``launches_lo`` B2 launches.
 
+On a warped lattice (``node_transform``) the wrapper is B1w, the warped
+variant: the same K.u with each side's frame and length read from the
+ghost-padded geometry field ``geo`` [n_e, 10, Xp, Yp, Zp] at its r^2
+anchor, in float32 and float64 instances, and the warped r^2-cotangent.
+The JAX package has no Pallas kernel there (``stencil_pallas.py:88-92``
+declines warped lattices; its XLA gather form reads the same fields), so
+these replace no TPU kernel; they exist because a CUDA tensor never takes
+the plain form.  Their launches count in ``launches_warped``,
+``launches_warped_f64`` and ``launches_vjp_warped``; a warped lattice has
+no B2 (JAX builds no Pallas matvec for it, so no ``prepare_lo``).
+
 B1 is differentiable, as the JAX kernel is a ``jax.custom_vjp``
 (``stencil_pallas.py:575-588``): when a gradient would flow, ``apply`` runs
 the ``torch.autograd.Function`` ``_B1``.  Its u-cotangent is B1 itself
@@ -247,15 +258,29 @@ class StencilMatvec:
     replaces_vjp = "pylatticedso_tpu/parallel/stencil_pallas.py:575"
     name_lo = "stencil_matvec_bf16"
     replaces_lo = "pylatticedso_tpu/parallel/stencil_pallas.py:546"
+    name_w = "stencil_matvec_warped_f32"
+    name_w_f64 = "stencil_matvec_warped_f64"
+    name_vjp_w = "stencil_vjp_r2_warped"
+    # no Pallas counterpart: where JAX declines its Pallas matvec for a
+    # warped lattice and runs the XLA gather form
+    replaces_w = "pylatticedso_tpu/parallel/stencil_pallas.py:88"
 
-    def __init__(self, slat, plain: Callable, plain_vjp_r2: Callable):
+    def __init__(self, slat, plain: Callable, plain_vjp_r2: Callable,
+                 geo: Optional[torch.Tensor] = None):
         self.plain = plain
         self.plain_vjp_r2 = plain_vjp_r2
         self.dtype = slat.dtype
+        # the warped lattice's geometry field [n_e, 10, Xp, Yp, Zp], or None
+        self.geo = geo
+        self.warped = geo is not None
+        self._geo_as: Dict[tuple, torch.Tensor] = {}
         self.launches = 0
         self.launches_f64 = 0
         self.launches_vjp = 0
         self.launches_lo = 0
+        self.launches_warped = 0
+        self.launches_warped_f64 = 0
+        self.launches_vjp_warped = 0
         self.grid = tuple(slat.grid)
         self.nc = slat.nc
         self.n_e = len(slat.edges)
@@ -274,22 +299,29 @@ class StencilMatvec:
         padded = tuple(g + 2 for g in self.grid)
         self._ushape = torch.Size((self.nc, 6) + padded)
         self._r2shape = torch.Size((self.n_e,) + padded)
-        self._names = {torch.float32: self.name,
-                       torch.float64: self.name_f64,
-                       torch.bfloat16: self.name_lo}
+        self._names = {torch.float32: self.name_w,
+                       torch.float64: self.name_w_f64} if self.warped \
+            else {torch.float32: self.name, torch.float64: self.name_f64,
+                  torch.bfloat16: self.name_lo}
 
     @property
     def n_sides(self) -> int:
         return len(self._tables[torch.float32][0])
 
+    def _geo_rows(self) -> int:
+        """Padded per-edge rows of geometry a launch reads: 10 (frame and
+        length) on a warped lattice, none otherwise."""
+        return 10 * self.n_e if self.warped else 0
+
     def work(self, itemsize: int = 4) -> Tuple[int, int]:
         """(bytes, operations) one application needs: padded u and r^2
-        read once, the output written once, ``itemsize`` bytes each (4 for
-        B1 in float32, 8 in float64, 2 for B2)."""
+        (and on a warped lattice the geometry field) read once, the output
+        written once, ``itemsize`` bytes each (4 for B1 in float32, 8 in
+        float64, 2 for B2)."""
         X, Y, Z = self.grid
         Fp = (X + 2) * (Y + 2) * (Z + 2)
         N = X * Y * Z
-        nbytes = itemsize * (self.nc * 6 * Fp + self.n_e * Fp
+        nbytes = itemsize * ((self.nc * 6 + self.n_e + self._geo_rows()) * Fp
                              + self.nc * 6 * N)
         return nbytes, FLOPS_PER_SIDE * self.n_sides * N
 
@@ -308,11 +340,13 @@ class StencilMatvec:
 
     def vjp_work(self, itemsize: int = 4) -> Tuple[int, int]:
         """(bytes, operations) of one r^2-cotangent launch: padded u, g
-        and r^2 read once, the r^2-cotangent written once; the strains and
-        the derivative row of every side (counted as one stencil pass)."""
+        and r^2 (and on a warped lattice the geometry field) read once,
+        the r^2-cotangent written once; the strains and the derivative row
+        of every side (counted as one stencil pass)."""
         X, Y, Z = self.grid
         Fp = (X + 2) * (Y + 2) * (Z + 2)
-        nbytes = itemsize * (2 * self.nc * 6 * Fp + 2 * self.n_e * Fp)
+        nbytes = itemsize * (2 * self.nc * 6 + 2 * self.n_e
+                             + self._geo_rows()) * Fp
         return nbytes, FLOPS_PER_SIDE * self.n_sides * X * Y * Z
 
     def vjp_r2(self, g: torch.Tensor, u: torch.Tensor,
@@ -324,6 +358,19 @@ class StencilMatvec:
                 return self.plain_vjp_r2(g, u, r2p)
         return self.launch_vjp(F.pad(u, PAD).contiguous(),
                                F.pad(g, PAD).contiguous(), r2p)
+
+    def geometry(self, io: torch.dtype, device: torch.device) -> tuple:
+        """The warped kernels' geometry argument: the field in ``io`` on
+        ``device``, converted once and kept (an empty tuple on an
+        unwarped lattice, whose kernels take no geometry)."""
+        if not self.warped:
+            return ()
+        key = (io, device)
+        g = self._geo_as.get(key)
+        if g is None:
+            g = self.geo.to(device=device, dtype=io).contiguous()
+            self._geo_as[key] = g
+        return (g.data_ptr(),)
 
     def launch_vjp(self, up: torch.Tensor, gp: torch.Tensor,
                    r2p: torch.Tensor) -> torch.Tensor:
@@ -351,14 +398,19 @@ class StencilMatvec:
             raise ValueError("the r^2-cotangent kernel needs contiguous "
                              "inputs")
         f64 = io == torch.float64
-        name = self.name_vjp + ("_f64" if f64 else "_f32")
+        name = (self.name_vjp_w if self.warped else self.name_vjp) \
+            + ("_f64" if f64 else "_f32")
         dev = up.get_device()
         out = torch.empty_like(r2p)
         rc = launch.functions("stencil_matvec")[name](
-            up.data_ptr(), gp.data_ptr(), r2p.data_ptr(), out.data_ptr(),
+            up.data_ptr(), gp.data_ptr(), r2p.data_ptr(),
+            *self.geometry(io, up.device), out.data_ptr(),
             *self._static(dev, io, True), launch.stream(dev))
         launch.check(name, rc)
-        self.launches_vjp += 1
+        if self.warped:
+            self.launches_vjp_warped += 1
+        else:
+            self.launches_vjp += 1
         return out
 
     def prepare_lo(self, r2p: torch.Tensor) -> torch.Tensor:
@@ -425,8 +477,11 @@ class StencilMatvec:
         plan = slab_plan(self.nc, self.reach)
         if device is not None:
             if occupancy is None:
-                dtype = {torch.float32: 0, torch.bfloat16: 1,
-                         torch.float64: 2}[io]
+                codes = {torch.float32: 3, torch.float64: 4} \
+                    if self.warped else {torch.float32: 0,
+                                         torch.bfloat16: 1,
+                                         torch.float64: 2}
+                dtype = codes[io]
                 occupancy = lambda p: launch.functions("stencil_matvec")[
                     "stencil_matvec_occupancy"](dtype, p["threads"])
             n = occupancy(plan)
@@ -442,8 +497,8 @@ class StencilMatvec:
 
     def _check_32bit(self) -> None:
         X, Y, Z = self.grid
-        if max(self.nc * 6, self.n_e) * (X + 2) * (Y + 2) * (Z + 2) \
-                >= 1 << 31:
+        if max(self.nc * 6, self.n_e, self._geo_rows()) \
+                * (X + 2) * (Y + 2) * (Z + 2) >= 1 << 31:
             raise ValueError(f"the stencil kernels index in 32 bits: grid "
                              f"{self.grid} x {self.nc * 6} rows is too "
                              f"large")
@@ -462,9 +517,10 @@ class StencilMatvec:
         self._check_32bit()
         plan = beam_plan(self.n_e, self.reach)
         if device is not None:
+            codes = {torch.float32: 3, torch.float64: 4} if self.warped \
+                else {torch.float32: 0, torch.float64: 2}
             n = launch.functions("stencil_matvec")[
-                "stencil_vjp_r2_occupancy"](
-                    {torch.float32: 0, torch.float64: 2}[io])
+                "stencil_vjp_r2_occupancy"](codes[io])
             if n < 0:
                 raise RuntimeError(f"r^2-cotangent occupancy query failed: "
                                    f"cudaError {-n}")
@@ -499,8 +555,9 @@ class StencilMatvec:
         return args
 
     def launch(self, up: torch.Tensor, r2p: torch.Tensor) -> torch.Tensor:
-        """Run B1 (float32 or float64 u and r^2) or B2 (bfloat16 u and r^2)
-        on an already ghost-padded u [nc, 6, Xp, Yp, Zp]."""
+        """Run B1 (float32 or float64 u and r^2; B1w on a warped lattice)
+        or B2 (bfloat16 u and r^2) on an already ghost-padded u [nc, 6,
+        Xp, Yp, Zp]."""
         X, Y, Z = self.grid
         if not up.is_cuda or r2p.get_device() != up.get_device():
             raise ValueError(f"B1/B2 need u and r^2 on one CUDA device, got "
@@ -509,8 +566,9 @@ class StencilMatvec:
         name = self._names.get(io)
         if name is None or r2p.dtype is not io:
             raise ValueError(
-                f"B1/B2 on CUDA take float32, float64 or bfloat16 u and r^2 "
-                f"of one type (got {up.dtype}, {r2p.dtype})")
+                f"B1/B2 on CUDA take float32, float64 or bfloat16 (B1w on a "
+                f"warped lattice: float32 or float64) u and r^2 of one type "
+                f"(got {up.dtype}, {r2p.dtype})")
         if up.shape != self._ushape or r2p.shape != self._r2shape:
             raise ValueError(f"B1/B2 shapes: u {tuple(up.shape)}, r^2 "
                              f"{tuple(r2p.shape)} for grid {self.grid}")
@@ -520,10 +578,16 @@ class StencilMatvec:
         dev = up.get_device()
         out = torch.empty((self.nc, 6, X, Y, Z), dtype=io, device=up.device)
         rc = launch.functions("stencil_matvec")[name](
-            up.data_ptr(), r2p.data_ptr(), out.data_ptr(),
-            *self._static(dev, io, False), launch.stream(dev))
+            up.data_ptr(), r2p.data_ptr(), *self.geometry(io, up.device),
+            out.data_ptr(), *self._static(dev, io, False),
+            launch.stream(dev))
         launch.check(name, rc)
-        if lo:
+        if self.warped:
+            if io == torch.float64:
+                self.launches_warped_f64 += 1
+            else:
+                self.launches_warped += 1
+        elif lo:
             self.launches_lo += 1
         elif io == torch.float64:
             self.launches_f64 += 1

@@ -9,10 +9,13 @@ its float64 instance at the default dtype) and the radius cotangent its
 r^2 kernel.  Reuses ``OptimizationProblem``'s parameterizations, density
 constraint, drivers, and history machinery; only the solve is swapped.
 
-Warped lattices (``lattice.node_transforms``) raise ``NotImplementedError``:
-the port's stencil operator has no warped variant yet (ROADMAP.md queue A,
-item 6), and running such a lattice on the unstructured operator instead
-would quietly take another path than the JAX package takes.
+Warped lattices (``lattice.node_transforms``, the design transforms'
+recorded pointwise maps) run on the warped stencil operator: the maps are
+composed into the lattice's ``node_transform`` and the nodes are mapped
+onto the class grids in unwarped coordinates; on a CUDA device their K.u
+is the warped kernel B1w.  A topology-changing transform (a seam merge)
+leaves ``node_transforms`` None: the node mapping then fails with
+``ValueError`` and FEM_AUTO falls back to the unstructured operator.
 
 ``setup_s`` holds the seconds of each construction phase (the base
 problem, the class-grid node map, the per-DOF fields, the step), and
@@ -48,13 +51,6 @@ class StructuredOptimizationProblem(OptimizationProblem):
         if not lattice.are_cells_identical():
             raise ValueError("structured path requires uniform cell size/radii "
                              "(per-cell DESIGN radii may still vary)")
-        # node_transforms is None when a topology-changing transform ran
-        # (cylindrical seam merge): the node mapping below then fails with
-        # ValueError and FEM_AUTO falls back to the general-graph operator
-        if getattr(lattice, "node_transforms", None):
-            raise NotImplementedError(
-                "warped lattices (node_transforms) are not ported to the "
-                "structured operator yet: ROADMAP.md queue A, item 6")
         super().__init__(lattice, dtype=dtype, **kwargs)
         t1 = time.perf_counter()
         nx, ny, nz = lattice.config.num_cells
@@ -62,23 +58,40 @@ class StructuredOptimizationProblem(OptimizationProblem):
         for pos in lattice.cell_pos:
             cell_valid[tuple(pos)] = True
         geoms = list(lattice.config.geom_types)
+        # warped lattices (design.transforms point maps): rebuild the warp
+        # as per-instance stencil fields via the recorded pointwise maps.
+        # node_transforms is None when a topology-changing transform ran
+        # (cylindrical seam merge): the node mapping below then fails with
+        # ValueError and FEM_AUTO falls back to the general-graph operator
+        tfs = getattr(lattice, "node_transforms", None)
+        composed = None
+        if tfs:
+            def composed(x, y, z, _tfs=tuple(tfs)):
+                for fn in _tfs:
+                    x, y, z = fn(x, y, z)
+                return x, y, z
         self._slat = StructuredLattice(
             geoms[0] if len(geoms) == 1 else geoms, (nx, ny, nz),
             tuple(lattice.config.cell_size), self.material.young_modulus,
             self.material.poisson_ratio, dtype=self.dtype,
-            cell_valid=cell_valid, device=self.device)
+            cell_valid=cell_valid, node_transform=composed,
+            device=self.device)
         sl = self._slat
+        map_pos = (sl.class_pos if composed is None
+                   else sl.class_pos_unwarped)
+        map_nodes = (lattice.nodes if composed is None
+                     else lattice.nodes_pre_transform)
 
         # map lattice nodes onto the class grids
         coord_to_cg = {}
         for c in range(sl.nc):
-            x, y, z = sl.class_pos[c]
+            x, y, z = map_pos[c]
             for idx in np.argwhere(sl.node_valid[c]):
                 key = (round(x[tuple(idx)], 9), round(y[tuple(idx)], 9),
                        round(z[tuple(idx)], 9))
                 coord_to_cg[key] = (c, tuple(idx))
         self._node_map = []
-        for i, p in enumerate(lattice.nodes):
+        for i, p in enumerate(map_nodes):
             key = tuple(np.round(p, 9))
             if key not in coord_to_cg:
                 raise ValueError(f"node {p} not on the class grids")

@@ -470,11 +470,16 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
         fused_ops = state.get("fused") or [None] * nL
         missing = [i for i, f in enumerate(fused_ops) if f is None]
         if missing:
+            warped = [i for i in missing
+                      if levels[i].slat.node_transform is not None]
+            why = (f"; levels {warped} are warped (node_transform), and a "
+                   "warped lattice has no fused smoother, as in the JAX "
+                   "package (multigrid.py:413-416)") if warped else ""
             raise RuntimeError(
                 f"fused V-cycle requested but levels {missing} have no fused "
                 "operands (state built without fused=True / PLDSO_MG_FUSED, "
-                "or the routing found no fused smoother there); the port "
-                "does not fall back to the unfused V-cycle")
+                "or the routing found no fused smoother there)" + why
+                + "; the port does not fall back to the unfused V-cycle")
         return _mg_apply_fused(h, state, nu_at, coarse_degree, smooth_frac)
     radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
                               state["lmaxs"])

@@ -17,11 +17,13 @@ plain torch (the gather form, the oracle of the B1 stencil kernel), and
 CUDA tensor, the gather form on a CPU tensor.
 
 Scope of this module: uniform cell size, no penalization; single-geometry
-and hybrid (superposed multi-geometry) templates, erased cells and
-node-granular trimming; the step with every objective, imposed
-displacements and gradient form of the JAX package.  Warped lattices
-(``node_transform``) raise ``NotImplementedError`` (ROADMAP.md, queue A),
-and the scatter matvec is not ported.
+and hybrid (superposed multi-geometry) templates, erased cells,
+node-granular trimming and warped lattices (``node_transform``: per-instance
+frame and length fields, the warped B1 kernel on a CUDA tensor); the step
+with every objective, imposed displacements and gradient form of the JAX
+package, and ``shard_structured_step`` on one device.  The scatter form
+(``matvec.apply_scatter``) is a plain torch form in a fixed order; the port
+reads no ``PLDSO_MATVEC``, so on a CUDA tensor the operator is always B1.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ from ..catalog import get_beam_structure
 from ..kernels.fused import FusedSmoother
 from ..kernels.stencil import StencilMatvec, edge_sides
 
-__all__ = ["StructuredLattice", "make_structured_compliance_step"]
+__all__ = ["StructuredLattice", "make_structured_compliance_step",
+           "shard_structured_step"]
 
 
 def _split_template_collisions(templates, tol: float = 1e-9):
@@ -157,8 +160,10 @@ class StructuredLattice:
     dtype: torch.dtype = torch.float32
     cell_valid: Optional[np.ndarray] = None   # [Nx,Ny,Nz] bool (erasure)
     node_keep: Optional[object] = None        # [nc,X,Y,Z] bool or p(x,y,z)
-    # warped lattices: kept in the host build; the operator declines them
-    # (make_matvec raises NotImplementedError)
+    # warped lattices: the transform moves nodes but keeps the grid
+    # topology, so K.u stays a stencil whose per-edge frame and length
+    # become per-instance grid fields (topology-changing transforms, such
+    # as a cylindrical seam merge, route through parallel.sharding)
     node_transform: Optional[object] = None   # f(x, y, z) -> (x', y', z')
     device: object = "cuda"
 
@@ -228,10 +233,40 @@ class StructuredLattice:
             pz = (gz + key[2]) * csz[2]
             self.class_pos[c] = np.stack([px, py, pz])
 
+        # warped lattices: transform positions, then derive per-edge
+        # per-INSTANCE frames and lengths (grid fields) from the transformed
+        # endpoints, with the unstructured path's branchless reference-axis
+        # rule (fem/elements.edge_geometry), so the two operators agree bit
+        # for bit on the same warped lattice
         if self.node_transform is not None:
+            # unwarped positions kept for the structured optimizer, which
+            # maps lattice nodes in PRE-transform coordinates
+            self.class_pos_unwarped = {c: self.class_pos[c].copy()
+                                       for c in range(self.nc)}
             for c in range(self.nc):
                 x, y, z = self.class_pos[c]
                 self.class_pos[c] = np.stack(self.node_transform(x, y, z))
+            for e in self.edges:
+                ext, oa, ob = e["ext"], e["oa"], e["ob"]
+                sa = (slice(None),) + tuple(
+                    slice(oa[ax], oa[ax] + ext[ax]) for ax in range(3))
+                sb = (slice(None),) + tuple(
+                    slice(ob[ax], ob[ax] + ext[ax]) for ax in range(3))
+                pA = self.class_pos[e["ca"]][sa]
+                pB = self.class_pos[e["cb"]][sb]              # [3, ext]
+                vec = pB - pA
+                L = np.linalg.norm(vec, axis=0)
+                Ls = np.where(L > 0, L, 1.0)   # collapsed-instance guard
+                t = vec / Ls
+                ex_ = np.array([1.0, 0.0, 0.0])[:, None, None, None]
+                ez_ = np.array([0.0, 0.0, 1.0])[:, None, None, None]
+                ref = np.where(np.abs(t[2]) > 0.99, ex_, ez_)
+                a1 = np.cross(ref, t, axisa=0, axisb=0, axisc=0)
+                a1n = np.linalg.norm(a1, axis=0)
+                a1 = a1 / np.where(a1n > 0, a1n, 1.0)
+                a2 = np.cross(t, a1, axisa=0, axisb=0, axisc=0)
+                e["warp_frames"] = np.stack([t, a1, a2])      # [3, 3, ext]
+                e["warp_L"] = Ls
 
         # node-granular trimming: drop nodes outside ``node_keep``, remove
         # every beam instance touching a dropped endpoint, then prune
@@ -284,40 +319,66 @@ class StructuredLattice:
 
         Returns (matvec, diag).  ``matvec(u, radius)`` =
         ``matvec.apply(u, matvec.prepare(radius))``, where ``apply`` is the
-        B1 kernel wrapper (kernel on CUDA, gather form on CPU), with
-        ``apply.lo`` its bf16-I/O form (B2) and ``apply.fused`` the fused
-        smoother kernels B3-B5 of the multigrid;
-        ``matvec.apply_gather`` is the plain gather form itself, and
-        ``matvec.sections`` / ``matvec.energy_dr2`` serve the analytic
-        gradient.  ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom, Nx, Ny,
-        Nz] (hybrid) or a scalar.
+        B1 kernel wrapper (kernel on CUDA, gather form on CPU; the warped
+        B1 on a warped lattice), with ``apply.lo`` its bf16-I/O form (B2)
+        and ``apply.fused`` the fused smoother kernels B3-B5 of the
+        multigrid; ``matvec.apply_gather`` is the plain gather form itself,
+        ``matvec.apply_scatter(u, radius)`` the instance-anchored scatter
+        form, and ``matvec.sections`` / ``matvec.energy_dr2`` serve the
+        analytic gradient.  ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom,
+        Nx, Ny, Nz] (hybrid) or a scalar.
         """
-        if self.node_transform is not None:
-            raise NotImplementedError(
-                "warped lattices (node_transform) are not ported yet: "
-                "ROADMAP.md queue A, deferred feature 'warped lattices'")
         dev = _check_device(self.device)
         nx, ny, nz = self.num_cells
         E_mod, nu, kappa = self.E_mod, self.nu, self.kappa
         G_mod = E_mod / (2.0 * (1.0 + nu))
         dt = self.dtype
+        warped = self.node_transform is not None
         tens = lambda a: torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+        geoP = None
+        if warped:
+            # ghost-padded per-edge geometry fields, JAX's geoP: rows 0-8
+            # the instance frames (t, a1, a2 by xyz), row 9 the length
+            # (padded with 1.0: the padded r^2 is zero there, and 1/L must
+            # stay finite); read by the plain forms and the warped kernels
+            geo_np = np.zeros((len(self.edges), 10)
+                              + tuple(g + 2 for g in self.grid), np.float64)
+            geo_np[:, 9] = 1.0
+            for i, e in enumerate(self.edges):
+                ext = e["ext"]
+                blk = (slice(1, 1 + ext[0]), slice(1, 1 + ext[1]),
+                       slice(1, 1 + ext[2]))
+                geo_np[(i, slice(0, 9)) + blk] = \
+                    e["warp_frames"].reshape(9, *ext)
+                geo_np[(i, 9) + blk] = e["warp_L"]
+            geoP = tens(geo_np)
         consts = []
-        for e in self.edges:
+        for i, e in enumerate(self.edges):
+            if warped:
+                # per-INSTANCE geometry fields, views of geoP: frames [3,
+                # ext] each, length [ext]; the strain and force arithmetic
+                # broadcasts over them
+                ext = e["ext"]
+                g = geoP[(i, slice(None), slice(1, 1 + ext[0]),
+                          slice(1, 1 + ext[1]), slice(1, 1 + ext[2]))]
+                frame = (g[0:3], g[3:6], g[6:9], g[9])
+            else:
+                frame = (tens(e["t"]), tens(e["a1"]), tens(e["a2"]),
+                         float(e["L"]))
             # instance-validity masks carry information only under node_keep
             # trimming (every stiffness term is proportional to r^2, which
             # is already zero on invalid cells)
             inst_c = tens(e["inst_valid"]) if self.node_keep is not None \
                 else None
-            consts.append((
-                tens(e["t"]), tens(e["a1"]), tens(e["a2"]), float(e["L"]),
+            consts.append(frame + (
                 e["ca"], e["cb"], e["oa"], e["ob"], e["ext"], e["creators"],
                 inst_c))
         valid = tens(self.cell_valid)
 
         def _b(w):
-            """Frame-vector broadcast: [3] constants multiply [*, ext]."""
-            return w[:, None, None, None]
+            """Frame-vector broadcast: template frames are [3] constants,
+            warped frames [3, ext] fields; both multiply [*, ext]."""
+            return w if w.dim() == 4 else w[:, None, None, None]
 
         def _padded_r2(radius):
             """Per-geometry squared radii, ghost-padded: [n_geom] of
@@ -423,15 +484,30 @@ class StructuredLattice:
         sgn = tens([-1.0 if r["side"] else 1.0 for r in recs]).reshape(
             n_s, 1, 1)
         sgf = -sgn
-        fr = tens(np.stack([np.stack([r["t"], r["a1"], r["a2"]])
-                            for r in recs])).reshape(n_s, 3, 3, 1)
-        Ls = np.array([r["L"] for r in recs])
-        invL_s = tens(1.0 / Ls).reshape(n_s, 1)
-        halfL_s = tens(0.5 * Ls).reshape(n_s, 1, 1)
         class_sides = [[i for i, r in enumerate(recs) if r["cs"] == c]
                        for c in range(self.nc)]
+        if not warped:
+            fr = tens(np.stack([np.stack([r["t"], r["a1"], r["a2"]])
+                                for r in recs])).reshape(n_s, 3, 3, 1)
+            Ls = np.array([r["L"] for r in recs])
+            frames_c = (fr[:, 0], fr[:, 1], fr[:, 2],        # [n_s, 3, 1]
+                        tens(1.0 / Ls).reshape(n_s, 1),
+                        tens(0.5 * Ls).reshape(n_s, 1, 1))
 
-        t_s, a1_s, a2_s = fr[:, 0], fr[:, 1], fr[:, 2]     # [n_s, 3, 1]
+        def _frames():
+            """(t, a1, a2, 1/L, L/2) of every side: the template's
+            constants, or on a warped lattice the instance fields read at
+            the side's r^2 anchor ([n_s, 3, N] frames, [n_s, N] lengths),
+            1/L and L/2 computed in the dtype as the JAX gather form does."""
+            if geoP is None:
+                return frames_c
+            g = geoP.reshape(len(consts), 10, -1).transpose(0, 1)[
+                :, ei_s, pos_r]                               # [10, n_s, N]
+            t_, a1_, a2_ = (g[0:3].transpose(0, 1), g[3:6].transpose(0, 1),
+                            g[6:9].transpose(0, 1))
+            L_ = g[9]
+            return t_, a1_, a2_, 1.0 / L_, (L_ * 0.5)[:, None]
+
         dot = lambda V, w: (V * w).sum(1)
         o = lambda s_, w: s_[:, None] * w
         cs_s = it("cs")
@@ -451,8 +527,9 @@ class StructuredLattice:
             r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]
             return up[rows_s, q], up[rows_o, pos_o], r2
 
-        def _strains(uS, uO):
+        def _strains(uS, uO, fr):
             """The six generalized strains of every side [n_s, N]."""
+            t_s, a1_s, a2_s, invL_s, _h = fr
             d = sgn * (uO - uS)                          # uB - uA
             du, dth = d[:, :3], d[:, 3:]
             ths = uS[:, 3:] + uO[:, 3:]
@@ -463,9 +540,10 @@ class StructuredLattice:
                     dot(dth, a1_s) * invL_s,
                     dot(dth, a2_s) * invL_s)
 
-        def _rows(s0, s1, s2, s3, s4, s5):
+        def _rows(fr, s0, s1, s2, s3, s4, s5):
             """Force/moment row [n_s, 6, N] of every side from its section
             forces."""
+            t_s, a1_s, a2_s, _i, halfL_s = fr
             fu = o(s0, t_s) + o(s1, a1_s) + o(s2, a2_s)
             msh = halfL_s * (o(s2, a1_s) - o(s1, a2_s))
             mdf = o(s3, t_s) + o(s4, a1_s) + o(s5, a2_s)
@@ -488,12 +566,13 @@ class StructuredLattice:
             if u.is_cuda:
                 matvec.plain_calls += 1
             uS, uO, r2 = _gather(u, r2ps)
-            e0, e1, e2, e3, e4, e5 = _strains(uS, uO)
+            fr = _frames()
+            e0, e1, e2, e3, e4, e5 = _strains(uS, uO, fr)
             S = np.pi * r2
             I = np.pi * r2 * r2 / 4.0
             ES, kGS = E_mod * S, kappa * G_mod * S
             GJ, EI = 2.0 * G_mod * I, E_mod * I
-            f_side = _rows(ES * e0, kGS * e1, kGS * e2, GJ * e3, EI * e4,
+            f_side = _rows(fr, ES * e0, kGS * e1, kGS * e2, GJ * e3, EI * e4,
                            EI * e5)
             acc = []
             for sides in class_sides:
@@ -513,10 +592,11 @@ class StructuredLattice:
             with no atomics, so repeats are bitwise equal.  Equal to
             autograd of the gather form to rounding, at every position."""
             uS, uO, r2 = _gather(u, r2ps)
-            e0, e1, e2, e3, e4, e5 = _strains(uS, uO)
+            fr = _frames()
+            e0, e1, e2, e3, e4, e5 = _strains(uS, uO, fr)
             dS = np.pi
             dI = (np.pi / 2.0) * r2
-            dfs = _rows((E_mod * dS) * e0, (kappa * G_mod * dS) * e1,
+            dfs = _rows(fr, (E_mod * dS) * e0, (kappa * G_mod * dS) * e1,
                         (kappa * G_mod * dS) * e2, (2.0 * G_mod) * dI * e3,
                         E_mod * dI * e4, E_mod * dI * e5)
             lamS = lam.reshape(self.nc, 6, N)[cs_s]          # [n_s, 6, N]
@@ -577,7 +657,47 @@ class StructuredLattice:
                     + (0.5 * E_mod) * r2 * (e4 * e4 + e5 * e5)))
             return out
 
-        apply = StencilMatvec(self, apply_gather, apply_gather_vjp_r2)
+        def apply_scatter(u, radius):
+            """Scatter-form K.u (JAX ``matvec``, selected there by
+            ``PLDSO_MATVEC=scatter``): per template edge, the instance
+            anchored at g adds fA at (g + oa) of class ca, then fB at
+            (g + ob) of class cb, by slice adds in template-edge order — a
+            fixed order with no atomics.  A plain torch form on any
+            device; the operator itself is B1."""
+            r2s = _sections(radius)
+            out = torch.zeros_like(u)
+            o_ = lambda s_, w: s_[None] * _b(w)
+            dot_ = lambda V, w: (V * _b(w)).sum(0)
+            for (t, a1, a2, L, ca, cb, oa, ob, ext, _cr, _iv), r2 in zip(
+                    consts, r2s):
+                S = np.pi * r2
+                I = np.pi * r2 * r2 / 4.0
+                ES, kGS = E_mod * S, kappa * G_mod * S
+                GJ, EI = 2.0 * G_mod * I, E_mod * I
+                invL = 1.0 / L
+                sxa, sxb = _slices(oa, ob, ext)
+                uA = u[ca][sxa]            # [6, ext]
+                uB = u[cb][sxb]
+                du = uB[:3] - uA[:3]
+                ths = uA[3:] + uB[3:]
+                dth = uB[3:] - uA[3:]
+                e0 = dot_(du, t) * invL
+                e1 = dot_(du, a1) * invL - dot_(ths, a2) * 0.5
+                e2 = dot_(du, a2) * invL + dot_(ths, a1) * 0.5
+                e3 = dot_(dth, t) * invL
+                e4 = dot_(dth, a1) * invL
+                e5 = dot_(dth, a2) * invL
+                s0, s1, s2 = ES * e0, kGS * e1, kGS * e2
+                s3, s4, s5 = GJ * e3, EI * e4, EI * e5
+                fu = o_(s0, t) + o_(s1, a1) + o_(s2, a2)
+                msh = (L * 0.5) * (o_(s2, a1) - o_(s1, a2))
+                mdf = o_(s3, t) + o_(s4, a1) + o_(s5, a2)
+                out[(ca,) + sxa] += torch.cat([-fu, msh - mdf])
+                out[(cb,) + sxb] += torch.cat([fu, msh + mdf])
+            return out
+
+        apply = StencilMatvec(self, apply_gather, apply_gather_vjp_r2,
+                              geo=geoP)
         apply.fused = FusedSmoother(self, apply)
 
         def matvec(u, radius):
@@ -587,6 +707,7 @@ class StructuredLattice:
         matvec.apply = apply
         matvec.apply_gather = apply_gather
         matvec.apply_gather_vjp_r2 = apply_gather_vjp_r2
+        matvec.apply_scatter = apply_scatter
         # calls of the plain gather form on CUDA tensors (the smoke's
         # references only: the operator itself runs B1 there)
         matvec.plain_calls = 0
@@ -816,6 +937,9 @@ def make_structured_compliance_step(slat: StructuredLattice,
 
     step.batch = step_batch
     step.raw = raw
+    # the value and gradient by the implicit form, whatever the default
+    # form (JAX ``step._jitted``): what ``shard_structured_step`` runs
+    step.value_and_grad = _vag
     # the last step() or raw() call's solves, in order: the forward, then
     # the adjoint once the gradient was taken
     step.solves = lambda: list(solves)
@@ -828,3 +952,53 @@ def make_structured_compliance_step(slat: StructuredLattice,
     step.last_solve = None
     step.last_adjoint = None
     return step
+
+
+def shard_structured_step(step, mesh, axis_name: str = "shard",
+                          grid_axis: Optional[int] = None):
+    """The structured step on a mesh (JAX ``shard_structured_step``,
+    ``structured.py:902-968``), on the port's one-device ``Mesh``
+    (``parallel.sharding.make_mesh``).
+
+    JAX shards the nodal fields ``[nc, 6, X, Y, Z]`` along one grid axis
+    over ``mesh[axis_name]`` and lets GSPMD partition the jitted step; on
+    one device that partition is the whole field, so the record runs the
+    step itself.  It keeps JAX's ``grid_axis`` rule (default: the largest
+    grid axis divisible by the mesh axis size) and its ``ValueError``s,
+    refuses a mesh of more than one device, and runs what JAX's wrapper
+    runs: the implicit-form value and gradient (``step.value_and_grad``),
+    with ``precond_state`` freezing the multigrid state.  Returns
+    ``sharded_step(radius_field, u0=None, precond_state=None) -> (c, g,
+    u)``, carrying ``mesh`` and ``grid_axis``."""
+    n_shard = mesh.shape[axis_name]
+    n_dev = int(np.prod(list(mesh.shape.values())))
+    if n_dev != 1:
+        raise ValueError(f"shard_structured_step: a mesh of {n_dev} devices;"
+                         f" the port runs on one device")
+    free, f = step.operands
+    if torch.device(mesh.device) != f.device:
+        raise ValueError(f"shard_structured_step: the mesh's device "
+                         f"{mesh.device} is not the step's {f.device}")
+    grid = tuple(free.shape[2:])
+    if grid_axis is None:
+        cands = [ax for ax in np.argsort(grid)[::-1]
+                 if grid[ax] % n_shard == 0]
+        if not cands:
+            raise ValueError(
+                f"no grid axis of {grid} divisible by {axis_name}={n_shard}; "
+                f"pad the lattice (e.g. nx = k*{n_shard} - 1) or pass "
+                f"grid_axis explicitly")
+        grid_axis = int(cands[0])
+    elif grid[grid_axis] % n_shard != 0:
+        raise ValueError(f"grid axis {grid_axis} of {grid} not divisible "
+                         f"by {axis_name}={n_shard}")
+
+    def sharded_step(radius_field, u0=None, precond_state=None):
+        r = torch.as_tensor(radius_field, dtype=f.dtype, device=f.device)
+        u0 = torch.zeros_like(f) if u0 is None \
+            else torch.as_tensor(u0, dtype=f.dtype, device=f.device)
+        return step.value_and_grad(r, u0, precond_state)
+
+    sharded_step.mesh = mesh
+    sharded_step.grid_axis = grid_axis
+    return sharded_step

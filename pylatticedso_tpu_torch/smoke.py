@@ -1752,9 +1752,12 @@ def _entry(name, source, replaces, launches, recs, head, per_level,
 def kernels_line(cases: List[Dict], fused_cases: List[Dict],
                  mains: Dict[str, Dict], cases64: List[Dict],
                  vjp_cases: List[Dict], probe: Dict,
-                 design: Dict, opt: Dict) -> List[Dict]:
+                 design: Dict, opt: Dict,
+                 warped: Optional[Dict] = None) -> List[Dict]:
     """The ``kernels`` entries of B1 (float32, float64, VJP), B2-B5,
-    B3c-B5c, P1 and P2.  ``launches`` sums each kernel's launches over the main paths
+    B3c-B5c, P1 and P2, and of the warped phase's B1w (float32, float64)
+    and warped r^2-cotangent when it ran (``smoke_warped.kernel_entries``:
+    their launches from (w1) and (w2)).  ``launches`` sums each kernel's launches over the main paths
     (the four routes' compliance steps, the three design-gradient paths
     and the optimizer's full-width drive (o1), each read just after its
     drive; the probes' entry for P1 and P2); the timed shape is the
@@ -1818,6 +1821,9 @@ def kernels_line(cases: List[Dict], fused_cases: List[Dict],
                           probe["launches"][key], recs, recs[-1],
                           [probe["launches"][key]],
                           library_ms=recs[-1]["library_ms"]))
+    if warped is not None:
+        from . import smoke_warped
+        out.extend(smoke_warped.kernel_entries(warped))
     return out
 
 
@@ -1906,10 +1912,16 @@ def _ms(v) -> str:
 
 def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         budget_s: float = 600.0, log: Callable[[str], None] = print,
-        ddm_size: Dict = smoke_ddm.FULL) -> Dict:
+        ddm_size: Dict = smoke_ddm.FULL,
+        warped_size: Optional[Dict] = None) -> Dict:
     """Every phase in order; raises on the first failure.  ``ddm_size``
     sets the DDM phase's cells, grids and depth (``smoke_ddm.FULL`` on the
-    card, ``smoke_ddm.SMALL`` in the CPU rehearsal)."""
+    card, ``smoke_ddm.SMALL`` in the CPU rehearsal); ``warped_size`` the
+    warped phase's (``smoke_warped.FULL``, as ``chip_smoke.py`` passes it;
+    None leaves the phase out, as the CPU rehearsal of the other phases
+    does: ``tests/test_torch_smoke_warped.py`` rehearses it on its own),
+    which runs after the DDM route and before the profiles, and adds the
+    warped kernels to the ``kernels`` line."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke run needs the card")
@@ -2206,6 +2218,13 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     ddm = smoke_ddm.ddm_phase(dev, ddm_size)
     log_ddm(ddm, card, log)
     budget.check("ddm")
+
+    warped = None
+    if warped_size is not None:
+        from . import smoke_warped
+        warped = smoke_warped.warped_phase(dev, warped_size)
+        smoke_warped.log_warped(warped, card, log)
+        budget.check("warped")
     # the profiles come last: once torch.profiler has traced the card, the
     # process's later launches cost the host more (on an H100 the phases
     # run after the profiles read 30-50% more s/step)
@@ -2231,8 +2250,8 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             "fused_cases": fused_cases, "cases64": cases64,
             "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
             "mains": mains, "design": design, "optimizer": opt,
-            "statics": stat, "ddm": ddm,
+            "statics": stat, "ddm": ddm, "warped": warped,
             "kernels": kernels_line(cases, fused_cases, mains, cases64,
                                     vjp_cases + vjp_grids, probe, design,
-                                    opt),
+                                    opt, warped),
             "wall_s": budget.elapsed()}

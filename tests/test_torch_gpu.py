@@ -889,3 +889,92 @@ def test_surrogate_value_and_gradient_same_bits_on_card(dense, monkeypatch,
     (vc, _), gc = cpu._vg_aux(x, u0.cpu())
     assert abs(float(va) - float(vc)) <= 1e-9 * abs(float(vc))
     assert float((ga.cpu() - gc).abs().max() / gc.abs().max()) <= 1e-6
+
+
+WARPED = [("octet", 50), ("octet", 7), ("bcc", 5), ("hybrid", 4)]
+
+
+def _warped(name, n, dtype):
+    from pylatticedso_tpu_torch.smoke_warped import taper_twist
+    ts = StructuredLattice(GEOMS[name], (n, n, n), (1.0, 1.0, 1.0), 1013.0,
+                           0.3, dtype=dtype, device="cuda",
+                           node_transform=taper_twist(n))
+    tm, _ = ts.make_matvec()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    shape = (ts.nc, 6) + ts.grid
+    u = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    lam = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    r = 0.04 + 0.05 * torch.rand((ts.n_geom, n, n, n), generator=g,
+                                 device="cuda", dtype=dtype)
+    return ts, tm, u, lam, tm.prepare(r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("name,n", WARPED)
+def test_warped_kernel_matches_plain_on_card(name, n, dtype, tol):
+    """B1w (float32, float64) against the warped gather form, bitwise on
+    repeat, counted as B1w and never as B1; no bf16-I/O form."""
+    _need_card()
+    _ts, tm, u, _lam, aux = _warped(name, n, dtype)
+    B = tm.apply
+    y = B(u, aux)
+    assert torch.equal(y, B(u, aux))
+    y_plain = tm.apply_gather(u, aux)
+    torch.cuda.synchronize()
+    f64 = dtype == torch.float64
+    assert (B.launches_warped_f64 if f64 else B.launches_warped) == 2
+    assert B.launches == B.launches_f64 == B.launches_lo == 0
+    err = float((y - y_plain).abs().max() / y_plain.abs().max())
+    assert err <= tol, err
+    with pytest.raises(ValueError, match="B1w"):
+        B.lo(u.to(torch.bfloat16), aux.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("name,n", WARPED)
+def test_warped_r2_cotangent_matches_plain_on_card(name, n, dtype, tol):
+    """The warped r^2-cotangent kernel against its plain closed form, the
+    same bits on repeat, writing every padded position; through autograd
+    it runs in B1w's backward."""
+    _need_card()
+    _ts, tm, u, lam, aux = _warped(name, n, dtype)
+    B = tm.apply
+    got = B.vjp_r2(lam, u, aux)
+    assert torch.equal(got, B.vjp_r2(lam, u, aux))
+    want = B.plain_vjp_r2(lam, u, aux)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= tol, err
+    assert B.launches_vjp_warped == 2 and B.launches_vjp == 0
+    r2 = aux.clone().requires_grad_(True)
+    (gr,) = torch.autograd.grad(torch.sum(lam * B(u, r2)), r2)
+    assert torch.equal(gr, got)
+    assert B.launches_vjp_warped == 3
+
+
+@pytest.mark.gpu
+def test_sdf_on_card_matches_the_cpu():
+    """The solid mesh's signed distance on the card against the CPU (each
+    point's terms rounded in float32 in either order), chunked over points
+    x beams with the same bits as one chunk."""
+    _need_card()
+    from pylatticedso_tpu_torch.design import build_lattice
+    from pylatticedso_tpu_torch.io import solid_mesh
+    lat = build_lattice({"geometry": {
+        "cell_size": {"x": 1, "y": 1, "z": 1},
+        "number_of_cells": {"x": 2, "y": 2, "z": 2},
+        "radii": [0.05], "geom_types": ["Octet"]}})
+    sdf, o, h = solid_mesh.lattice_sdf_grid(lat, 48, device="cuda")
+    sdf_c, o_c, h_c = solid_mesh.lattice_sdf_grid(lat, 48, device="cpu")
+    np.testing.assert_array_equal(o, o_c)
+    assert np.abs(sdf - sdf_c).max() <= 2e-6
+    G = np.stack(np.meshgrid(*[o[k] + h[k] * np.arange(sdf.shape[k])
+                               for k in range(3)], indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+    p1, p2 = lat.nodes[lat.edges[:, 0]], lat.nodes[lat.edges[:, 1]]
+    small = solid_mesh._capsule_sdf(G, p1, p2, lat.radius, device="cuda",
+                                    max_bytes=12 * 64 * 1024)
+    np.testing.assert_array_equal(small, sdf.reshape(-1))

@@ -95,10 +95,31 @@ def test_scan_covers_the_ddm_smoke():
     assert ROOT / "pylatticedso_tpu_torch/smoke_ddm.py" in FILES
 
 
+# the last slice's modules: the io package and plotting, and the warped
+# phase of the smoke run
+IO_SLICE = ["io/__init__.py", "io/checkpoint.py", "io/export.py",
+            "io/reference_pickle.py", "io/reference_density.py",
+            "io/solid_mesh.py", "plotting.py"]
+
+
+@pytest.mark.parametrize("rel", IO_SLICE)
+def test_scan_covers_the_io_slice(rel):
+    path = ROOT / "pylatticedso_tpu_torch" / rel
+    assert path in FILES
+    assert (ROOT / "pylatticedso_tpu" / rel).exists()
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
+def test_scan_covers_the_warped_smoke():
+    assert ROOT / "pylatticedso_tpu_torch/smoke_warped.py" in FILES
+
+
 @pytest.mark.parametrize("rel", ["fem/subdivide.py", "sim/penalization.py",
                                  "sim/boundary_order.py", "design/cleanup.py",
                                  "design/transforms.py",
-                                 "design/mesh_trimmer.py"])
+                                 "design/mesh_trimmer.py", "io/__init__.py",
+                                 "io/checkpoint.py", "io/export.py",
+                                 "io/reference_pickle.py", "plotting.py"])
 def test_framework_free_copies_are_copies(rel):
     """The numpy-only modules are the port's own copies of the JAX
     package's, byte for byte."""
@@ -114,3 +135,29 @@ def test_native_builds_its_own_copy():
     assert native._SRC.read_text() == \
         (ROOT / "pylatticedso_tpu/native/dedup.cpp").read_text()
     assert native._LIB_PATH.parent == ROOT / "pylatticedso_tpu_torch/_build"
+
+
+def test_port_imports_without_optional_packages():
+    """Every module of the port imports in a process where matplotlib,
+    joblib, scikit-learn and triton cannot be imported (the card's machine
+    has neither matplotlib nor joblib; no machine here has triton), and
+    importing them starts no build."""
+    import subprocess
+    import sys
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in FILES if p.parent != ROOT and p.name != "__main__.py")
+    code = (
+        "import sys\n"
+        "for m in ('matplotlib', 'joblib', 'sklearn', 'triton'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m.removesuffix('.__init__'))\n"
+        "from pylatticedso_tpu_torch.kernels import build\n"
+        "assert not build._libs\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("ok")

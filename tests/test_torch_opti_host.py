@@ -202,14 +202,41 @@ def test_non_uniform_lattice_falls_back_on_fem_auto():
 
 @pytest.mark.parametrize("sim_type", ["FEM_AUTO", "FEM_STRUCTURED"])
 def test_warped_lattice_raises_instead_of_rerouting(sim_type):
-    """A warped lattice runs structured in the JAX package; the port has no
-    warped stencil operator yet, so it raises NotImplementedError, which
-    FEM_AUTO does not catch."""
+    """A warped lattice runs structured, as in the JAX package: both
+    routes build the structured problem on the warped stencil operator
+    (the recorded maps composed into its node_transform); a seam-merged
+    lattice (node_transforms None) still falls back on FEM_AUTO."""
+    from pylatticedso_tpu_torch.design.transforms import curve_lattice
     lat = _opti_lattice((2, 1, 1), sim_type)
-    lat.node_transforms = [lambda x, y, z: (x, y, z + 0.01 * x)]
-    with pytest.raises(NotImplementedError, match="warped"):
-        optimize_lattice(lat, density_model=KrigingDensity.load(OCTET_FIT),
-                         device="cpu")
+    curve_lattice(lat, center=(1.0, 0.5, 5.0), curvature_strength=0.02)
+    problem, res = optimize_lattice(
+        lat, density_model=KrigingDensity.load(OCTET_FIT), device="cpu")
+    assert isinstance(problem, StructuredOptimizationProblem)
+    assert problem._slat.node_transform is not None
+    assert res.iterations >= 1 and np.isfinite(res.objective)
+    if sim_type == "FEM_AUTO":
+        from pylatticedso_tpu_torch.design.transforms import \
+            cylindrical_transform
+        lat = build_lattice({
+            "geometry": _geometry((2, 2, 1), ["BCC"], [0.05]),
+            "boundary_conditions": {
+                "Displacement": {"Fixed": dict(
+                    CLAMP_LOAD["Displacement"]["Fixed"], Surface=["Zmin"])},
+                "Force": {"Load": dict(CLAMP_LOAD["Force"]["Load"],
+                                       Surface=["Zmax"])}},
+            "optimization_informations": {
+                "simulation_type": sim_type,
+                "optimization_parameters": {"type": "unit_cell"},
+                "constraints": {"relative_density": {"value": 0.10,
+                                                     "mode": "upper"}},
+                "max_iterations": 1}})
+        cylindrical_transform(lat, radius=2.0 / np.pi)
+        assert lat.node_transforms is None      # the seam merged
+        with pytest.raises(ValueError):
+            StructuredOptimizationProblem(lat, device="cpu")
+        problem, _res = optimize_lattice(
+            lat, density_model=KrigingDensity.load(OCTET_FIT), device="cpu")
+        assert type(problem) is OptimizationProblem
 
 
 def test_ddm_routes(tmp_path, monkeypatch):

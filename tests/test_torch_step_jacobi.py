@@ -72,19 +72,30 @@ def test_cold_and_warm_match_jax(pair):
 
 
 def test_unported_step_features_raise(monkeypatch):
-    """What the port's step still declines: a warped lattice's operator,
-    and on the multigrid a fused request the state cannot meet (float64
-    has no fused smoother; JAX warns and falls back there), with or
-    without the fused V-cycle's bf16 arithmetic (ported: it changes
-    nothing where there is no fused level).  ``u_imposed``, a custom objective, the
-    implicit and self-adjoint forms and ``step.batch`` are ported and held
-    to JAX in tests/test_torch_implicit_{jacobi,mg}.py."""
+    """What the port's step still declines: on the multigrid a fused
+    request the state cannot meet (float64 has no fused smoother; JAX
+    warns and falls back there), with or without the fused V-cycle's bf16
+    arithmetic (ported: it changes nothing where there is no fused level).
+    A warped lattice's step is ported: here JAX's c, g and u on a small
+    one (tests/test_torch_warped_step.py holds the rest).  ``u_imposed``,
+    a custom objective, the implicit and self-adjoint forms and
+    ``step.batch`` are ported and held to JAX in
+    tests/test_torch_implicit_{jacobi,mg}.py."""
     kw = dict(dtype=torch.float64, device="cpu")
+    warp = lambda x, y, z: (x, y, z + 0.1 * x)
     warped = TSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3,
-                 node_transform=lambda x, y, z: (x, y, z + 0.1 * x), **kw)
+                 node_transform=warp, **kw)
+    wj = JSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3,
+             dtype=jnp.float64, node_transform=warp)
     f = np.zeros((warped.nc, 6) + warped.grid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstep(warped, warped.node_valid, f)
+    tip = warped.select_nodes(lambda x, y, z: x == 2.0)
+    for c in range(warped.nc):
+        f[c, 2][tip[c]] = -0.1
+    free = warped.node_valid & ~warped.select_nodes(
+        lambda x, y, z: x == 0.0)
+    r = np.full((2, 2, 2), 0.05)
+    assert_close(jstep(wj, free, f, tol=1e-10)(jnp.asarray(r)),
+                 tstep(warped, free, f, tol=1e-10)(torch.tensor(r)))
     ts = TSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3, **kw)
     step = tstep(ts, ts.node_valid, f, precond="mg",
                  mg_opts={"fused": True, "power_iters": 1})

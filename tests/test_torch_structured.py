@@ -119,11 +119,18 @@ def test_scalar_and_3d_radius_broadcast():
 
 
 def test_declined_lattices_raise():
+    """A warped lattice is no longer declined: its operator is JAX's (the
+    full parity is tests/test_torch_warped.py); the main path still never
+    falls back to the CPU."""
+    warp = lambda x, y, z: (x, y, z + 0.1 * x)
     warped = TSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3,
-                 dtype=torch.float64, device="cpu",
-                 node_transform=lambda x, y, z: (x, y, z + 0.1 * x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        warped.make_matvec()
+                 dtype=torch.float64, device="cpu", node_transform=warp)
+    wj = JSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3,
+             dtype=jnp.float64, node_transform=warp)
+    u = np.random.default_rng(5).normal(size=(warped.nc, 6) + warped.grid)
+    got = warped.make_matvec()[0](torch.tensor(u), 0.05)
+    want = np.asarray(wj.make_matvec()[0](jnp.asarray(u), 0.05))
+    assert np.abs(got.numpy() - want).max() <= TOL * np.abs(want).max()
     if not torch.cuda.is_available():
         # the main path never falls back to the CPU
         on_card = TSL("BCC", (2, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3)
