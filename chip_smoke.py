@@ -37,10 +37,19 @@ kernel B1w against a float64 step, B1w (float32, float64) and its
 r^2-cotangent against their plain versions at every multigrid grid, the
 warped cantilever through optimize_lattice's FEM_AUTO route against the
 unstructured problem, and the solid mesh's signed distance on the card
-against the CPU; last, each of the
-compliance and design-gradient steps, the edge-sharded step and the DDM
-evaluation take two more warm steps under torch.profiler, the unfused
-routes lo and f32 one (device busy time and idle share).
+against the CPU; then the mesh (pylatticedso_tpu_torch/smoke_mesh.py):
+a virtual mesh of the one card, every case against the one-device port:
+bench.py's second mode at 50^3 edge-sharded on 1 x 4 (and step.batch of
+two candidates on 2 x 4), the main path on a 51 x 50 x 50 Octet slab-sharded
+on 1 x 4 (unfused f32 and fused bf16 V-cycles: B1, B3 and B4 on every
+slab, halo exchanges between), dryrun_multichip on 2 x 4, the BCC N=7
+multigrid case in float64, the lo route (B2 per slab) and a warped lattice
+(B1w per slab), and every per-slab kernel against its plain version; last,
+each of the compliance and design-gradient steps, the edge-sharded step,
+the DDM evaluation and the mesh's (m1) and fused (m2) steps (beside the
+same step on one device) take two more warm steps under torch.profiler,
+the unfused routes lo and f32 and the mesh's one (device busy time and
+idle share).
 Prints the card's
 name and power limit, one JSON line listing the kernels, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero, with no result, when
@@ -63,7 +72,7 @@ def main() -> int:
     args = ap.parse_args()
     try:
         import torch
-        from pylatticedso_tpu_torch import smoke, smoke_warped
+        from pylatticedso_tpu_torch import smoke, smoke_mesh, smoke_warped
     except ImportError as e:
         print(f"chip_smoke: cannot import the port: {e}", file=sys.stderr)
         return 2
@@ -73,7 +82,8 @@ def main() -> int:
         return 1
     report = smoke.run(device="cuda", n=50,
                        log=lambda s: print(s, flush=True),
-                       warped_size=smoke_warped.FULL)
+                       warped_size=smoke_warped.FULL,
+                       mesh_size=smoke_mesh.FULL)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report, fh, indent=1, default=str)
@@ -82,6 +92,11 @@ def main() -> int:
         profs["design"] = report["design"]["c"]["profile"]
         profs["statics"] = report["statics"]["s1"]["profile"]
         profs["ddm"] = report["ddm"]["d1"]["profile"]
+        profs["mesh-m1"] = report["mesh"]["m1"]["profile"]
+        r = report["mesh"]["m2"]["routes"][smoke_mesh.PROFILED]
+        profs[f"mesh-m2-{smoke_mesh.PROFILED}"] = r["profile"]
+        profs[f"mesh-m2-{smoke_mesh.PROFILED}-one"] = \
+            r["one_device"]["profile"]
         with open(args.profile, "w") as fh:
             json.dump(profs, fh, indent=1)
     print(f"wall: {report['wall_s']:.1f} s "

@@ -48,52 +48,59 @@ def pcg(A: Callable, b: torch.Tensor, M: Optional[Callable] = None,
         x0: Optional[torch.Tensor] = None, maxiter: int = 1000,
         tol: float = 1e-10, mintol: float = 0.0,
         alpha_max: Optional[float] = None, restart_every: int = 0,
-        track_history: bool = False, flexible: bool = False) -> PCGResult:
+        track_history: bool = False, flexible: bool = False, *,
+        ops=None) -> PCGResult:
     """Matrix-free PCG over tensors of any shape; stops when the recurrence
     residual norm drops to ``tol * |b|``, when (``mintol`` > 0) the search
     direction collapses below ``mintol * |x|``, or after ``maxiter``
     iterations.  ``alpha_max`` clamps the step, ``restart_every`` resets
     the direction to the preconditioned residual every that many
     iterations, ``flexible`` takes the Polak-Ribiere beta, and
-    ``track_history`` records each iteration's residual norm."""
+    ``track_history`` records each iteration's residual norm.
+
+    ``ops`` (internal; callers pass none) holds the dot product and norm
+    of vectors held in parts: ``parallel.mesh.OPS`` for a
+    ``parallel.mesh.Sharded`` field, per-shard partials reduced in rank
+    order.  None: ``_dot`` and ``_norm``."""
+    _dot_, _norm_ = (_dot, _norm) if ops is None else (ops.dot, ops.norm)
     if M is None:
         M = lambda r: r
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)
     z = M(r)
     p = z
-    rz = _dot(r, z)
-    norm_b = _norm(b)
+    rz = _dot_(r, z)
+    norm_b = _norm_(b)
     # a zero rhs must return x = 0 without iterating
     threshold = tol * torch.clamp_min(norm_b, torch.finfo(b.dtype).tiny)
     hist = torch.full((maxiter,), -1.0, dtype=b.dtype, device=b.device) \
         if track_history else None
-    res = _norm(r)
+    res = _norm_(r)
     done = bool(res <= threshold)
     k = 0
-    one = torch.ones((), dtype=b.dtype, device=b.device)
+    one = torch.ones_like(norm_b)
     while k < maxiter and not done:
         Ap = A(p)
-        pAp = _dot(p, Ap)
+        pAp = _dot_(p, Ap)
         alpha = rz / torch.where(pAp == 0, one, pAp)
         if alpha_max is not None:
             alpha = torch.clamp_max(alpha, alpha_max)
         x = x + alpha * p
         r_old = r
         r = r - alpha * Ap
-        res = _norm(r)
+        res = _norm_(r)
         if hist is not None:
             hist[k] = res
         stop = res <= threshold
         if mintol > 0:
-            stop = stop | (_norm(p) < mintol * (_norm(x) + 1e-12))
+            stop = stop | (_norm_(p) < mintol * (_norm_(x) + 1e-12))
         k += 1
         done = bool(stop)                       # the one host sync
         if done or k >= maxiter:
             break                               # z, p are not needed
         z = M(r)
-        rz_new = _dot(r, z)
-        num = _dot(z, r - r_old) if flexible else rz_new
+        rz_new = _dot_(r, z)
+        num = _dot_(z, r - r_old) if flexible else rz_new
         beta = num / torch.where(rz == 0, one, rz)
         p = z if restart_every > 0 and k % restart_every == 0 \
             else z + beta * p

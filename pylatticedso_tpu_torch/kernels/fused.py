@@ -694,9 +694,11 @@ class FusedSmoother:
 
     source = SOURCE
 
-    def __init__(self, slat, stencil: StencilMatvec):
-        self.ok, self.single_ok = route(slat)
-        self.dense = dense_form(slat)
+    def __init__(self, slat, stencil: StencilMatvec, level=None):
+        # the routing is the whole level's (``level``, on a slab of it:
+        # ``slat`` is then its ``LatticeSlab``)
+        self.ok, self.single_ok = route(level if level is not None else slat)
+        self.dense = dense_form(level if level is not None else slat)
         self.dense_form = DenseForm(slat)
         self.mv = stencil
         self.grid = tuple(slat.grid)
@@ -844,24 +846,25 @@ class FusedSmoother:
         return args
 
     # ------------------------------------------------------- plain versions
-    # K is the gather form (self.mv.plain) on interior fields, in its own
-    # dtype, or under bf16 compute the dense form on them rounded to bf16,
-    # widened back; outputs are padded back with zero ghosts, as the
-    # kernels write
+    # K is the gather form (self.mv.plain_padded) on a ghost-padded field
+    # widened to its own dtype, or under bf16 compute the dense form on it
+    # rounded to bf16, widened back; its ghosts are read as the kernels
+    # read them (zeros on one device, a neighbour slab's planes on a
+    # slab); outputs are padded back with zero ghosts, as the kernels write
     def _w(self, v: torch.Tensor) -> torch.Tensor:
         return _unpad(v).to(self.mv.dtype)
 
-    def _K(self, v: torch.Tensor, r2: torch.Tensor, compute: str):
+    def _K(self, vp: torch.Tensor, r2: torch.Tensor, compute: str):
+        wd = self.mv.dtype
         if compute == "bf16":
             bf = torch.bfloat16
-            return self.dense_form.plain(F.pad(v, PAD).to(bf),
-                                         r2.to(bf)).to(v.dtype)
-        return self.mv.plain(v, r2.to(self.mv.dtype))
+            return self.dense_form.plain(vp.to(bf), r2.to(bf)).to(wd)
+        return self.mv.plain_padded(vp.to(wd), r2.to(wd))
 
     def plain_residual(self, b, x, fm, r2, compute: Optional[str] = None):
         io = b.dtype
         ct = self.compute_type(compute)
-        out = self._w(fm) * (self._w(b) - self._K(self._w(x), r2, ct))
+        out = self._w(fm) * (self._w(b) - self._K(x, r2, ct))
         return F.pad(out, PAD).to(io)
 
     def plain_cheb_run(self, x, r, d, fd, sc, r2, c1, c2, final,
@@ -869,7 +872,7 @@ class FusedSmoother:
         io = x.dtype
         wd = self.mv.dtype
         dc = self._w(d)
-        kd = self._K(dc, r2, self.compute_type(compute))
+        kd = self._K(d, r2, self.compute_type(compute))
         x1 = self._w(x) + dc
         r1 = self._w(r) - kd
         d1 = c1 * dc + ((c2 * sc[1].to(wd)) * r1) * self._w(fd)
@@ -886,13 +889,13 @@ class FusedSmoother:
         inv_theta, inv_delta = sc[0].to(wd), sc[1].to(wd)
         if x0 is not None:
             x = self._w(x0)
-            r = bw - self._K(x, r2, ct)
+            r = bw - self._K(F.pad(x, PAD), r2, ct)
         else:
             x = torch.zeros_like(bw)
             r = bw
         d = (r * fdw) * inv_theta
         for c1, c2 in cheb_static(frac, degree):
-            kd = self._K(d, r2, ct)
+            kd = self._K(F.pad(d, PAD), r2, ct)
             x = x + d
             r = r - kd
             d = c1 * d + ((c2 * inv_delta) * r) * fdw

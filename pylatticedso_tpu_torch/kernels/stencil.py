@@ -9,8 +9,11 @@ form).  B2 replaces ``make_call(jnp.bfloat16)`` (``apply.lo``): the same
 K.u with bfloat16 loads and stores and float32 arithmetic, the matvec of
 the multigrid's bf16-I/O smoother.
 
-``StencilMatvec(slat, plain, plain_vjp_r2)`` is the ``apply(u, r2p)`` of
-one lattice's operator, and ``apply.lo(u_lo, r2_lo)`` its bf16-I/O form.
+``StencilMatvec(slat, plain_padded, plain_vjp_padded)`` is the
+``apply(u, r2p)`` of one lattice's operator, and ``apply.lo(u_lo, r2_lo)``
+its bf16-I/O form; ``apply_padded(up, r2p)`` takes an already ghost-padded
+u, whose ghosts may hold a neighbour slab's planes (``LatticeSlab``: the
+operator on one slab of a mesh, ``parallel/slabs.py``).
 On a CPU tensor each returns its plain version, the gather form of
 ``parallel/structured.py`` (for ``lo``: on the bf16 inputs widened, the
 result rounded to bf16).  On a CUDA tensor each launches its kernel or
@@ -63,9 +66,9 @@ import torch.nn.functional as F
 
 from . import launch
 
-__all__ = ["StencilMatvec", "edge_sides", "side_table", "beam_table",
-           "stencil_reach", "slab_plan", "beam_plan", "SIDE_DTYPE",
-           "SIDE_DTYPE_F64", "FLOPS_PER_SIDE"]
+__all__ = ["StencilMatvec", "LatticeSlab", "edge_sides", "side_table",
+           "beam_table", "stencil_reach", "slab_plan", "beam_plan",
+           "SIDE_DTYPE", "SIDE_DTYPE_F64", "FLOPS_PER_SIDE"]
 
 PAD = (1, 1, 1, 1, 1, 1)
 
@@ -226,6 +229,21 @@ def beam_plan(n_e: int, reach) -> Dict:
             "groups": -(-n_e // edges), "halo": (SLAB_HALO,) * 3}
 
 
+class LatticeSlab:
+    """A lattice's template on a slab of its grid: every attribute of the
+    lattice but ``grid``, which is the slab's.  A ``StencilMatvec``,
+    ``DenseForm`` or ``FusedSmoother`` built on it indexes the slab's own
+    ghost-padded planes (its side table's offsets follow the slab's padded
+    grid), so a kernel runs on the slab unchanged."""
+
+    def __init__(self, slat, grid):
+        self.lattice = slat
+        self.grid = tuple(int(g) for g in grid)
+
+    def __getattr__(self, name):
+        return getattr(self.lattice, name)
+
+
 class _B1(torch.autograd.Function):
     """B1 with its VJP (the JAX kernel's ``custom_vjp``): u-cotangent
     K g by the same kernel (plain version on the CPU), r^2-cotangent by
@@ -265,10 +283,16 @@ class StencilMatvec:
     # warped lattice and runs the XLA gather form
     replaces_w = "pylatticedso_tpu/parallel/stencil_pallas.py:88"
 
-    def __init__(self, slat, plain: Callable, plain_vjp_r2: Callable,
-                 geo: Optional[torch.Tensor] = None):
-        self.plain = plain
-        self.plain_vjp_r2 = plain_vjp_r2
+    def __init__(self, slat, plain_padded: Callable,
+                 plain_vjp_padded: Callable,
+                 geo: Optional[torch.Tensor] = None,
+                 plain: Optional[Callable] = None):
+        # the plain versions read a ghost-padded u, as the kernels do:
+        # zero ghosts on one device, the neighbours' planes on a slab
+        self.plain_padded = plain_padded
+        self.plain_vjp_padded = plain_vjp_padded
+        self.plain = plain if plain is not None \
+            else (lambda u, r2p: plain_padded(F.pad(u, PAD), r2p))
         self.dtype = slat.dtype
         # the warped lattice's geometry field [n_e, 10, Xp, Yp, Zp], or None
         self.geo = geo
@@ -348,6 +372,39 @@ class StencilMatvec:
         nbytes = itemsize * (2 * self.nc * 6 + 2 * self.n_e
                              + self._geo_rows()) * Fp
         return nbytes, FLOPS_PER_SIDE * self.n_sides * X * Y * Z
+
+    def plain_vjp_r2(self, g: torch.Tensor, u: torch.Tensor,
+                     r2p: torch.Tensor) -> torch.Tensor:
+        """The r^2-cotangent's plain version on an unpadded u."""
+        return self.plain_vjp_padded(g, F.pad(u, PAD), r2p)
+
+    def apply_padded(self, up: torch.Tensor,
+                     r2p: torch.Tensor) -> torch.Tensor:
+        """K.u of an already ghost-padded u, whose ghost layers may hold a
+        neighbour slab's planes (the halo): B1 (B1w on a warped lattice, B2
+        on bfloat16 u and r^2) on a CUDA tensor, the plain version on a CPU
+        tensor (for bfloat16 on the widened inputs, rounded back)."""
+        if up.device.type == "cpu":
+            with torch.no_grad():
+                if up.dtype == torch.bfloat16:
+                    return self.plain_padded(
+                        up.to(self.dtype),
+                        r2p.to(self.dtype)).to(torch.bfloat16)
+                return self.plain_padded(up, r2p)
+        return self.launch(up.contiguous(), r2p)
+
+    def vjp_r2_padded(self, g: torch.Tensor, up: torch.Tensor,
+                      r2p: torch.Tensor) -> torch.Tensor:
+        """The r^2-cotangent of sum(g * K(r2p) u) for an already
+        ghost-padded u (a slab with its halo) and an unpadded g: the
+        kernel on a CUDA tensor, its plain version on a CPU tensor.  Each
+        beam's terms come from its endpoints inside the slab, so over the
+        slabs of a field each term is counted once."""
+        if up.device.type == "cpu":
+            with torch.no_grad():
+                return self.plain_vjp_padded(g, up, r2p)
+        return self.launch_vjp(up.contiguous(), F.pad(g, PAD).contiguous(),
+                               r2p)
 
     def vjp_r2(self, g: torch.Tensor, u: torch.Tensor,
                r2p: torch.Tensor) -> torch.Tensor:

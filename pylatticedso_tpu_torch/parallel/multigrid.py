@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.fused import cheb_static, has_kernel_matvec, storage_dtype
+from .mesh import OPS, Sharded, scatter
 
 __all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
            "mg_preconditioner", "make_transfers", "make_radius_restrictor"]
@@ -288,19 +289,26 @@ def build_mg_hierarchy(slat, free_field: np.ndarray, min_cells: int = 3,
 # ------------------------------------------------------------- smoothing
 def _estimate_lmax(A: Callable, D: torch.Tensor, shape, dtype,
                    iters: int = 10) -> torch.Tensor:
-    """lmax(D^-1 A) via power iteration with a deterministic start."""
+    """lmax(D^-1 A) via power iteration with a deterministic start.  On a
+    level held in slabs (``D`` a ``parallel.mesh.Sharded``) the start is
+    scattered over the slabs and the norms and dots are reduced over them
+    in rank order (``parallel.mesh.OPS``); the result is then replicated."""
     n = int(np.prod(shape))
     v = 1.0 + 0.5 * torch.sin(torch.arange(n, dtype=dtype, device=D.device)
                               * 0.7)
     v = v.reshape(shape)
-    v = v / torch.linalg.vector_norm(v.reshape(-1))
+    if isinstance(D, Sharded):
+        v = scatter(v, D.devices, D.dim)
+        vnorm, vdot = OPS.vector_norm, OPS.dot
+    else:
+        vnorm = lambda x: torch.linalg.vector_norm(x.reshape(-1))
+        vdot = lambda a, b: torch.dot(a.reshape(-1), b.reshape(-1))
+    v = v / vnorm(v)
     for _ in range(iters):
         w = A(v) / D
-        v = w / torch.clamp_min(torch.linalg.vector_norm(w.reshape(-1)),
-                                1e-30)
+        v = w / torch.clamp_min(vnorm(w), 1e-30)
     w = A(v) / D
-    lam = torch.dot(v.reshape(-1), w.reshape(-1)) \
-        / torch.dot(v.reshape(-1), v.reshape(-1))
+    lam = vdot(v, w) / vdot(v, v)
     return 1.1 * lam
 
 
@@ -398,7 +406,8 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
 # ------------------------------------------------------------- V-cycle
 def mg_precond_state(h: dict, radius_field: torch.Tensor,
                      power_iters: int = 10,
-                     fused: Optional[bool] = None) -> dict:
+                     fused: Optional[bool] = None,
+                     lmax_of: Optional[Callable] = None) -> dict:
     """Radius-derived V-cycle state: per-level radii, hoisted matvec
     operands (and their bf16 copies for B2 where the level has B2, None
     elsewhere), Jacobi diagonals and lmax
@@ -408,7 +417,8 @@ def mg_precond_state(h: dict, radius_field: torch.Tensor,
     storage dtype (``PLDSO_MG_FUSED_DTYPE``); None on a level whose routing
     has no fused smoother.  A descent loop whose radii move slowly can
     FREEZE it and skip the per-solve power iterations and per-level operand
-    rebuilds."""
+    rebuilds.  ``lmax_of(level, D, aux)`` (the sharded step's) may give a
+    level's lmax in place of the power iteration here, or None."""
     levels: List[MGLevel] = h["levels"]
     dt = levels[0].slat.dtype
     radii = [torch.as_tensor(radius_field, dtype=dt,
@@ -418,10 +428,13 @@ def mg_precond_state(h: dict, radius_field: torch.Tensor,
 
     auxs = [lvl.prepare(rad) for lvl, rad in zip(levels, radii)]
     lmaxs = []
-    for lvl, rad, aux in zip(levels, radii, auxs):
+    for i, (lvl, rad, aux) in enumerate(zip(levels, radii, auxs)):
         D = lvl.D(rad)
-        Af = lambda u, _l=lvl, _r=rad, _a=aux: _l.A_aux(u, _r, _a)
-        lmaxs.append(_estimate_lmax(Af, D, D.shape, dt, iters=power_iters))
+        lmax = None if lmax_of is None else lmax_of(i, D, aux)
+        if lmax is None:
+            Af = lambda u, _l=lvl, _r=rad, _a=aux: _l.A_aux(u, _r, _a)
+            lmax = _estimate_lmax(Af, D, D.shape, dt, iters=power_iters)
+        lmaxs.append(lmax)
     Ds = [lvl.D(rad) for lvl, rad in zip(levels, radii)]
     auxs_lo = [lvl.prepare_lo(aux) for lvl, aux in zip(levels, auxs)]
     if fused is None:

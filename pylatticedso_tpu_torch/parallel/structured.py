@@ -21,7 +21,8 @@ and hybrid (superposed multi-geometry) templates, erased cells,
 node-granular trimming and warped lattices (``node_transform``: per-instance
 frame and length fields, the warped B1 kernel on a CUDA tensor); the step
 with every objective, imposed displacements and gradient form of the JAX
-package, and ``shard_structured_step`` on one device.  The scatter form
+package, and ``shard_structured_step`` on a mesh (``parallel/slabs.py``).
+The scatter form
 (``matvec.apply_scatter``) is a plain torch form in a fixed order; the port
 reads no ``PLDSO_MATVEC``, so on a CUDA tensor the operator is always B1.
 """
@@ -38,7 +39,8 @@ import torch.nn.functional as F
 
 from ..catalog import get_beam_structure
 from ..kernels.fused import FusedSmoother
-from ..kernels.stencil import StencilMatvec, edge_sides
+from ..kernels.stencil import LatticeSlab, StencilMatvec, edge_sides
+from .mesh import check_device as _check_device
 
 __all__ = ["StructuredLattice", "make_structured_compliance_step",
            "shard_structured_step"]
@@ -126,17 +128,6 @@ def _class_decomposition(templates):
         # an instance at anchor g is created by cell g - s (of geometry gi)
         edges[canon]["shifts"].add(tuple(s.tolist()) + (gi,))
     return uniq, list(edges.values()), class_offsets
-
-
-def _check_device(device) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU; a CUDA
-    request with no card fails here instead of falling back."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device 'cuda' requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain torch operator")
-    return dev
 
 
 @dataclass
@@ -324,8 +315,10 @@ class StructuredLattice:
         and ``apply.fused`` the fused smoother kernels B3-B5 of the
         multigrid; ``matvec.apply_gather`` is the plain gather form itself,
         ``matvec.apply_scatter(u, radius)`` the instance-anchored scatter
-        form, and ``matvec.sections`` / ``matvec.energy_dr2`` serve the
-        analytic gradient.  ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom,
+        form, ``matvec.sections`` / ``matvec.energy_dr2`` serve the
+        analytic gradient, and ``matvec.slab(axis, n, k, device)`` is the
+        operator on slab k of n along a grid axis (``parallel/slabs.py``).
+        ``radius`` is [Nx, Ny, Nz] (per cell), [n_geom,
         Nx, Ny, Nz] (hybrid) or a scalar.
         """
         dev = _check_device(self.device)
@@ -461,151 +454,192 @@ class StructuredLattice:
             stacked = torch.stack(rows).reshape(len(consts), _Xp, _Yp, _Zp)
             return stacked if _prep_mask is None else stacked * _prep_mask
 
-        # edge sides (the B1 kernel's table, in the same order): self and
-        # other class, flat shifts of the other endpoint and of the
-        # instance anchor on the padded grid, frame, length
-        recs = edge_sides(self, _Yp, _Zp)
-        n_s = len(recs)
-        X, Y, Z = self.grid
-        N = X * Y * Z
-        gx, gy, gz = torch.meshgrid(
-            *(torch.arange(1, g + 1, device=dev) for g in self.grid),
-            indexing="ij")
-        q = ((gx * _Yp + gy) * _Zp + gz).reshape(1, 1, N)   # interior points
-        it = lambda key: torch.tensor([r[key] for r in recs], device=dev)
-        k6 = torch.arange(6, device=dev).reshape(1, 6, 1)
-        rows_s = it("cs").reshape(n_s, 1, 1) * 6 + k6
-        rows_o = it("co").reshape(n_s, 1, 1) * 6 + k6
-        pos_o = q + it("du").reshape(n_s, 1, 1)
-        ei_s = it("ei").reshape(n_s, 1)
-        pos_r = q[0] + it("dr").reshape(n_s, 1)
-        # side A: uB - uA = other - self, force row [-fu, msh - mdf];
-        # side B: uB - uA = self - other, force row [fu, msh + mdf]
-        sgn = tens([-1.0 if r["side"] else 1.0 for r in recs]).reshape(
-            n_s, 1, 1)
-        sgf = -sgn
-        class_sides = [[i for i, r in enumerate(recs) if r["cs"] == c]
-                       for c in range(self.nc)]
-        if not warped:
-            fr = tens(np.stack([np.stack([r["t"], r["a1"], r["a2"]])
-                                for r in recs])).reshape(n_s, 3, 3, 1)
-            Ls = np.array([r["L"] for r in recs])
-            frames_c = (fr[:, 0], fr[:, 1], fr[:, 2],        # [n_s, 3, 1]
-                        tens(1.0 / Ls).reshape(n_s, 1),
-                        tens(0.5 * Ls).reshape(n_s, 1, 1))
+        _forms = {}
 
-        def _frames():
-            """(t, a1, a2, 1/L, L/2) of every side: the template's
-            constants, or on a warped lattice the instance fields read at
-            the side's r^2 anchor ([n_s, 3, N] frames, [n_s, N] lengths),
-            1/L and L/2 computed in the dtype as the JAX gather form does."""
-            if geoP is None:
-                return frames_c
-            g = geoP.reshape(len(consts), 10, -1).transpose(0, 1)[
-                :, ei_s, pos_r]                               # [10, n_s, N]
-            t_, a1_, a2_ = (g[0:3].transpose(0, 1), g[3:6].transpose(0, 1),
-                            g[6:9].transpose(0, 1))
-            L_ = g[9]
-            return t_, a1_, a2_, 1.0 / L_, (L_ * 0.5)[:, None]
+        def _form(grid, fdev):
+            """The plain gather form on a ghost-padded ``grid`` on device
+            ``fdev`` (built once per grid and device): ``(apply(up, r2ps,
+            geo), vjp(lam, up, r2ps, geo))`` with ``up`` the ghost-padded u
+            [nc, 6, *grid + 2], ``r2ps`` [n_e, *grid + 2] and ``geo`` the
+            padded geometry field (None unwarped).  The whole lattice's
+            form reads zero ghosts; a slab's (``slab``) reads its
+            neighbours' planes there."""
+            key = (tuple(grid), fdev)
+            if key in _forms:
+                return _forms[key]
+            Xp_, Yp_, Zp_ = (g + 2 for g in grid)
+            # edge sides (the B1 kernel's table, in the same order): self
+            # and other class, flat shifts of the other endpoint and of the
+            # instance anchor on the padded grid, frame, length
+            recs = edge_sides(self, Yp_, Zp_)
+            n_s = len(recs)
+            N = int(np.prod(grid))
+            tensf = lambda a: torch.as_tensor(np.asarray(a), dtype=dt,
+                                              device=fdev)
+            gx, gy, gz = torch.meshgrid(
+                *(torch.arange(1, g + 1, device=fdev) for g in grid),
+                indexing="ij")
+            q = ((gx * Yp_ + gy) * Zp_ + gz).reshape(1, 1, N)  # interior
+            it = lambda key_: torch.tensor([r[key_] for r in recs],
+                                           device=fdev)
+            k6 = torch.arange(6, device=fdev).reshape(1, 6, 1)
+            rows_s = it("cs").reshape(n_s, 1, 1) * 6 + k6
+            rows_o = it("co").reshape(n_s, 1, 1) * 6 + k6
+            pos_o = q + it("du").reshape(n_s, 1, 1)
+            ei_s = it("ei").reshape(n_s, 1)
+            pos_r = q[0] + it("dr").reshape(n_s, 1)
+            # side A: uB - uA = other - self, force row [-fu, msh - mdf];
+            # side B: uB - uA = self - other, force row [fu, msh + mdf]
+            sgn = tensf([-1.0 if r["side"] else 1.0 for r in recs]).reshape(
+                n_s, 1, 1)
+            sgf = -sgn
+            class_sides = [[i for i, r in enumerate(recs) if r["cs"] == c]
+                           for c in range(self.nc)]
+            frames_c = None
+            if not warped:
+                fr = tensf(np.stack([np.stack([r["t"], r["a1"], r["a2"]])
+                                     for r in recs])).reshape(n_s, 3, 3, 1)
+                Ls = np.array([r["L"] for r in recs])
+                frames_c = (fr[:, 0], fr[:, 1], fr[:, 2],   # [n_s, 3, 1]
+                            tensf(1.0 / Ls).reshape(n_s, 1),
+                            tensf(0.5 * Ls).reshape(n_s, 1, 1))
+            cs_s = it("cs")
+            # side s adds its row at interior point p to r^2 position
+            # p + dr_s: the 3-D form of dr, -oa on side A and -ob on side B
+            r2_at = []
+            for r in recs:
+                e = self.edges[r["ei"]]
+                off = e["ob"] if r["side"] else e["oa"]
+                r2_at.append((r["ei"],) + tuple(
+                    slice(1 - off[ax], 1 - off[ax] + grid[ax])
+                    for ax in range(3)))
 
-        dot = lambda V, w: (V * w).sum(1)
-        o = lambda s_, w: s_[:, None] * w
-        cs_s = it("cs")
-        # side s adds its row at interior point p to r^2 position p + dr_s:
-        # the 3-D form of dr, -oa on side A and -ob on side B
-        r2_at = []
-        for r in recs:
-            e = self.edges[r["ei"]]
-            off = e["ob"] if r["side"] else e["oa"]
-            r2_at.append((r["ei"],) + tuple(
-                slice(1 - off[ax], 1 - off[ax] + self.grid[ax])
-                for ax in range(3)))
+            def frames(geo):
+                """(t, a1, a2, 1/L, L/2) of every side: the template's
+                constants, or on a warped lattice the instance fields read
+                at the side's r^2 anchor ([n_s, 3, N] frames, [n_s, N]
+                lengths), 1/L and L/2 computed in the dtype as the JAX
+                gather form does."""
+                if geo is None:
+                    return frames_c
+                g = geo.reshape(len(consts), 10, -1).transpose(0, 1)[
+                    :, ei_s, pos_r]                           # [10, n_s, N]
+                t_, a1_, a2_ = (g[0:3].transpose(0, 1),
+                                g[3:6].transpose(0, 1),
+                                g[6:9].transpose(0, 1))
+                L_ = g[9]
+                return t_, a1_, a2_, 1.0 / L_, (L_ * 0.5)[:, None]
 
-        def _gather(u, r2ps):
-            """Per-side reads: self and other u [n_s, 6, N], r^2 [n_s, N]."""
-            up = F.pad(u, (1, 1, 1, 1, 1, 1)).reshape(self.nc * 6, -1)
-            r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]
-            return up[rows_s, q], up[rows_o, pos_o], r2
+            dot = lambda V, w: (V * w).sum(1)
+            o = lambda s_, w: s_[:, None] * w
 
-        def _strains(uS, uO, fr):
-            """The six generalized strains of every side [n_s, N]."""
-            t_s, a1_s, a2_s, invL_s, _h = fr
-            d = sgn * (uO - uS)                          # uB - uA
-            du, dth = d[:, :3], d[:, 3:]
-            ths = uS[:, 3:] + uO[:, 3:]
-            return (dot(du, t_s) * invL_s,
-                    dot(du, a1_s) * invL_s - dot(ths, a2_s) * 0.5,
-                    dot(du, a2_s) * invL_s + dot(ths, a1_s) * 0.5,
-                    dot(dth, t_s) * invL_s,
-                    dot(dth, a1_s) * invL_s,
-                    dot(dth, a2_s) * invL_s)
+            def gather(up, r2ps):
+                """Per-side reads: self and other u [n_s, 6, N], r^2
+                [n_s, N]."""
+                up = up.reshape(self.nc * 6, -1)
+                r2 = r2ps.reshape(len(consts), -1)[ei_s, pos_r]
+                return up[rows_s, q], up[rows_o, pos_o], r2
 
-        def _rows(fr, s0, s1, s2, s3, s4, s5):
-            """Force/moment row [n_s, 6, N] of every side from its section
-            forces."""
-            t_s, a1_s, a2_s, _i, halfL_s = fr
-            fu = o(s0, t_s) + o(s1, a1_s) + o(s2, a2_s)
-            msh = halfL_s * (o(s2, a1_s) - o(s1, a2_s))
-            mdf = o(s3, t_s) + o(s4, a1_s) + o(s5, a2_s)
-            return torch.cat([sgf * fu, msh + sgf * mdf], dim=1)
+            def strains(uS, uO, fr):
+                """The six generalized strains of every side [n_s, N]."""
+                t_s, a1_s, a2_s, invL_s, _h = fr
+                d = sgn * (uO - uS)                          # uB - uA
+                du, dth = d[:, :3], d[:, 3:]
+                ths = uS[:, 3:] + uO[:, 3:]
+                return (dot(du, t_s) * invL_s,
+                        dot(du, a1_s) * invL_s - dot(ths, a2_s) * 0.5,
+                        dot(du, a2_s) * invL_s + dot(ths, a1_s) * 0.5,
+                        dot(dth, t_s) * invL_s,
+                        dot(dth, a1_s) * invL_s,
+                        dot(dth, a2_s) * invL_s)
+
+            def rows(fr, s0, s1, s2, s3, s4, s5):
+                """Force/moment row [n_s, 6, N] of every side from its
+                section forces."""
+                t_s, a1_s, a2_s, _i, halfL_s = fr
+                fu = o(s0, t_s) + o(s1, a1_s) + o(s2, a2_s)
+                msh = halfL_s * (o(s2, a1_s) - o(s1, a2_s))
+                mdf = o(s3, t_s) + o(s4, a1_s) + o(s5, a2_s)
+                return torch.cat([sgf * fu, msh + sgf * mdf], dim=1)
+
+            def apply_p(up, r2ps, geo):
+                """Gather-form K.u: every output point SUMS shifted reads.
+
+                For template edge e with cell offsets (oa, ob): the
+                instance anchored at g contributes fA at node (g + oa) of
+                class ca and fB at (g + ob) of class cb.  Re-indexed by
+                output point p:
+                  out[ca](p) += fA(uA = u[ca](p), uB = u[cb](p + d),
+                                   r2(p - oa))
+                  out[cb](p) += fB(uA = u[ca](p - d), uB = u[cb](p),
+                                   r2(p - ob))
+                with d = ob - oa in {-1,0,1}^3.  The ghost layer keeps
+                every read in bounds; on one device out-of-range
+                contributions vanish because the padded r2 is zero there.
+                All edge sides are evaluated as one batch; each class then
+                sums its sides in edge order, side A before side B -- the
+                order the B1 kernel keeps.
+                """
+                uS, uO, r2 = gather(up, r2ps)
+                fr = frames(geo)
+                e0, e1, e2, e3, e4, e5 = strains(uS, uO, fr)
+                S = np.pi * r2
+                I = np.pi * r2 * r2 / 4.0
+                ES, kGS = E_mod * S, kappa * G_mod * S
+                GJ, EI = 2.0 * G_mod * I, E_mod * I
+                f_side = rows(fr, ES * e0, kGS * e1, kGS * e2, GJ * e3,
+                              EI * e4, EI * e5)
+                acc = []
+                for sides in class_sides:
+                    a = torch.zeros_like(f_side[0])
+                    for i in sides:
+                        a = a + f_side[i]
+                    acc.append(a)
+                return torch.stack(acc).reshape((self.nc, 6) + tuple(grid))
+
+            def vjp_p(lam, up, r2ps, geo):
+                """r^2-cotangent of sum(lam * apply_p(up, r2ps)) over the
+                interior outputs, in closed form: each side's row with the
+                section stiffnesses replaced by their r^2-derivatives
+                (dS/dr2 = pi, dI/dr2 = pi r2 / 2), dotted with lam at the
+                side's output point and added to the r^2 position the side
+                read.  Sides are added one at a time, in edge order (side
+                A, then B), by slices: a fixed summation order with no
+                atomics, so repeats are bitwise equal.  Equal to autograd
+                of the gather form to rounding, at every position."""
+                uS, uO, r2 = gather(up, r2ps)
+                fr = frames(geo)
+                e0, e1, e2, e3, e4, e5 = strains(uS, uO, fr)
+                dS = np.pi
+                dI = (np.pi / 2.0) * r2
+                dfs = rows(fr, (E_mod * dS) * e0, (kappa * G_mod * dS) * e1,
+                           (kappa * G_mod * dS) * e2,
+                           (2.0 * G_mod) * dI * e3, E_mod * dI * e4,
+                           E_mod * dI * e5)
+                lamS = lam.reshape(self.nc, 6, N)[cs_s]      # [n_s, 6, N]
+                per_side = (lamS * dfs).sum(1).reshape((n_s,) + tuple(grid))
+                out = torch.zeros(r2ps.shape, dtype=r2ps.dtype,
+                                  device=r2ps.device)
+                for i, at in enumerate(r2_at):
+                    out[at] += per_side[i]
+                return out
+
+            _forms[key] = (apply_p, vjp_p)
+            return _forms[key]
+
+        _full = _form(self.grid, dev)
 
         def apply_gather(u, r2ps):
-            """Gather-form K.u: every output point SUMS shifted reads.
-
-            For template edge e with cell offsets (oa, ob): the instance
-            anchored at g contributes fA at node (g + oa) of class ca and fB
-            at (g + ob) of class cb.  Re-indexed by output point p:
-              out[ca](p) += fA(uA = u[ca](p), uB = u[cb](p + d), r2(p - oa))
-              out[cb](p) += fB(uA = u[ca](p - d), uB = u[cb](p), r2(p - ob))
-            with d = ob - oa in {-1,0,1}^3.  One-cell zero padding on both
-            sides keeps every read in bounds; out-of-range contributions
-            vanish because the padded r2 is zero there.  All edge sides are
-            evaluated as one batch; each class then sums its sides in edge
-            order, side A before side B — the order the B1 kernel keeps.
-            """
+            """The plain gather form of K.u on the whole lattice (zero
+            ghosts): ``_form``'s ``apply`` on ``F.pad(u)``."""
             if u.is_cuda:
                 matvec.plain_calls += 1
-            uS, uO, r2 = _gather(u, r2ps)
-            fr = _frames()
-            e0, e1, e2, e3, e4, e5 = _strains(uS, uO, fr)
-            S = np.pi * r2
-            I = np.pi * r2 * r2 / 4.0
-            ES, kGS = E_mod * S, kappa * G_mod * S
-            GJ, EI = 2.0 * G_mod * I, E_mod * I
-            f_side = _rows(fr, ES * e0, kGS * e1, kGS * e2, GJ * e3, EI * e4,
-                           EI * e5)
-            acc = []
-            for sides in class_sides:
-                a = torch.zeros_like(f_side[0])
-                for i in sides:
-                    a = a + f_side[i]
-                acc.append(a)
-            return torch.stack(acc).reshape((self.nc, 6) + self.grid)
+            return _full[0](F.pad(u, (1, 1, 1, 1, 1, 1)), r2ps, geoP)
 
         def apply_gather_vjp_r2(lam, u, r2ps):
-            """r^2-cotangent of sum(lam * apply_gather(u, r2ps)), in closed
-            form: each side's row with the section stiffnesses replaced by
-            their r^2-derivatives (dS/dr2 = pi, dI/dr2 = pi r2 / 2), dotted
-            with lam at the side's output point and added to the r^2
-            position the side read.  Sides are added one at a time, in
-            edge order (side A, then B), by slices: a fixed summation order
-            with no atomics, so repeats are bitwise equal.  Equal to
-            autograd of the gather form to rounding, at every position."""
-            uS, uO, r2 = _gather(u, r2ps)
-            fr = _frames()
-            e0, e1, e2, e3, e4, e5 = _strains(uS, uO, fr)
-            dS = np.pi
-            dI = (np.pi / 2.0) * r2
-            dfs = _rows(fr, (E_mod * dS) * e0, (kappa * G_mod * dS) * e1,
-                        (kappa * G_mod * dS) * e2, (2.0 * G_mod) * dI * e3,
-                        E_mod * dI * e4, E_mod * dI * e5)
-            lamS = lam.reshape(self.nc, 6, N)[cs_s]          # [n_s, 6, N]
-            per_side = (lamS * dfs).sum(1).reshape((n_s,) + self.grid)
-            out = torch.zeros(r2ps.shape, dtype=r2ps.dtype,
-                              device=r2ps.device)
-            for i, at in enumerate(r2_at):
-                out[at] += per_side[i]
-            return out
+            """r^2-cotangent of sum(lam * apply_gather(u, r2ps)) (``_form``'s
+            ``vjp``)."""
+            return _full[1](lam, F.pad(u, (1, 1, 1, 1, 1, 1)), r2ps, geoP)
 
         def diag(radius):
             r2s = _sections(radius)
@@ -696,9 +730,38 @@ class StructuredLattice:
                 out[(cb,) + sxb] += torch.cat([fu, msh + mdf])
             return out
 
-        apply = StencilMatvec(self, apply_gather, apply_gather_vjp_r2,
-                              geo=geoP)
+        apply = StencilMatvec(
+            self, lambda up, r2ps: _full[0](up, r2ps, geoP),
+            lambda lam, up, r2ps: _full[1](lam, up, r2ps, geoP),
+            geo=geoP, plain=apply_gather)
         apply.fused = FusedSmoother(self, apply)
+
+        def slab(axis, n, k, device):
+            """B1 (B1w, B2, and B3/B4 as ``.fused``) on slab ``k`` of ``n``
+            along grid ``axis``, on ``device``: a ``StencilMatvec`` of the
+            ``LatticeSlab`` whose grid is the slab's, its plain versions the
+            gather form on the slab's ghost-padded planes (built at their
+            first call), a warped lattice's geometry rows sliced from the
+            padded field with the halo, and the fused smoother routed by
+            the whole level (``FusedSmoother``'s ``level``)."""
+            size = self.grid[axis]
+            if size % n:
+                raise ValueError(f"slab: grid axis {axis} of {self.grid} is "
+                                 f"not divisible by {n}")
+            s = size // n
+            grid_k = list(self.grid)
+            grid_k[axis] = s
+            view = LatticeSlab(self, grid_k)
+            geo_k = None if geoP is None else geoP.narrow(
+                2 + axis, k * s, s + 2).to(device, copy=True).contiguous()
+            mv = StencilMatvec(
+                view,
+                lambda up, r2ps: _form(grid_k, device)[0](up, r2ps, geo_k),
+                lambda lam, up, r2ps: _form(grid_k, device)[1](
+                    lam, up, r2ps, geo_k),
+                geo=geo_k)
+            mv.fused = FusedSmoother(view, mv, level=self)
+            return mv
 
         def matvec(u, radius):
             return apply(u, prepare_gather(radius))
@@ -708,6 +771,7 @@ class StructuredLattice:
         matvec.apply_gather = apply_gather
         matvec.apply_gather_vjp_r2 = apply_gather_vjp_r2
         matvec.apply_scatter = apply_scatter
+        matvec.slab = slab
         # calls of the plain gather form on CUDA tensors (the smoke's
         # references only: the operator itself runs B1 there)
         matvec.plain_calls = 0
@@ -951,34 +1015,44 @@ def make_structured_compliance_step(slat: StructuredLattice,
                       else "selfadjoint" if selfadjoint else "implicit")
     step.last_solve = None
     step.last_adjoint = None
+    # what ``shard_structured_step`` needs to run this step on slabs
+    step._parts = {"lattice": slat, "matvec": matvec, "diag": diag_fn,
+                   "free": free, "f": f,
+                   "u_imposed": None if u_imposed is None else u_imp,
+                   "objective": None if default_objective else objective,
+                   "tol": tol, "maxiter": maxiter, "hierarchy": mg_hier,
+                   "mg_opts": opts, "power": power, "fused": fused}
     return step
 
 
 def shard_structured_step(step, mesh, axis_name: str = "shard",
                           grid_axis: Optional[int] = None):
     """The structured step on a mesh (JAX ``shard_structured_step``,
-    ``structured.py:902-968``), on the port's one-device ``Mesh``
-    (``parallel.sharding.make_mesh``).
+    ``structured.py:902-968``; ``parallel.mesh.make_mesh``).
 
-    JAX shards the nodal fields ``[nc, 6, X, Y, Z]`` along one grid axis
-    over ``mesh[axis_name]`` and lets GSPMD partition the jitted step; on
-    one device that partition is the whole field, so the record runs the
-    step itself.  It keeps JAX's ``grid_axis`` rule (default: the largest
+    The nodal fields ``[nc, 6, X, Y, Z]`` are cut along one grid axis into
+    ``mesh.shape[axis_name]`` slabs, one on each device of the mesh's first
+    row along ``axis_name`` (``parallel.slabs.ShardedStructuredStep``):
+    every matvec is a halo exchange and B1 (B1w, B2, B3, B4 where the
+    route takes them) per slab, CG's dots and norms are reduced in rank
+    order, and the multigrid levels that divide along the axis run on
+    slabs, the rest gathered on the mesh's first device.  The radius field
+    and the multigrid state stay replicated there.  JAX replicates the step
+    over the other axis (``dp``); it runs once here, on row 0, which gives
+    the same answer.  Keeps JAX's ``grid_axis`` rule (default: the largest
     grid axis divisible by the mesh axis size) and its ``ValueError``s,
-    refuses a mesh of more than one device, and runs what JAX's wrapper
-    runs: the implicit-form value and gradient (``step.value_and_grad``),
-    with ``precond_state`` freezing the multigrid state.  Returns
-    ``sharded_step(radius_field, u0=None, precond_state=None) -> (c, g,
-    u)``, carrying ``mesh`` and ``grid_axis``."""
+    and runs what JAX's wrapper runs: the implicit-form value and gradient
+    (an adjoint solve), with ``precond_state`` freezing the multigrid
+    state.  Returns ``sharded_step(radius_field, u0=None,
+    precond_state=None) -> (c, g, u)`` with ``u`` a ``parallel.mesh.
+    Sharded`` (``u.gather()`` the whole field; it is taken back as
+    ``u0``), carrying ``mesh``, ``grid_axis``, ``n_sharded_levels`` and
+    the ``ShardedStructuredStep`` as ``runner``.  On a one-shard mesh it
+    gives ``step.value_and_grad``'s bits."""
+    from .slabs import ShardedStructuredStep
+
     n_shard = mesh.shape[axis_name]
-    n_dev = int(np.prod(list(mesh.shape.values())))
-    if n_dev != 1:
-        raise ValueError(f"shard_structured_step: a mesh of {n_dev} devices;"
-                         f" the port runs on one device")
     free, f = step.operands
-    if torch.device(mesh.device) != f.device:
-        raise ValueError(f"shard_structured_step: the mesh's device "
-                         f"{mesh.device} is not the step's {f.device}")
     grid = tuple(free.shape[2:])
     if grid_axis is None:
         cands = [ax for ax in np.argsort(grid)[::-1]
@@ -992,13 +1066,19 @@ def shard_structured_step(step, mesh, axis_name: str = "shard",
     elif grid[grid_axis] % n_shard != 0:
         raise ValueError(f"grid axis {grid_axis} of {grid} not divisible "
                          f"by {axis_name}={n_shard}")
+    devices = mesh.devices[0] if axis_name == "shard" \
+        else tuple(row[0] for row in mesh.devices)
+    runner = ShardedStructuredStep(step, devices, grid_axis)
 
     def sharded_step(radius_field, u0=None, precond_state=None):
-        r = torch.as_tensor(radius_field, dtype=f.dtype, device=f.device)
-        u0 = torch.zeros_like(f) if u0 is None \
-            else torch.as_tensor(u0, dtype=f.dtype, device=f.device)
-        return step.value_and_grad(r, u0, precond_state)
+        out = runner(radius_field, u0, precond_state)
+        sharded_step.last_solve = runner.last_solve
+        sharded_step.last_adjoint = runner.last_adjoint
+        return out
 
     sharded_step.mesh = mesh
     sharded_step.grid_axis = grid_axis
+    sharded_step.runner = runner
+    sharded_step.n_sharded_levels = runner.n_sharded
+    sharded_step.last_solve = sharded_step.last_adjoint = None
     return sharded_step

@@ -151,7 +151,8 @@ PAD = (1, 1, 1, 1, 1, 1)
 # warm steps profiled per route: the unfused routes (~1,300 device events
 # per CG iteration) take one, so the run stays in its budget with the
 # statics phase (the profiler's post-processing grows with the events)
-PROFILE_STEPS = {"lo": 1, "f32": 1}
+PROFILE_STEPS = {"lo": 1, "f32": 1, "mesh-m1": 1, "mesh-m2-fused": 1,
+                 "mesh-m2-fused-one": 1}
 
 
 class Budget:
@@ -1913,7 +1914,8 @@ def _ms(v) -> str:
 def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         budget_s: float = 600.0, log: Callable[[str], None] = print,
         ddm_size: Dict = smoke_ddm.FULL,
-        warped_size: Optional[Dict] = None) -> Dict:
+        warped_size: Optional[Dict] = None,
+        mesh_size: Optional[Dict] = None) -> Dict:
     """Every phase in order; raises on the first failure.  ``ddm_size``
     sets the DDM phase's cells, grids and depth (``smoke_ddm.FULL`` on the
     card, ``smoke_ddm.SMALL`` in the CPU rehearsal); ``warped_size`` the
@@ -1921,7 +1923,11 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
     None leaves the phase out, as the CPU rehearsal of the other phases
     does: ``tests/test_torch_smoke_warped.py`` rehearses it on its own),
     which runs after the DDM route and before the profiles, and adds the
-    warped kernels to the ``kernels`` line."""
+    warped kernels to the ``kernels`` line; ``mesh_size`` the mesh phase's
+    (``smoke_mesh.FULL``; None leaves it out, ``tests/test_torch_smoke_
+    mesh.py`` rehearses it), which runs after the warped phase, reuses
+    (s1)'s lattice, adds its profiled drives to the profiles and its
+    per-slab launches to the ``kernels`` line."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the smoke run needs the card")
@@ -2225,10 +2231,26 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
         warped = smoke_warped.warped_phase(dev, warped_size)
         smoke_warped.log_warped(warped, card, log)
         budget.check("warped")
+    lattice = s1.pop("lattice")
+    mesh = None
+    if mesh_size is not None:
+        from . import smoke_mesh
+        mesh = smoke_mesh.mesh_phase(dev, mesh_size, log, lattice=lattice)
+        smoke_mesh.log_mesh(mesh, card, log)
+        budget.check("mesh")
+    del lattice
     # the profiles come last: once torch.profiler has traced the card, the
     # process's later launches cost the host more (on an H100 the phases
     # run after the profiles read 30-50% more s/step)
     reps = dict(mains, design=c, statics=s1, ddm=ddm["d1"])
+    if mesh is not None:
+        reps["mesh-m1"] = mesh["m1"]
+        for route, r in mesh["m2"]["routes"].items():
+            if route == smoke_mesh.PROFILED:
+                reps[f"mesh-m2-{route}"] = r
+                reps[f"mesh-m2-{route}-one"] = r["one_device"]
+            else:
+                r.pop("profile_drive"), r.pop("one_device")
     for route, rep in reps.items():
         with _env(**ROUTE_ENV.get(route, ROUTE_ENV["fused"])):
             steps_p = PROFILE_STEPS.get(route, 2)
@@ -2251,7 +2273,15 @@ def run(device="cuda", n: int = 50, steps: int = 8, windows: int = 3,
             "vjp_cases": vjp_cases, "vjp_grids": vjp_grids, "probe": probe,
             "mains": mains, "design": design, "optimizer": opt,
             "statics": stat, "ddm": ddm, "warped": warped,
-            "kernels": kernels_line(cases, fused_cases, mains, cases64,
-                                    vjp_cases + vjp_grids, probe, design,
-                                    opt, warped),
+            "mesh": mesh,
+            "kernels": _with_mesh(kernels_line(
+                cases, fused_cases, mains, cases64, vjp_cases + vjp_grids,
+                probe, design, opt, warped), mesh),
             "wall_s": budget.elapsed()}
+
+
+def _with_mesh(entries: List[Dict], mesh: Optional[Dict]) -> List[Dict]:
+    if mesh is None:
+        return entries
+    from . import smoke_mesh
+    return smoke_mesh.annotate_kernels(entries, mesh)

@@ -145,7 +145,7 @@ def s1_phase(device: torch.device, n: int, steps: int = 8) -> Dict:
     shl, step, setup = _bench2_step(lat, bc, device, torch.float32, TOL)
     r = shl.radius_padded(lat.radius)
     _, setup["factors_s"] = _timed(lambda: step.preconditioner(r), device)
-    setup["width"] = int(shl.ends.table.shape[0])
+    setup["width"] = shl.width
 
     (c0, g0, u0, it0), cold_s = _timed(lambda: step.chunked(r, chunk=CHUNK),
                                        device)
@@ -210,6 +210,7 @@ def s1_phase(device: torch.device, n: int, steps: int = 8) -> Dict:
         return step.chunked.last_iterations
 
     rep["profile_drive"] = drive
+    rep["lattice"] = (lat, bc)         # (m1)'s, popped by smoke.run
     return rep
 
 

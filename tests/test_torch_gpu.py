@@ -978,3 +978,131 @@ def test_sdf_on_card_matches_the_cpu():
     small = solid_mesh._capsule_sdf(G, p1, p2, lat.radius, device="cuda",
                                     max_bytes=12 * 64 * 1024)
     np.testing.assert_array_equal(small, sdf.reshape(-1))
+
+
+# ------------------------------------------------------------ the mesh
+def _virtual_mesh(n_shard, n_dp=1):
+    from pylatticedso_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(n_shard=n_shard, n_dp=n_dp,
+                     devices=["cuda:0"] * (n_shard * n_dp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("warped", [False, True], ids=["B1", "B1w"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_slab_kernel_matches_plain_on_card(warped, dtype, tol):
+    """B1 / B1w on every slab of a ["cuda:0"] * 4 mesh against its plain
+    version on the same halo-exchanged slab, the slabs gathered the bits
+    of the one-device launch, a repeat the same bits."""
+    _need_card()
+    from pylatticedso_tpu_torch.parallel.slabs import SlabLevel
+    from pylatticedso_tpu_torch.smoke_warped import taper_twist
+    cells = (11, 6, 5)
+    ts = StructuredLattice("Octet", cells, (1.0, 1.0, 1.0), 1013.0, 0.3,
+                           dtype=dtype, device="cuda",
+                           node_transform=taper_twist(5) if warped else None)
+    tm, _ = ts.make_matvec()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    u = torch.randn((ts.nc, 6) + ts.grid, generator=g, device="cuda",
+                    dtype=dtype)
+    r = 0.04 + 0.05 * torch.rand(cells, generator=g, device="cuda",
+                                 dtype=dtype)
+    aux = tm.prepare(r)
+    free = torch.ones((ts.nc, 6) + ts.grid, dtype=dtype, device="cuda")
+    devs = _virtual_mesh(4).devices[0]
+    sl = SlabLevel(tm, ts, free, devs, 0)
+    up, a = sl.exchange(sl.scatter(u)), sl.padded_r2(aux)
+    outs = []
+    for op, p, ak in zip(sl.ops, up.parts, a.parts):
+        got = op.apply_padded(p, ak)
+        assert torch.equal(got, op.apply_padded(p, ak))
+        want = op.plain_padded(p, ak)
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= tol, err
+        outs.append(got)
+    counter = "launches_warped" if warped else "launches"
+    if dtype == torch.float64:
+        counter += "_f64"
+    assert [getattr(op, counter) for op in sl.ops] == [2] * 4
+    assert torch.equal(torch.cat(outs, dim=2), tm.apply(u, aux))
+
+
+@pytest.mark.gpu
+def test_collectives_on_card():
+    """all_reduce_sum: every destination the bits of p0 + p1 + p2 + p3;
+    halo_exchange: the slices of the gathered field; gather o scatter the
+    identity."""
+    _need_card()
+    from pylatticedso_tpu_torch.parallel import mesh as M
+    devs = _virtual_mesh(4).devices[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    parts = [torch.randn(1000, generator=g, device="cuda") * 10 ** k
+             for k in range(4)]
+    want = parts[0] + parts[1] + parts[2] + parts[3]
+    for s in M.all_reduce_sum(parts, devs):
+        assert torch.equal(s, want)
+    x = torch.randn((2, 6, 8, 3, 3), generator=g, device="cuda")
+    sx = M.scatter(x, devs, 2)
+    assert torch.equal(M.gather(sx, "cuda:0"), x)
+    full = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
+    ex = M.halo_exchange(sx.map(
+        lambda p: torch.nn.functional.pad(p, (1, 1, 1, 1, 1, 1))))
+    for k, p in enumerate(ex.parts):
+        assert torch.equal(p, full[:, :, 2 * k:2 * k + 4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["jacobi", "mg"])
+def test_sharded_structured_step_on_card(precond):
+    """The slab-sharded step on ["cuda:0"] * 4: f64 within 1e-10 / 1e-8 of
+    the one-device implicit step, the same bits on repeat."""
+    _need_card()
+    from pylatticedso_tpu_torch.parallel.structured import (
+        make_structured_compliance_step, shard_structured_step)
+    N = 7
+    sl = StructuredLattice("BCC", (N, 2, 2), (1.0, 1.0, 1.0), 1013.0, 0.3,
+                           dtype=torch.float64, device="cuda")
+    free = sl.select_nodes(lambda x, y, z: x > 1e-9)
+    f = sl.node_field().astype(np.float64)
+    f[:, 2][sl.select_nodes(lambda x, y, z: x > N - 1e-9)] = -0.1
+    step = make_structured_compliance_step(
+        sl, free, f, tol=1e-10, maxiter=500, precond=precond,
+        mg_opts={"nu": 2, "coarse_degree": 8, "smooth_frac": 0.25,
+                 "power_iters": 5} if precond == "mg" else None)
+    r = torch.full((N, 2, 2), 0.05, dtype=torch.float64, device="cuda")
+    c0, g0, u0 = step.value_and_grad(r, torch.zeros_like(step.operands[1]))
+    sstep = shard_structured_step(step, _virtual_mesh(4, 2))
+    c1, g1, u1 = sstep(r)
+    c2, g2, u2 = sstep(r)
+    assert torch.equal(c1, c2) and torch.equal(g1, g2) \
+        and torch.equal(u1.gather(), u2.gather())
+    assert abs(float(c1 - c0)) <= 1e-10 * abs(float(c0))
+    assert float((g1 - g0).abs().max() / g0.abs().max()) <= 1e-8
+    assert sum(op.launches_f64 for op in sstep.runner.op.ops) > 0
+
+
+@pytest.mark.gpu
+def test_edge_sharded_step_on_card():
+    """The edge-sharded step on a 2 x 4 mesh of cuda:0: step and batch
+    within 1e-10 of one device (f64), the same bits on repeat."""
+    _need_card()
+    from pylatticedso_tpu_torch.multichip import _small_problem
+    from pylatticedso_tpu_torch.parallel.sharding import (
+        ShardedLattice, make_compliance_step, make_mesh)
+    lat, bc = _small_problem("cuda")
+    out = []
+    for mesh in (make_mesh(devices=["cuda:0"]), _virtual_mesh(4, 2)):
+        shl = ShardedLattice(mesh, lat.nodes, lat.edges, 1013.0, 0.3,
+                             dtype=torch.float64)
+        step = make_compliance_step(shl, ~bc.fixed, bc.f_applied, tol=1e-12,
+                                    maxiter=2000)
+        r = shl.radius_padded(lat.radius)
+        out.append((step(r), step.batch(torch.stack([r, 1.2 * r])),
+                    step(r)))
+    (a, ab, a2), (b, bb, b2) = out
+    assert torch.equal(b[0], b2[0]) and torch.equal(b[1], b2[1])
+    for x, y in ((a[0], b[0]), (ab[0], bb[0])):
+        assert float((x - y).abs().max() / y.abs().max()) <= 1e-10
+    for x, y in ((a[1], b[1]), (ab[1], bb[1])):
+        assert float((x - y).abs().max() / y.abs().max()) <= 1e-10

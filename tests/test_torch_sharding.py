@@ -118,12 +118,20 @@ def test_pad_edges_equal(n, n_shard):
 
 
 def test_mesh_is_one_device():
+    """The mesh record: a one-device mesh, a virtual 2 x 4 mesh of
+    repeated devices in row-major order (``n_shard`` by JAX's rule), and
+    the refusal of a mesh larger than the devices given."""
     mesh = ts.make_mesh(n_shard=1, n_dp=1, devices=["cpu"])
     assert mesh.shape == {"dp": 1, "shard": 1}
     assert mesh.device == torch.device("cpu")
+    cpu = torch.device("cpu")
+    for kw in ({"n_shard": 4, "n_dp": 2}, {"n_dp": 2}):
+        mesh = ts.make_mesh(devices=["cpu"] * 8, **kw)
+        assert mesh.shape == {"dp": 2, "shard": 4}
+        assert mesh.devices == ((cpu,) * 4,) * 2 and mesh.device == cpu
     for kw in ({"n_shard": 2}, {"n_dp": 2, "n_shard": 1},
-               {"devices": ["cpu", "cpu"]}):
-        with pytest.raises(ValueError, match="one device"):
+               {"n_shard": 4, "n_dp": 2, "devices": ["cpu"] * 7}):
+        with pytest.raises(ValueError, match="devices"):
             ts.make_mesh(**{"devices": ["cpu"], **kw})
 
 

@@ -34,7 +34,7 @@ from pylatticedso_tpu_torch.opti.optimizer import OptimizationProblem
 from pylatticedso_tpu_torch.opti.structured_optimizer import \
     StructuredOptimizationProblem
 from pylatticedso_tpu_torch.parallel import multigrid as tmg
-from pylatticedso_tpu_torch.parallel.sharding import Mesh, make_mesh
+from pylatticedso_tpu_torch.parallel.sharding import make_mesh
 from pylatticedso_tpu_torch.parallel.structured import (
     StructuredLattice as TSL, make_structured_compliance_step as tstep,
     shard_structured_step)
@@ -223,12 +223,17 @@ def test_warped_optimizer_matches_jax_and_unstructured():
 
 
 def test_shard_structured_step_on_one_device(monkeypatch):
-    """The one-device record runs JAX's wrapper's form (the implicit
-    value and gradient): the bits of ``step.value_and_grad``, and of the
-    step itself when that is its form; JAX's grid-axis rule; refusals."""
+    """On a one-device mesh the sharded step runs JAX's wrapper's form
+    (the implicit value and gradient) with the bits of
+    ``step.value_and_grad``, and of the step itself when that is its form
+    (u as one slab); JAX's grid-axis rule.  On a 1 x 5 mesh (slabs of one
+    plane, both ghost layers a neighbour's) the warped step (B1w per slab
+    on the card) within 1e-10 / 1e-8 of the one-device step, and a mesh
+    axis that divides no grid axis refused."""
     ts, free, f = _problem(TSL, torch.float64)
     monkeypatch.setenv("PLDSO_GRAD", "implicit")
-    # a cheap V-cycle: the record's bits, not the solver, are under test
+    # a cheap V-cycle: the sharded step's bits, not the solver, are under
+    # test
     step = tstep(ts, free, f, tol=1e-8, maxiter=3000, precond="mg",
                  mg_opts={"nu": 1, "coarse_degree": 4, "power_iters": 2})
     mesh = make_mesh(devices=["cpu"])
@@ -238,12 +243,22 @@ def test_shard_structured_step_on_one_device(monkeypatch):
     assert shard_structured_step(step, mesh, grid_axis=2).grid_axis == 2
     r = torch.tensor(_radius(5))
     zeros = torch.zeros_like(step.operands[1])
+    five = shard_structured_step(step, make_mesh(n_shard=5,
+                                                 devices=["cpu"] * 5))
+    assert five.grid_axis == 0 and five.n_sharded_levels == 1
     for ps in (None, step.precond_state(r)):
         got = sstep(r, None, ps)
         want = step.value_and_grad(r, zeros, ps)
         own = step(r, None, ps)
+        assert len(got[2].parts) == 1
+        got = (got[0], got[1], got[2].gather())
         for a, b, c in zip(got, want, own):
             assert torch.equal(a, b) and torch.equal(a, c)
-    two = Mesh(shape={"dp": 1, "shard": 2}, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="one device"):
+        c5, g5, u5 = five(r, None, ps)
+        assert [p.shape[2] for p in u5.parts] == [1] * 5
+        assert abs(float(c5 - want[0])) <= 1e-10 * abs(float(want[0]))
+        assert rel(g5, want[1]) <= 1e-8
+        assert rel(u5.gather(), want[2]) <= 1e-10
+    two = make_mesh(n_shard=2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="divisible"):
         shard_structured_step(step, two)
