@@ -23,6 +23,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.timing import timing
+
 __all__ = ["pcg", "PCGResult", "custom_linear_solve", "linear_solve",
            "pcg_refined", "linear_solve_refined", "refined_solve",
            "linear_solve_dense_refined"]
@@ -44,6 +46,7 @@ def _norm(a):
     return torch.sqrt(_dot(a, a))
 
 
+@timing.spanned("pcg")
 def pcg(A: Callable, b: torch.Tensor, M: Optional[Callable] = None,
         x0: Optional[torch.Tensor] = None, maxiter: int = 1000,
         tol: float = 1e-10, mintol: float = 0.0,
@@ -76,7 +79,8 @@ def pcg(A: Callable, b: torch.Tensor, M: Optional[Callable] = None,
     hist = torch.full((maxiter,), -1.0, dtype=b.dtype, device=b.device) \
         if track_history else None
     res = _norm_(r)
-    done = bool(res <= threshold)
+    read = timing.timed("sync", bool)       # a host read of the device
+    done = read(res <= threshold)
     k = 0
     one = torch.ones_like(norm_b)
     while k < maxiter and not done:
@@ -95,7 +99,7 @@ def pcg(A: Callable, b: torch.Tensor, M: Optional[Callable] = None,
         if mintol > 0:
             stop = stop | (_norm_(p) < mintol * (_norm_(x) + 1e-12))
         k += 1
-        done = bool(stop)                       # the one host sync
+        done = read(stop)                       # the one host sync
         if done or k >= maxiter:
             break                               # z, p are not needed
         z = M(r)

@@ -38,12 +38,19 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.fused import cheb_static, has_kernel_matvec, storage_dtype
+from ..utils.timing import timing
 from .mesh import OPS, Sharded, scatter
 
 __all__ = ["build_mg_hierarchy", "mg_precond_state", "mg_apply",
            "mg_preconditioner", "make_transfers", "make_radius_restrictor"]
 
 PAD = (1, 1, 1, 1, 1, 1)        # one ghost cell on every side of X, Y, Z
+
+
+def _level_spans(n_levels: int) -> List[str]:
+    """The timing span of one visit of each V-cycle level (the coarser
+    levels it calls included)."""
+    return [f"mg.level.{k}" for k in range(n_levels)]
 
 
 def _unpad(v: torch.Tensor) -> torch.Tensor:
@@ -358,6 +365,7 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
              for lvl in range(nL)]
     scs = [fz.sc(state["lmaxs"][lvl], fracs[lvl])
            for lvl, fz in enumerate(fzs)]
+    spans = _level_spans(nL)
 
     def smooth(level, bp, x0p, deg):
         fz, st, sc = fzs[level], fused_ops[level], scs[level]
@@ -392,18 +400,19 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
         rp = fz.residual(bp, xp, st["fm"], st["r2"])
         free_c = levels[level + 1].free_as(io)
         rc = free_c * h["restrict"][level](_unpad(rp))
-        ec = vcycle(level + 1, rc)
+        ec = timing.timed(spans[level + 1], vcycle)(level + 1, rc)
         corr = levels[level].free_as(io) * h["prolong"][level](free_c * ec)
         x2 = smooth(level, bp, xp + F.pad(corr, PAD), deg)
         return _unpad(x2).to(b.dtype)
 
     def M(r):
-        return vcycle(0, r)
+        return timing.timed(spans[0], vcycle)(0, r)
 
     return M
 
 
 # ------------------------------------------------------------- V-cycle
+@timing.spanned("mg.state")
 def mg_precond_state(h: dict, radius_field: torch.Tensor,
                      power_iters: int = 10,
                      fused: Optional[bool] = None,
@@ -497,6 +506,7 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
                               state["lmaxs"])
     auxs_lo = state.get("auxs_lo") or [None] * nL
+    spans = _level_spans(nL)
 
     def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
         lvl, rad, D, lmax = levels[level], radii[level], Ds[level], lmaxs[level]
@@ -511,12 +521,12 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
         x = _chebyshev(Af, D, b, None, lmax, smooth_frac, nu_l)     # pre
         r = b - Af(x)
         rc = levels[level + 1].free * h["restrict"][level](r)
-        ec = vcycle(level + 1, rc)
+        ec = timing.timed(spans[level + 1], vcycle)(level + 1, rc)
         x = x + lvl.free * h["prolong"][level](levels[level + 1].free * ec)
         return _chebyshev(Af, D, b, x, lmax, smooth_frac, nu_l)     # post
 
     def M(r):
-        return vcycle(0, r)
+        return timing.timed(spans[0], vcycle)(0, r)
 
     return M
 

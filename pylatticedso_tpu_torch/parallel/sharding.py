@@ -34,6 +34,7 @@ import torch
 from ..fem.elements import EdgeGeometry, section_stiffness
 from ..fem.operator import BeamOperator, SegmentSum
 from ..fem.solve import pcg
+from ..utils.timing import timing
 from .mesh import (OPS, Mesh, Sharded, _copy, all_reduce_sum, broadcast,
                    make_mesh)
 
@@ -549,6 +550,7 @@ def make_compliance_step(shl: ShardedLattice, free_mask: np.ndarray,
     # per shard instead of a second solve.  The radii are the same in
     # every chunk, so the sections and block factors are built once per
     # call.
+    @timing.spanned("step")
     def step_chunked(radius_padded, u0=None, chunk: int = 256,
                      max_chunks: int = 64, on_fail: str = "raise"):
         """(compliance, grad, u, n_iters): warm-startable chunked solve +
@@ -580,10 +582,12 @@ def make_compliance_step(shl: ShardedLattice, free_mask: np.ndarray,
                 cg += out.iterations
                 if converged:
                     break
+        if res is not None:
+            res = timing.timed("sync.step", float)(res)
         if not converged:
             msg = (f"step.chunked: CG did not converge within "
                    f"{max_chunks * chunk} iterations (residual "
-                   f"{float(res):.3e}, tol {tol:g})")
+                   f"{res:.3e}, tol {tol:g})")
             if on_fail != "warn":
                 raise RuntimeError(
                     msg + "; raise max_chunks/chunk, loosen tol, or pass "
@@ -593,7 +597,7 @@ def make_compliance_step(shl: ShardedLattice, free_mask: np.ndarray,
                       "unconverged displacement field.",
                 RuntimeWarning, stacklevel=2)
         step_chunked.last_converged = converged
-        step_chunked.last_residual = float(res) if res is not None else None
+        step_chunked.last_residual = res
         step_chunked.last_iterations = cg
         c = torch.sum(rw.fT * u)
         uf = rw.freeT * u

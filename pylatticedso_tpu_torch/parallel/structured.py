@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from ..catalog import get_beam_structure
 from ..kernels.fused import FusedSmoother
 from ..kernels.stencil import LatticeSlab, StencilMatvec, edge_sides
+from ..utils.timing import timing
 from .mesh import check_device as _check_device
 
 __all__ = ["StructuredLattice", "make_structured_compliance_step",
@@ -954,6 +955,7 @@ def make_structured_compliance_step(slat: StructuredLattice,
         return torch.zeros_like(f) if u0 is None \
             else torch.as_tensor(u0, dtype=dt, device=dev)
 
+    @timing.spanned("step")
     def step(radius_field, u0=None, precond_state=None):
         """Returns (objective, grad, u); pass the previous step's u as
         ``u0`` to warm-start the solves, and ``precond_state`` (from
