@@ -282,6 +282,11 @@ class StencilMatvec:
     # no Pallas counterpart: where JAX declines its Pallas matvec for a
     # warped lattice and runs the XLA gather form
     replaces_w = "pylatticedso_tpu/parallel/stencil_pallas.py:88"
+    # every launch counter: a captured V-cycle puts them back and adds
+    # its launches at each replay (``parallel/multigrid.py``)
+    COUNTERS = ("launches", "launches_f64", "launches_vjp", "launches_lo",
+                "launches_warped", "launches_warped_f64",
+                "launches_vjp_warped")
 
     def __init__(self, slat, plain_padded: Callable,
                  plain_vjp_padded: Callable,

@@ -25,19 +25,34 @@ same names and defaults:
 
 Where the JAX package warns and falls back to the unfused V-cycle, the port
 raises: a fused request it cannot meet never runs another path.
+
+On a CUDA card the unfused V-cycle's levels below the fine one (everything
+level 0 hands its restricted residual to) run as one CUDA graph per MG
+state and options: a state's first application runs them eagerly, its
+second captures them and replays the graph, every later one replays it.
+The graph replays the same kernels in the same order (the same bits), and
+B1's launch counters count each replay as the eager cycle would.  It is
+used where the input is a plain CUDA tensor, no part of the state is a
+``parallel.mesh.Sharded``, autograd is off and no capture is under way;
+everywhere else, the CPU included, the cycle runs eagerly.  Under
+``torch.profiler`` the spans ``mg.level.2`` and below fire only on eager
+and capturing applications; ``mg.graph.capture`` and ``mg.graph.replay``
+time the capture and each replay, inside ``mg.level.1``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import launch
 from ..kernels.fused import cheb_static, has_kernel_matvec, storage_dtype
+from ..kernels.stencil import StencilMatvec
 from ..utils.timing import timing
 from .mesh import OPS, Sharded, scatter
 
@@ -411,6 +426,103 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
     return M
 
 
+# ------------------------------------------------------- coarse graphs
+# the state's per-level operands that the V-cycle reads
+_OPERANDS = ("radii", "auxs", "Ds", "lmaxs", "auxs_lo")
+
+
+class _CoarseGraph:
+    """The V-cycle below the fine level of one MG state under one set of
+    options, on one stream: ``operands`` (the state's tensors of levels 1
+    and below) read by address, ``rc`` the static right-hand side level 0
+    writes, ``ec`` the static correction a replay writes, ``launched`` the
+    B1 launches a replay makes, as (wrapper, counter, count)."""
+
+    __slots__ = ("operands", "graph", "rc", "ec", "launched")
+
+    def __init__(self, operands: tuple):
+        self.operands = operands
+        self.graph = self.rc = self.ec = None
+        self.launched = []
+
+    def reads(self, operands: tuple) -> bool:
+        if self.operands is operands:
+            return True
+        same = all(a is b for a, b in zip(self.operands, operands))
+        if same:
+            self.operands = operands
+        return same
+
+    def capture(self, below: Callable, wrappers: list,
+                pools: Dict[tuple, tuple]) -> None:
+        """Capture ``below(rc)``; the wrappers' launch counters come back to
+        their values, the launches kept in ``launched``.  ``pools`` holds
+        per (device, stream) the capture stream and the newest graph
+        replayed there: the graphs of one stream share that graph's memory
+        pool, which it keeps alive, so a new state's capture reuses the
+        memory of the states before it."""
+        dev = self.rc.device
+        stream = torch.cuda.current_stream(dev)
+        owner_key = (dev.index, stream.cuda_stream)
+        side, owner = pools.get(owner_key) or (torch.cuda.Stream(dev), None)
+        before = [(w, k, getattr(w, k)) for w in wrappers
+                  for k in StencilMatvec.COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(stream)
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(
+                    pool=None if owner is None else owner.pool())
+                try:
+                    self.ec = below(self.rc)
+                finally:
+                    graph.capture_end()
+        finally:
+            self.launched = [(w, k, getattr(w, k) - n)
+                             for w, k, n in before if getattr(w, k) != n]
+            for w, k, n in before:
+                setattr(w, k, n)
+        stream.wait_stream(side)
+        self.graph = graph
+        pools[owner_key] = (side, graph)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for w, k, n in self.launched:
+            setattr(w, k, getattr(w, k) + n)
+        return self.ec
+
+
+def _coarse_slot(state: dict, options: tuple) -> Optional[dict]:
+    """The state's graphs of the V-cycle below the fine level under
+    ``options``, keyed by (dtype, device, stream); None where that cycle
+    always runs eagerly: one level, or a ``parallel.mesh.Sharded``
+    anywhere in the state."""
+    if len(state["radii"]) < 2 or any(
+            isinstance(v, Sharded)
+            for k in _OPERANDS for v in state.get(k) or ()):
+        return None
+    return state.setdefault("graphs", {}).setdefault(options, {})
+
+
+def _coarse_graph(slot: Optional[dict], r,
+                  operands: tuple) -> Optional[_CoarseGraph]:
+    """This application's graph, or None to run eagerly: on a CPU or
+    ``Sharded`` input, with autograd on, inside another capture, and on the
+    state's first application (which makes its entry: the warm-up)."""
+    if slot is None or type(r) is not torch.Tensor or not r.is_cuda \
+            or torch.is_grad_enabled() \
+            or torch.cuda.is_current_stream_capturing():
+        return None
+    dev = r.get_device()
+    key = (r.dtype, dev, launch.stream(dev))
+    g = slot.get(key)
+    if g is None or not g.reads(operands):
+        slot[key] = _CoarseGraph(operands)
+        return None
+    return g
+
+
 # ------------------------------------------------------------- V-cycle
 @timing.spanned("mg.state")
 def mg_precond_state(h: dict, radius_field: torch.Tensor,
@@ -477,7 +589,11 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     otherwise ``lo_smoother`` (default ``PLDSO_MG_BF16=1``) runs the
     smoother matvecs of every level whose state has bf16 operands through
     B2, and those of the other levels through B1 (the JAX rule,
-    ``multigrid.py:496-499``).
+    ``multigrid.py:496-499``).  On a card the unfused cycle's levels below
+    the fine one replay as one CUDA graph from a state's second
+    application on (the module's docstring); the state keeps its graphs
+    under ``"graphs"``, the hierarchy its graphs' memory pools under
+    ``"graph_pools"``.
     """
     if lo_smoother is None:
         lo_smoother = os.environ.get("PLDSO_MG_BF16") == "1"
@@ -503,32 +619,79 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
                 "or the routing found no fused smoother there)" + why
                 + "; the port does not fall back to the unfused V-cycle")
         return _mg_apply_fused(h, state, nu_at, coarse_degree, smooth_frac)
-    radii, auxs, Ds, lmaxs = (state["radii"], state["auxs"], state["Ds"],
-                              state["lmaxs"])
-    auxs_lo = state.get("auxs_lo") or [None] * nL
-    spans = _level_spans(nL)
+    return _VCycle(h, state, nus, nu_at, coarse_degree, smooth_frac,
+                   bool(lo_smoother))
 
-    def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
-        lvl, rad, D, lmax = levels[level], radii[level], Ds[level], lmaxs[level]
-        if lo_smoother and auxs_lo[level] is not None:
-            Af = lambda u: lvl.A_aux_lo(u, auxs_lo[level])
+
+class _VCycle:
+    """M(r) of ``mg_apply``'s unfused V-cycle at one state.  An object and
+    not nested closures, whose recursion would make a reference cycle: a
+    state, with its graphs, goes as soon as its last M does, not at the
+    next garbage collection."""
+
+    def __init__(self, h: dict, state: dict, nus: List[int],
+                 nu_at: Callable, coarse_degree: int, smooth_frac: float,
+                 lo_smoother: bool):
+        self.h, self.levels = h, h["levels"]
+        nL = len(self.levels)
+        self.nu_at, self.coarse_degree = nu_at, coarse_degree
+        self.smooth_frac, self.lo_smoother = smooth_frac, lo_smoother
+        self.radii, self.auxs, self.Ds, self.lmaxs = (
+            state["radii"], state["auxs"], state["Ds"], state["lmaxs"])
+        self.auxs_lo = state.get("auxs_lo") or [None] * nL
+        self.spans = _level_spans(nL)
+        self.slot = _coarse_slot(state, (tuple(nus), int(coarse_degree),
+                                         float(smooth_frac), lo_smoother))
+        self.operands = tuple(v for k in _OPERANDS
+                              for v in (state.get(k) or [None] * nL)[1:])
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        g = _coarse_graph(self.slot, r, self.operands)
+        return timing.timed(self.spans[0], self.vcycle)(0, r, g)
+
+    def vcycle(self, level: int, b: torch.Tensor,
+               g: Optional[_CoarseGraph] = None) -> torch.Tensor:
+        h, levels = self.h, self.levels
+        lvl, rad, D = levels[level], self.radii[level], self.Ds[level]
+        lmax, aux, aux_lo = (self.lmaxs[level], self.auxs[level],
+                             self.auxs_lo[level])
+        if self.lo_smoother and aux_lo is not None:
+            Af = lambda u: lvl.A_aux_lo(u, aux_lo)
         else:
-            Af = lambda u: lvl.A_aux(u, rad, auxs[level])
-        if level == nL - 1:
+            Af = lambda u: lvl.A_aux(u, rad, aux)
+        if level == len(levels) - 1:
             # coarsest: aggressive Chebyshev over (almost) the full spectrum
-            return _chebyshev(Af, D, b, None, lmax, 1.0 / 64.0, coarse_degree)
-        nu_l = nu_at(level)
-        x = _chebyshev(Af, D, b, None, lmax, smooth_frac, nu_l)     # pre
+            return _chebyshev(Af, D, b, None, lmax, 1.0 / 64.0,
+                              self.coarse_degree)
+        nu_l = self.nu_at(level)
+        frac = self.smooth_frac
+        x = _chebyshev(Af, D, b, None, lmax, frac, nu_l)            # pre
         r = b - Af(x)
-        rc = levels[level + 1].free * h["restrict"][level](r)
-        ec = timing.timed(spans[level + 1], vcycle)(level + 1, rc)
+        if g is None:
+            rc = levels[level + 1].free * h["restrict"][level](r)
+            ec = timing.timed(self.spans[level + 1], self.vcycle)(level + 1,
+                                                                  rc)
+        else:
+            ec = timing.timed(self.spans[1], self.below_graphed)(g, r)
         x = x + lvl.free * h["prolong"][level](levels[level + 1].free * ec)
-        return _chebyshev(Af, D, b, x, lmax, smooth_frac, nu_l)     # post
+        return _chebyshev(Af, D, b, x, lmax, frac, nu_l)            # post
 
-    def M(r):
-        return timing.timed(spans[0], vcycle)(0, r)
-
-    return M
+    def below_graphed(self, g: _CoarseGraph, r: torch.Tensor) -> torch.Tensor:
+        # level 0's restriction writes the graph's static input: at capture
+        # the eager product itself, then the same product into it; level
+        # 0 reads the static correction before the next replay writes it
+        levels = self.levels
+        t = self.h["restrict"][0](r)
+        if g.graph is None:
+            g.rc = levels[1].free * t
+            wrappers = {id(lvl.matvec.apply): lvl.matvec.apply
+                        for lvl in levels[1:]}
+            timing.timed("mg.graph.capture", g.capture)(
+                lambda rc: self.vcycle(1, rc), list(wrappers.values()),
+                self.h.setdefault("graph_pools", {}))
+        else:
+            torch.mul(levels[1].free, t, out=g.rc)
+        return timing.timed("mg.graph.replay", g.replay)()
 
 
 def mg_preconditioner(h: dict, radius_field: torch.Tensor, nu=2,

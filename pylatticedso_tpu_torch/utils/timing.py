@@ -14,9 +14,14 @@ phases that closed inside it) and the count, in two forms:
   ``fem.solve.pcg``), ``sync`` (``pcg``'s reads of a device value, which
   wait for the device; ``sync.step`` is ``step.chunked``'s read of its
   residual, outside ``pcg``), ``mg.level.<k>`` (one visit of V-cycle level k, the
-  coarser levels it calls included) and ``mg.state`` (one
-  ``mg_precond_state``).  A function is one (``@timing.spanned(name)``),
-  or a call is (``timing.timed(name, fn)(...)``).  They record only while
+  coarser levels it calls included), ``mg.state`` (one
+  ``mg_precond_state``) and ``mg.graph.capture`` / ``mg.graph.replay``
+  (one capture / one replay of the unfused V-cycle's levels below the fine
+  one as a CUDA graph, inside ``mg.level.1``: where the graph runs, the
+  spans ``mg.level.2`` and below fire only on eager and capturing
+  applications, and ``mg.level.1`` holds the replay's enqueue).  A
+  function is one (``@timing.spanned(name)``), or a call is
+  (``timing.timed(name, fn)(...)``).  They record only while
   a ``torch.profiler`` session is active; otherwise the decorated function
   tests a flag and calls through, and ``timed`` returns ``fn`` itself, so
   an unprofiled step pays a flag read a span and allocates nothing (a
