@@ -49,7 +49,12 @@ form of ``parallel/structured.py`` for K, or ``DenseForm.plain`` under bf16
 compute, then the same pointwise update with the same rounding points); on
 a CUDA tensor it launches its kernel (through ``kernels/launch.py``) or
 raises.  ``launches`` counts each kernel's launches (the bf16-compute
-instances under their own keys), ``b5_launches`` B5's by cluster size.
+instances under their own keys), ``final_launches`` B4's final emits among
+them (one output where a middle step writes three), ``b5_launches`` B5's
+by cluster size.
+Under ``torch.profiler`` a CUDA launch is the hot span ``mg.fused.b3``,
+``mg.fused.b4`` or ``mg.fused.b5`` (``utils/timing.py``): the host's launch
+path, from the checks to the launch's return.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.timing import timing
 from . import launch
 from .stencil import FLOPS_PER_SIDE, SIDE_DTYPE, StencilMatvec, edge_sides
 
@@ -693,6 +699,8 @@ class FusedSmoother:
     """
 
     source = SOURCE
+    # the launch counters, each a dict of counts by key
+    COUNTERS = ("launches", "final_launches", "b5_launches", "b5_shapes")
 
     def __init__(self, slat, stencil: StencilMatvec, level=None):
         # the routing is the whole level's (``level``, on a slab of it:
@@ -708,6 +716,9 @@ class FusedSmoother:
         self.max_sides = int(np.max(np.bincount(
             [r["cs"] for r in self.dense_form.recs], minlength=self.nc)))
         self.launches: Dict[str, int] = {k: 0 for k in KERNELS}
+        # of B4's launches, its final emits (by the same keys)
+        self.final_launches: Dict[str, int] = {
+            k: 0 for k in KERNELS if k.startswith("cheb_run")}
         # B5's plan, launches by cluster size and by shape (compute,
         # degree, with x0), for the reports
         self.b5_plans: Dict[tuple, Dict] = {}
@@ -917,6 +928,10 @@ class FusedSmoother:
         if not b.is_cuda:
             self._cpu_only(b)
             return self.plain_residual(b, x, fm, r2, ct)
+        return self._b3(b, x, fm, r2, ct)
+
+    @timing.spanned("mg.fused.b3")
+    def _b3(self, b, x, fm, r2, ct: str):
         io = self._check("B3", (b, x, fm), None, r2)
         out = torch.empty_like(b)
         dev = b.get_device()
@@ -960,6 +975,11 @@ class FusedSmoother:
             self._cpu_only(x)
             return self.plain_cheb_run(x, r, d, fd, sc, r2, c1, c2, final,
                                        ct)
+        return self._b4(x, r, d, fd, sc, r2, c1, c2, final, ct)
+
+    @timing.spanned("mg.fused.b4")
+    def _b4(self, x, r, d, fd, sc, r2, c1: float, c2: float, final: bool,
+            ct: str):
         io = self._check("B4", (x, r, d, fd), sc, r2)
         x1 = torch.empty_like(x)
         r1 = d1 = None
@@ -975,7 +995,10 @@ class FusedSmoother:
             *self._static_slab(dev, io, ct, final),
             launch.stream(dev))
         launch.check("mg_cheb_run", rc)
-        self.launches[self.counter("cheb_run", ct)] += 1
+        key = self.counter("cheb_run", ct)
+        self.launches[key] += 1
+        if final:
+            self.final_launches[key] += 1
         return x1 if final else (x1, r1, d1)
 
     def b5_plan(self, io: torch.dtype, with_x0: bool = False,
@@ -1053,6 +1076,13 @@ class FusedSmoother:
         if not b.is_cuda:
             self._cpu_only(b)
             return self.plain_cheb_full(b, x0, fd, sc, r2, frac, degree, ct)
+        return self._b5(b, x0, fd, sc, r2, frac, degree, cluster, layout, ct,
+                        group)
+
+    @timing.spanned("mg.fused.b5")
+    def _b5(self, b, x0, fd, sc, r2, frac: float, degree: int,
+            cluster: Optional[int], layout: Optional[str], ct: str,
+            group: Optional[int]):
         vecs = (b, fd) if x0 is None else (b, fd, x0)
         io = self._check("B5", vecs, sc, r2)
         if not 0 <= degree <= B5_MAX_DEGREE:

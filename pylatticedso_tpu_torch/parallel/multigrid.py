@@ -27,22 +27,30 @@ Where the JAX package warns and falls back to the unfused V-cycle, the port
 raises: a fused request it cannot meet never runs another path.
 
 On a CUDA card the unfused V-cycle's levels below the fine one (everything
-level 0 hands its restricted residual to) run as one CUDA graph per MG
-state and options: a state's first application runs them eagerly, its
-second captures them and replays the graph, every later one replays it.
-The graph replays the same kernels in the same order (the same bits), and
-B1's launch counters count each replay as the eager cycle would.  It is
+level 0 hands its restricted residual to), and the fused V-cycle whole
+(from the ghost-padded input in the storage dtype to the padded output),
+run as one CUDA graph per MG state and options: a state's first
+application runs them eagerly, its second captures them and replays the
+graph, every later one replays it.  The graph replays the same kernels in
+the same order (the same bits), and the kernels' launch counters (B1's;
+B3-B5's) count each replay as the eager cycle would.  The fused graph's
+input is a static buffer whose interior each application fills with r
+rounded to the storage dtype, one copy in place of the eager pad's cast,
+fill and copy; the graph is keyed by the levels' compute types too.  It is
 used where the input is a plain CUDA tensor, no part of the state is a
 ``parallel.mesh.Sharded``, autograd is off and no capture is under way;
 everywhere else, the CPU included, the cycle runs eagerly.  Under
-``torch.profiler`` the spans ``mg.level.2`` and below fire only on eager
-and capturing applications; ``mg.graph.capture`` and ``mg.graph.replay``
-time the capture and each replay, inside ``mg.level.1``.
+``torch.profiler`` the spans below the graph (``mg.level.2`` and below,
+unfused; ``mg.level.1`` and below and ``mg.fused.*``, fused) fire only on
+eager and capturing applications; ``mg.graph.capture`` and
+``mg.graph.replay`` time the capture and each replay, inside
+``mg.level.1`` (unfused) or ``mg.level.0`` (fused).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -52,7 +60,6 @@ import torch.nn.functional as F
 
 from ..kernels import launch
 from ..kernels.fused import cheb_static, has_kernel_matvec, storage_dtype
-from ..kernels.stencil import StencilMatvec
 from ..utils.timing import timing
 from .mesh import OPS, Sharded, scatter
 
@@ -357,34 +364,58 @@ def _chebyshev(A: Callable, D: torch.Tensor, b: torch.Tensor,
     return x + d
 
 
-def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
-                    coarse_degree: int, smooth_frac: float) -> Callable:
-    """The fused V-cycle (``multigrid._mg_apply_fused`` of the JAX
-    package): each Chebyshev step is one B4 launch, the mid-cycle residual
-    one B3 launch, and a level that the routing marks single runs its whole
-    smoother — the coarsest's degree-``coarse_degree`` sweep included — in
-    one B5 launch.  Smoother vectors stay ghost-padded in the storage dtype
-    between launches, with the JAX package's rounding points: b is rounded
-    to the storage dtype on entry to each level, the first d is computed in
-    f32 and rounded, and the residual field, the transfers, the free masks
-    and x + corr run in the storage dtype.  The result returns in the
-    caller's dtype."""
-    levels: List[MGLevel] = h["levels"]
-    nL = len(levels)
-    fused_ops = state["fused"]
-    fzs = [lvl.fused for lvl in levels]
-    f32 = torch.float32
-    # [inv_theta, inv_delta] per level as device tensors, built once per M:
-    # no launch needs a host sync
-    fracs = [1.0 / 64.0 if lvl == nL - 1 else smooth_frac
-             for lvl in range(nL)]
-    scs = [fz.sc(state["lmaxs"][lvl], fracs[lvl])
-           for lvl, fz in enumerate(fzs)]
-    spans = _level_spans(nL)
+class _FusedVCycle:
+    """M(r) of the fused V-cycle (``multigrid._mg_apply_fused`` of the JAX
+    package) at one state: each Chebyshev step is one B4 launch, the
+    mid-cycle residual one B3 launch, and a level that the routing marks
+    single runs its whole smoother — the coarsest's degree-``coarse_degree``
+    sweep included — in one B5 launch.  Smoother vectors stay ghost-padded
+    in the storage dtype between launches, with the JAX package's rounding
+    points: b is rounded to the storage dtype on entry to each level, the
+    first d is computed in f32 and rounded, and the residual field, the
+    transfers, the free masks and x + corr run in the storage dtype.  The
+    result returns in the caller's dtype.  On a card the whole cycle, from
+    the padded input to the padded output, replays as one CUDA graph from a
+    state's second application on (the module's docstring).  An object, as
+    ``_VCycle``: a dropped state goes with its last M, not at the next
+    garbage collection."""
 
-    def smooth(level, bp, x0p, deg):
-        fz, st, sc = fzs[level], fused_ops[level], scs[level]
-        frac = fracs[level]
+    def __init__(self, h: dict, state: dict, nus: List[int],
+                 nu_at: Callable, coarse_degree: int, smooth_frac: float):
+        self.h, self.levels = h, h["levels"]
+        nL = len(self.levels)
+        self.fused_ops, self.lmaxs = state["fused"], state["lmaxs"]
+        self.fzs = [lvl.fused for lvl in self.levels]
+        self.nu_at, self.coarse_degree = nu_at, coarse_degree
+        self.fracs = [1.0 / 64.0 if lvl == nL - 1 else smooth_frac
+                      for lvl in range(nL)]
+        self.spans = _level_spans(nL)
+        self.slot = _coarse_slot(state, ("fused", tuple(nus),
+                                         int(coarse_degree),
+                                         float(smooth_frac)))
+        self.operands = tuple(op[k] for op in self.fused_ops
+                              for k in ("fdinv", "fm", "r2"))
+
+    @functools.cached_property
+    def scs(self) -> List[torch.Tensor]:
+        # [inv_theta, inv_delta] per level as device tensors, built once per
+        # M that runs the cycle: no launch needs a host sync
+        return [fz.sc(self.lmaxs[lvl], self.fracs[lvl])
+                for lvl, fz in enumerate(self.fzs)]
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        g = None
+        if self.slot is not None and r.is_cuda:
+            # each wrapper reads its compute type as it is called
+            g = _coarse_graph(self.slot, r, self.operands,
+                              tuple(fz.compute_type() for fz in self.fzs))
+        if g is None:
+            return timing.timed(self.spans[0], self.vcycle)(0, r)
+        return timing.timed(self.spans[0], self.graphed)(g, r)
+
+    def smooth(self, level: int, bp, x0p, deg: int):
+        fz, st, sc = self.fzs[level], self.fused_ops[level], self.scs[level]
+        frac = self.fracs[level]
         if fz.single_ok:
             return fz.cheb_full(bp, x0p, st["fdinv"], sc, st["r2"], frac,
                                 deg)
@@ -393,7 +424,8 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
         else:
             x = x0p
             r = fz.residual(bp, x0p, st["fm"], st["r2"])
-        d = (r.to(f32) * st["fdinv"].to(f32) * sc[0]).to(bp.dtype)
+        d = (r.to(torch.float32) * st["fdinv"].to(torch.float32)
+             * sc[0]).to(bp.dtype)
         steps = cheb_static(frac, deg)
         for k, (c1, c2) in enumerate(steps):
             final = k == len(steps) - 1
@@ -403,27 +435,42 @@ def _mg_apply_fused(h: dict, state: dict, nu_at: Callable,
                 return out
             x, r, d = out
 
-    def vcycle(level: int, b: torch.Tensor) -> torch.Tensor:
-        fz, st = fzs[level], fused_ops[level]
-        io = st["fdinv"].dtype
-        bp = F.pad(b.to(io), PAD)
-        if level == nL - 1:
-            x = smooth(level, bp, None, coarse_degree)
-            return _unpad(x).to(b.dtype)
-        deg = nu_at(level)
-        xp = smooth(level, bp, None, deg)
+    def vcycle(self, level: int, b: torch.Tensor) -> torch.Tensor:
+        bp = F.pad(b.to(self.fused_ops[level]["fdinv"].dtype), PAD)
+        return _unpad(self.cycle(level, bp)).to(b.dtype)
+
+    def cycle(self, level: int, bp: torch.Tensor) -> torch.Tensor:
+        """Level ``level``'s V-cycle on the padded b ``bp`` in the storage
+        dtype: the padded x.  No launch writes ``bp``."""
+        h, levels = self.h, self.levels
+        fz, st = self.fzs[level], self.fused_ops[level]
+        if level == len(levels) - 1:
+            return self.smooth(level, bp, None, self.coarse_degree)
+        io = bp.dtype
+        deg = self.nu_at(level)
+        xp = self.smooth(level, bp, None, deg)
         rp = fz.residual(bp, xp, st["fm"], st["r2"])
         free_c = levels[level + 1].free_as(io)
         rc = free_c * h["restrict"][level](_unpad(rp))
-        ec = timing.timed(spans[level + 1], vcycle)(level + 1, rc)
+        ec = timing.timed(self.spans[level + 1], self.vcycle)(level + 1, rc)
         corr = levels[level].free_as(io) * h["prolong"][level](free_c * ec)
-        x2 = smooth(level, bp, xp + F.pad(corr, PAD), deg)
-        return _unpad(x2).to(b.dtype)
+        return self.smooth(level, bp, xp + F.pad(corr, PAD), deg)
 
-    def M(r):
-        return timing.timed(spans[0], vcycle)(0, r)
-
-    return M
+    def graphed(self, g: "_CoarseGraph", r: torch.Tensor) -> torch.Tensor:
+        # the graph reads the padded input from its static buffer: at
+        # capture the eager pad itself, then r rounded into its interior
+        # (the ghosts stay zero); the static output is copied out, in the
+        # caller's dtype, before the next replay writes it
+        if g.graph is None:
+            g.rc, g.held = F.pad(r.to(self.operands[0].dtype), PAD), self.scs
+            timing.timed("mg.graph.capture", g.capture)(
+                lambda bp: self.cycle(0, bp),
+                list({id(fz): fz for fz in self.fzs}.values()),
+                self.h.setdefault("graph_pools", {}))
+        else:
+            _unpad(g.rc).copy_(r)
+        return _unpad(timing.timed("mg.graph.replay", g.replay)()).to(
+            r.dtype, copy=True)
 
 
 # ------------------------------------------------------- coarse graphs
@@ -432,18 +479,20 @@ _OPERANDS = ("radii", "auxs", "Ds", "lmaxs", "auxs_lo")
 
 
 class _CoarseGraph:
-    """The V-cycle below the fine level of one MG state under one set of
-    options, on one stream: ``operands`` (the state's tensors of levels 1
-    and below) read by address, ``rc`` the static right-hand side level 0
-    writes, ``ec`` the static correction a replay writes, ``launched`` the
-    B1 launches a replay makes, as (wrapper, counter, count)."""
+    """A V-cycle's graph at one MG state under one set of options, on one
+    stream: the unfused cycle's levels below the fine one, or the whole
+    fused cycle.  ``operands`` are the state's tensors it reads, by
+    address; ``rc`` the static input it reads, ``ec`` the static output a
+    replay writes; ``held`` the tensors of the capturing M that it reads
+    besides (every M of the state computes the same values); ``launched``
+    the launches a replay makes, by counter (``_counts``)."""
 
-    __slots__ = ("operands", "graph", "rc", "ec", "launched")
+    __slots__ = ("operands", "graph", "rc", "ec", "held", "launched")
 
     def __init__(self, operands: tuple):
         self.operands = operands
-        self.graph = self.rc = self.ec = None
-        self.launched = []
+        self.graph = self.rc = self.ec = self.held = None
+        self.launched = ([], {})
 
     def reads(self, operands: tuple) -> bool:
         if self.operands is operands:
@@ -465,8 +514,7 @@ class _CoarseGraph:
         stream = torch.cuda.current_stream(dev)
         owner_key = (dev.index, stream.cuda_stream)
         side, owner = pools.get(owner_key) or (torch.cuda.Stream(dev), None)
-        before = [(w, k, getattr(w, k)) for w in wrappers
-                  for k in StencilMatvec.COUNTERS]
+        before = _counts(wrappers)
         graph = torch.cuda.CUDAGraph()
         side.wait_stream(stream)
         try:
@@ -478,26 +526,51 @@ class _CoarseGraph:
                 finally:
                     graph.capture_end()
         finally:
-            self.launched = [(w, k, getattr(w, k) - n)
-                             for w, k, n in before if getattr(w, k) != n]
-            for w, k, n in before:
-                setattr(w, k, n)
+            made = {k: n - before.get(k, 0)
+                    for k, n in _counts(wrappers).items()
+                    if n != before.get(k, 0)}
+            _add(wrappers, {k: -n for k, n in made.items()})
+            self.launched = (wrappers, made)
         stream.wait_stream(side)
         self.graph = graph
         pools[owner_key] = (side, graph)
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for w, k, n in self.launched:
-            setattr(w, k, getattr(w, k) + n)
+        _add(*self.launched)
         return self.ec
 
 
+def _counts(wrappers: list) -> Dict[tuple, int]:
+    """The launch counters of ``wrappers`` (each names its counter
+    attributes in ``COUNTERS``: an int, or a dict of ints) by (index in
+    ``wrappers``, attribute, key; None for an int)."""
+    out = {}
+    for i, w in enumerate(wrappers):
+        for attr in w.COUNTERS:
+            v = getattr(w, attr)
+            if isinstance(v, dict):
+                out.update(((i, attr, k), n) for k, n in v.items())
+            else:
+                out[(i, attr, None)] = v
+    return out
+
+
+def _add(wrappers: list, counts: Dict[tuple, int]) -> None:
+    """Add ``counts`` (by ``_counts``' keys) to the wrappers' counters."""
+    for (i, attr, k), n in counts.items():
+        if k is None:
+            setattr(wrappers[i], attr, getattr(wrappers[i], attr) + n)
+        else:
+            d = getattr(wrappers[i], attr)
+            d[k] = d.get(k, 0) + n
+
+
 def _coarse_slot(state: dict, options: tuple) -> Optional[dict]:
-    """The state's graphs of the V-cycle below the fine level under
-    ``options``, keyed by (dtype, device, stream); None where that cycle
-    always runs eagerly: one level, or a ``parallel.mesh.Sharded``
-    anywhere in the state."""
+    """The state's graphs of the V-cycle (below the fine level, or the
+    whole fused cycle) under ``options``, keyed by (dtype, device, stream,
+    ...); None where that cycle always runs eagerly: one level, or a
+    ``parallel.mesh.Sharded`` anywhere in the state."""
     if len(state["radii"]) < 2 or any(
             isinstance(v, Sharded)
             for k in _OPERANDS for v in state.get(k) or ()):
@@ -505,17 +578,18 @@ def _coarse_slot(state: dict, options: tuple) -> Optional[dict]:
     return state.setdefault("graphs", {}).setdefault(options, {})
 
 
-def _coarse_graph(slot: Optional[dict], r,
-                  operands: tuple) -> Optional[_CoarseGraph]:
+def _coarse_graph(slot: Optional[dict], r, operands: tuple,
+                  more: tuple = ()) -> Optional[_CoarseGraph]:
     """This application's graph, or None to run eagerly: on a CPU or
     ``Sharded`` input, with autograd on, inside another capture, and on the
-    state's first application (which makes its entry: the warm-up)."""
+    state's first application (which makes its entry: the warm-up).
+    ``more`` extends the entry's key past (dtype, device, stream)."""
     if slot is None or type(r) is not torch.Tensor or not r.is_cuda \
             or torch.is_grad_enabled() \
             or torch.cuda.is_current_stream_capturing():
         return None
     dev = r.get_device()
-    key = (r.dtype, dev, launch.stream(dev))
+    key = (r.dtype, dev, launch.stream(dev)) + more
     g = slot.get(key)
     if g is None or not g.reads(operands):
         slot[key] = _CoarseGraph(operands)
@@ -590,10 +664,10 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
     smoother matvecs of every level whose state has bf16 operands through
     B2, and those of the other levels through B1 (the JAX rule,
     ``multigrid.py:496-499``).  On a card the unfused cycle's levels below
-    the fine one replay as one CUDA graph from a state's second
-    application on (the module's docstring); the state keeps its graphs
-    under ``"graphs"``, the hierarchy its graphs' memory pools under
-    ``"graph_pools"``.
+    the fine one, and the fused cycle whole, replay as one CUDA graph from
+    a state's second application on (the module's docstring); the state
+    keeps its graphs under ``"graphs"``, the hierarchy its graphs' memory
+    pools under ``"graph_pools"``.
     """
     if lo_smoother is None:
         lo_smoother = os.environ.get("PLDSO_MG_BF16") == "1"
@@ -618,7 +692,8 @@ def mg_apply(h: dict, state: dict, nu=2, coarse_degree: int = 24,
                 "operands (state built without fused=True / PLDSO_MG_FUSED, "
                 "or the routing found no fused smoother there)" + why
                 + "; the port does not fall back to the unfused V-cycle")
-        return _mg_apply_fused(h, state, nu_at, coarse_degree, smooth_frac)
+        return _FusedVCycle(h, state, nus, nu_at, coarse_degree,
+                            smooth_frac)
     return _VCycle(h, state, nus, nu_at, coarse_degree, smooth_frac,
                    bool(lo_smoother))
 

@@ -15,11 +15,16 @@ phases that closed inside it) and the count, in two forms:
   wait for the device; ``sync.step`` is ``step.chunked``'s read of its
   residual, outside ``pcg``), ``mg.level.<k>`` (one visit of V-cycle level k, the
   coarser levels it calls included), ``mg.state`` (one
-  ``mg_precond_state``) and ``mg.graph.capture`` / ``mg.graph.replay``
-  (one capture / one replay of the unfused V-cycle's levels below the fine
-  one as a CUDA graph, inside ``mg.level.1``: where the graph runs, the
-  spans ``mg.level.2`` and below fire only on eager and capturing
-  applications, and ``mg.level.1`` holds the replay's enqueue).  A
+  ``mg_precond_state``), ``mg.graph.capture`` / ``mg.graph.replay``
+  (one capture / one replay of a V-cycle's CUDA graph: the unfused
+  cycle's levels below the fine one, inside ``mg.level.1``, where the graph
+  runs the spans ``mg.level.2`` and below fire only on eager and capturing
+  applications and ``mg.level.1`` holds the replay's enqueue; the fused
+  cycle whole, inside ``mg.level.0``, the spans below it firing only on
+  eager and capturing applications) and ``mg.fused.b3`` /
+  ``mg.fused.b4`` / ``mg.fused.b5`` (one CUDA launch of the fused V-cycle's
+  kernel B3, B4 or B5, or of its bf16-compute instance, inside
+  ``mg.level.<k>``: the launch path, checks included).  A
   function is one (``@timing.spanned(name)``), or a call is
   (``timing.timed(name, fn)(...)``).  They record only while
   a ``torch.profiler`` session is active; otherwise the decorated function

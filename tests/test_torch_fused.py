@@ -165,7 +165,7 @@ def test_residual_matches_jax(bcc, storage):
 
 def _chain(cheb_run, sc, b, x0, fdinv, fm, r2, residual, frac, deg,
            zeros, f32, to_io):
-    """B3 + a chain of B4 launches, as ``_mg_apply_fused`` runs them on a
+    """B3 + a chain of B4 launches, as ``_FusedVCycle`` runs them on a
     multi-program level; every intermediate (x, r, d) is kept."""
     if x0 is None:
         x, r = zeros(b), b
